@@ -1,0 +1,186 @@
+"""The port's detector end to end, against the JAX package and its goldens.
+
+`det3d_tpu_torch.pipeline.Detector(device="cpu")`, carrying the JAX
+`init_variables(PRNGKey(0))` weights through the port's weight bridge, must
+reproduce the frozen goldens `tests/golden/e2e_{small,mid}.npz` at the
+tolerances of tests/test_golden_e2e.py (valid sets equal, boxes 1e-4,
+scores 1e-5: float32 on both sides, convolutions summed in other orders),
+and agree with the live JAX `Detector.infer_jit` on fresh frames at the same
+tolerances. Also: the weight bridge, the package's isolation from JAX, and
+the CUDA-by-default device rule.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import test_torch_parity_utils as pu
+from det3d_tpu.data.synthetic import sample_scene
+from det3d_tpu_torch.models.pointpillars import PointPillars
+from det3d_tpu_torch.pipeline import Detector, resolve_device
+from det3d_tpu_torch.weights import variables_to_state_dict
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+GOLDEN_DIR = REPO / "tests" / "golden"
+FRAMES = {"small": 6, "mid": 4}
+# Near-ties in score order, recorded in ROADMAP.md (queue 3): two
+# detections of one class whose scores differ by less than the two
+# frameworks' float32 rounding (~1e-7 here), so their ranks swap. Same
+# valid set; the test swaps the golden's two rows after checking that the
+# pair is such a near-tie. (which, frame) -> [(class, slot_a, slot_b)]
+NEAR_TIES = {("mid", 0): [(2, 168, 169)]}
+
+
+def assert_detections_match(got, valid, boxes, scores, msg):
+    np.testing.assert_array_equal(got.valid.numpy(), valid, err_msg=msg)
+    np.testing.assert_allclose(got.boxes.numpy()[valid], boxes[valid], rtol=1e-4, atol=1e-4, err_msg=msg)
+    np.testing.assert_allclose(got.scores.numpy()[valid], scores[valid], rtol=1e-5, atol=1e-5, err_msg=msg)
+
+
+@pytest.fixture(scope="module", params=["small", "mid"])
+def case(request):
+    which = request.param
+    jdet, variables, tdet = pu.golden_detectors(which)
+    return which, jdet, variables, tdet
+
+
+def test_reproduces_frozen_golden(case):
+    which, _, _, tdet = case
+    golden = np.load(GOLDEN_DIR / f"e2e_{which}.npz")
+    total = 0
+    for i in range(FRAMES[which]):
+        got = tdet.infer(torch.from_numpy(golden[f"points_{i}"]), int(golden[f"num_{i}"]))
+        valid = golden[f"valid_{i}"]
+        boxes, scores = golden[f"boxes_{i}"].copy(), golden[f"scores_{i}"].copy()
+        for c, a, b in NEAR_TIES.get((which, i), []):
+            assert valid[c, a] and valid[c, b]
+            np.testing.assert_allclose(scores[c, a], scores[c, b], rtol=0, atol=1e-6)
+            boxes[c, [a, b]], scores[c, [a, b]] = boxes[c, [b, a]], scores[c, [b, a]]
+        assert_detections_match(got, valid, boxes, scores, f"{which} frame {i}")
+        total += int(valid.sum())
+    assert total > 0
+
+
+def test_matches_live_jax_detector(case):
+    which, jdet, variables, tdet = case
+    rng = np.random.RandomState(123)
+    kwargs = {"small": dict(num_objects=(2, 6), ground_points=1200),
+              "mid": dict(num_objects=(4, 10), ground_points=9000)}[which]
+    pts, n = jdet.pad_points(sample_scene(jdet.cfg, rng, **kwargs)["points"])
+    want = jax.device_get(jdet.infer_jit(variables, pts, np.int32(n)))
+    got = tdet.infer(torch.from_numpy(pts), int(n))
+    valid = np.asarray(want.valid, bool)
+    assert valid.any()
+    assert_detections_match(got, valid, np.asarray(want.boxes), np.asarray(want.scores), which)
+
+
+@pytest.fixture(scope="module")
+def small():
+    return pu.golden_detectors("small")
+
+
+def test_detect_annos_match_jax(small):
+    jdet, variables, tdet = small
+    points = sample_scene(jdet.cfg, np.random.RandomState(5), (2, 6), ground_points=1200)["points"]
+    want = jdet.detect(variables, points)
+    got = tdet.detect(points)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["name"], want["name"])
+    for key in ("location", "dimensions", "rotation_y"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4, atol=1e-4, err_msg=key)
+    np.testing.assert_allclose(got["score"], want["score"], rtol=1e-5, atol=1e-5)
+
+
+def test_empty_and_out_of_range_clouds(small):
+    tdet = small[2]
+    for points in (np.zeros((0, 4), np.float32), np.full((50, 4), 1e4, np.float32)):
+        annos = tdet.detect(points)
+        assert len(annos["score"]) == 0
+
+
+def test_weight_bridge_equals_reference_converter(small):
+    jdet, variables, _ = small
+    from det3d_tpu.deploy.torch_interop import variables_to_state_dict as reference
+
+    variables = pu.numpy_variables(variables)
+    got, want = variables_to_state_dict(variables), reference(variables)
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    model = PointPillars(pu.to_torch_cfg(jdet.cfg))
+    model.load_state_dict(pu.bridged_state_dict(variables), strict=True)
+    loaded = model.state_dict()
+    assert set(loaded) == set(want)
+    for key in want:
+        np.testing.assert_array_equal(loaded[key].numpy(), want[key], err_msg=key)
+
+
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "det3d_tpu")
+
+
+def _port_files():
+    return sorted((REPO / "det3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_package_imports_no_jax_fresh_process():
+    code = (
+        "import sys, det3d_tpu_torch, det3d_tpu_torch.pipeline, det3d_tpu_torch.weights, "
+        "det3d_tpu_torch.data.synthetic, det3d_tpu_torch.kernels.scatter_cuda, "
+        "det3d_tpu_torch.kernels.nms_cuda, chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r})\n"
+        "print(bad)\nsys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in _FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_detector_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Detector(pu.to_torch_cfg(pu.small_cfg()))
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "script_alone"])
+def test_chip_smoke_fails_without_card_or_package(tmp_path, alone):
+    """No CUDA card here: the smoke run must fail and print no result, both
+    from the repository and as a lone copy of the script."""
+    script = REPO / "chip_smoke.py"
+    cwd = REPO
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        cwd, script = tmp_path, tmp_path / "chip_smoke.py"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
