@@ -17,7 +17,20 @@ Phases, each printed as it runs; any failure exits non-zero:
      the path must launch on every frame;
   5. the full path in float32 with the kernels against the same path with
      the plain versions on the card, and a small geometry on the card
-     against the CPU, at the tolerances of tests/test_golden_e2e.py.
+     against the CPU, at the tolerances of tests/test_golden_e2e.py;
+  6. the train path's kernels vs their plain versions on the card, at the
+     20 cm shapes (batch 2): the matcher (a real frame pair, no valid gt,
+     every anchor masked: labels, weights and dir equal, targets within
+     1e-6), the scatter backward (bit-equal in f32 and bf16) and the fence
+     copy (bit-equal); device times from CUDA events, host times per call;
+  7. the train step at full width: ntusl_20cm, bf16, batch 2, seeded
+     weights, two seeded ~100k-point scenes repeated; ms/step, peak memory,
+     launches per step of every train-path kernel, finite losses that fall,
+     the host-card synchronisations of one step, a stage breakdown and the
+     profiler's device share;
+  8. one float32 train step with the kernels against one with the plain
+     versions, from the same weights and batch: loss, gradients, updated
+     parameters and batch statistics at the CPU tests' tolerances.
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package.
@@ -25,6 +38,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -38,11 +52,23 @@ SEED = 0
 N_FRAMES = 20
 N_POINTS = 100_000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
+SPIN_CYCLES = 40_000_000    # ~20 ms of a spin kernel at the H100's ~1.98 GHz boost clock
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 # operations per box pair in the NMS suppression test: iw and ih (min, max,
 # sub, add, max each), inter, union (add, sub), the division, the compare;
 # the per-box areas are counted once per box, not per pair
 NMS_OPS_PER_PAIR = 15
+# operations per (included anchor, valid gt of its class) pair in the
+# matcher: the IoU (iw, ih: min, max, sub each; two compares and a multiply
+# for inter; two areas of sub, sub, mul; union add, sub; compare, divide)
+# is 19; pass 1 adds the max, pass 2 the argmax compare and select and the
+# force-match compare, compare and or
+MATCH_OPS_PASS1 = 20
+MATCH_OPS_PASS2 = 24
+TRAIN_BATCH = 2
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 20
+TRAIN_POINTS = 97_000  # ground points of each scene; ~100k with the objects
 
 
 def check(cond: bool, msg: str) -> None:
@@ -63,18 +89,36 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around `iters` calls."""
+    """Mean device time of one call, from CUDA events around `iters` calls.
+    A spin kernel queued first keeps the card busy while the host queues
+    the calls, so a wrapper's Python time does not show as device time
+    (unless the host needs longer than the spin, ~20 ms)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 30) -> float:
+    """Mean host time of one call (the wrapper's Python and the launch),
+    with the card kept busy so that no call waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -232,6 +276,284 @@ def device_time(det, frames) -> tuple[float, list[tuple[str, float]]] | None:
     return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
 
 
+def train_scenes(cfg, seed: int):
+    """Two seeded ~100k-point scenes with 20-40 gt boxes each."""
+    from det3d_tpu_torch.data.synthetic import sample_scene
+
+    rng = np.random.RandomState(seed)
+    return [sample_scene(cfg, rng, (20, 40), ground_points=TRAIN_POINTS) for _ in range(TRAIN_BATCH)]
+
+
+def matcher_inputs(trainer, batch, case: str):
+    """(mask (B, A), gt_boxes, gt_bv, gt_classes, gt_valid) on the card."""
+    from det3d_tpu_torch.targets import gt_standup
+
+    masks = [trainer.detector.preprocess(batch.points[i], batch.num_points[i])[1] for i in range(TRAIN_BATCH)]
+    mask = torch.stack(masks).reshape(TRAIN_BATCH, -1)
+    gt_valid = batch.gt_valid
+    if case == "no valid gt":
+        gt_valid = torch.zeros_like(gt_valid)
+    elif case == "every anchor masked":
+        mask = torch.zeros_like(mask)
+    return mask, batch.gt_boxes, gt_standup(batch.gt_boxes), batch.gt_classes, gt_valid
+
+
+def check_matcher(trainer, batch) -> dict:
+    """Both matcher kernels against the plain dense assignment on the card."""
+    from det3d_tpu_torch.kernels import matcher_cuda as mc
+
+    assigner = trainer.assigner
+    tables = assigner.tables
+    fx, fy = assigner.grid_hw
+    result = {"max_abs_err": 0.0, "gt_max_err": 0.0}
+    for case in ("real frames", "no valid gt", "every anchor masked"):
+        mask, gt_boxes, gt_bv, gt_classes, gt_valid = matcher_inputs(trainer, batch, case)
+        spatial = mask.reshape(TRAIN_BATCH, -1, fx, fy)
+        got_max = mc.decode_gt_max(mc.gt_max_bits_cuda(tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid))
+        want_max = assigner.gt_max_plain(gt_boxes, gt_classes, gt_valid, spatial)
+        got = assigner.kernel(gt_boxes, gt_classes, gt_valid, spatial)
+        want = assigner.plain(gt_boxes, gt_classes, gt_valid, spatial)
+        torch.cuda.synchronize()
+        check(torch.equal(got_max, want_max), f"matcher gt-max differs from the plain version on '{case}'")
+        for name in ("labels", "bbox_outside_weights", "dir_targets"):
+            check(torch.equal(getattr(got, name), getattr(want, name)), f"matcher {name} differ on '{case}'")
+        err = (got.bbox_targets - want.bbox_targets).abs().max().item()
+        torch.testing.assert_close(got.bbox_targets, want.bbox_targets, rtol=1e-6, atol=1e-6)
+        labels = got.labels
+        print(f"matcher {case:20s}: labels/weights/dir equal, gt-max equal, targets max_abs_err={err:.3e}; "
+              f"positives {int((labels > 0).sum())}, negatives {int((labels == 0).sum())}, "
+              f"ignored {int((labels < 0).sum())}")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+
+    mask, gt_boxes, gt_bv, gt_classes, gt_valid = matcher_inputs(trainer, batch, "real frames")
+    spatial = mask.reshape(TRAIN_BATCH, -1, fx, fy)
+    args = (tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid)
+    bits = mc.gt_max_bits_cuda(*args)
+    result["gt_max_ms"] = cuda_ms(lambda: mc.gt_max_bits_cuda(*args))
+    result["assign_ms"] = cuda_ms(lambda: mc.assign_cuda(*args, bits))
+    print(f"matcher host ms per call (wrapper + launch): gt-max {host_ms(lambda: mc.gt_max_bits_cuda(*args)):.4f}, "
+          f"assign {host_ms(lambda: mc.assign_cuda(*args, bits)):.4f}, "
+          f"TargetAssigner.kernel {host_ms(lambda: assigner.kernel(gt_boxes, gt_classes, gt_valid, spatial)):.4f}")
+    plain = (gt_boxes, gt_classes, gt_valid, spatial)
+    result["gt_max_plain_ms"] = cuda_ms(lambda: assigner.gt_max_plain(*plain), iters=5, warmup=1)
+    result["assign_plain_ms"] = cuda_ms(lambda: assigner.plain(*plain), iters=5, warmup=1)
+
+    # bounds from this run's inputs: every input read once, every output
+    # written once; operations over the pairs this data needs
+    a = tables.anchors.shape[0]
+    g = gt_valid.shape[1]
+    hw = fx * fy
+    pairs = 0
+    for b in range(TRAIN_BATCH):
+        for ci, (c0, c1) in enumerate(assigner.channels):
+            included = int(mask[b, c0 * hw : c1 * hw].sum())
+            valid = int((gt_valid[b] & (gt_classes[b] == ci + 1)).sum())
+            pairs += included * valid
+    gt_bytes = TRAIN_BATCH * g * (16 + 4 + 1)
+    pass1_bytes = a * 16 + TRAIN_BATCH * a + gt_bytes + TRAIN_BATCH * g * 4
+    pass2_bytes = a * (28 + 16) + TRAIN_BATCH * a + gt_bytes + TRAIN_BATCH * g * (28 + 4) \
+        + TRAIN_BATCH * a * (4 + 28 + 4 + 4)
+    for key, moved, ops in (("gt_max", pass1_bytes, pairs * MATCH_OPS_PASS1),
+                            ("assign", pass2_bytes, pairs * MATCH_OPS_PASS2)):
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        result[f"{key}_bound_ms"] = max(t_bytes, t_ops) * 1e3
+        result[f"{key}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"matcher {key}: kernel_ms={result[f'{key}_ms']:.4f} plain_ms={result[f'{key}_plain_ms']:.4f} "
+              f"library_ms=none bound_ms={result[f'{key}_bound_ms']:.5f} ({result[f'{key}_bound_by']}; "
+              f"{moved} bytes, {ops} operations over {pairs} pairs)")
+    return result
+
+
+def check_scatter_bwd(grid_xy, v: int, c: int) -> dict:
+    """The backward gather against the plain gather, bit for bit, on a
+    channels-last cotangent like the one the first convolution returns."""
+    from det3d_tpu_torch.kernels import scatter_cuda as sc
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    nx, ny = grid_xy
+    result = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_valid in (12_000, 0):
+            _, coors = scatter_inputs(v, c, grid_xy, n_valid, dtype, gen)
+            grad = torch.randn((TRAIN_BATCH, c, nx, ny), generator=gen).to(dtype).cuda()
+            grad = grad.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            coors = coors.expand(TRAIN_BATCH, -1, -1).contiguous()
+            got = sc.scatter_to_bev_bwd_cuda(grad, coors)
+            want = sc.scatter_to_bev_bwd_plain(grad, coors)
+            torch.cuda.synchronize()
+            equal = torch.equal(bits(got), bits(want))
+            print(f"scatter bwd {str(dtype):15s} valid={n_valid:5d}: bit-equal={equal}")
+            check(equal, f"scatter backward {dtype} with {n_valid} pillars differs from the plain gather")
+        _, coors = scatter_inputs(v, c, grid_xy, 12_000, dtype, gen)
+        coors = coors.expand(TRAIN_BATCH, -1, -1).contiguous()
+        grad = torch.randn((TRAIN_BATCH, c, nx, ny), generator=gen).to(dtype).cuda()
+        grad = grad.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        bi, x, y, keep = sc._kept_rows(coors, grid_xy)
+        idx = (bi[keep], x[keep], y[keep])
+        ms = cuda_ms(lambda: sc.scatter_to_bev_bwd_cuda(grad, coors))
+        plain_ms = cuda_ms(lambda: sc.scatter_to_bev_bwd_plain(grad, coors))
+        library_ms = cuda_ms(lambda: grad[idx])
+        kept = int(keep.sum())
+        moved = (kept * c + TRAIN_BATCH * v * c) * grad.element_size() + coors.numel() * 4
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        print(f"scatter bwd {str(dtype):15s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (advanced indexing) bound_ms={bound_ms:.5f} (bytes); "
+              f"host ms per call {host_ms(lambda: sc.scatter_to_bev_bwd_cuda(grad, coors)):.4f}")
+        result[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms)
+    return result
+
+
+def check_fence(preds_cls: torch.Tensor) -> dict:
+    """The fence copy against `clone`, bit for bit, on the head's strided
+    `cls_preds` view and on a contiguous tensor."""
+    from det3d_tpu_torch.kernels import fence_cuda as fc
+
+    for name, x in (("cls_preds view", preds_cls), ("contiguous", preds_cls.contiguous()),
+                    ("odd-sized f32", torch.randn(7, 13, 5, device="cuda"))):
+        got, want = fc.fence_copy_cuda(x), fc.fence_copy_plain(x)
+        torch.cuda.synchronize()
+        equal = torch.equal(bits(got), bits(want)) and got.is_contiguous()
+        print(f"fence {name:15s} {tuple(x.shape)} {x.dtype} strides {x.stride()}: bit-equal={equal}")
+        check(equal, f"fence copy differs from clone on the {name}")
+    ms = cuda_ms(lambda: fc.fence_copy_cuda(preds_cls))
+    library_ms = cuda_ms(lambda: preds_cls.clone())
+    moved = 2 * preds_cls.numel() * preds_cls.element_size()
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    print(f"fence {tuple(preds_cls.shape)} kernel_ms={ms:.4f} plain_ms=library_ms={library_ms:.4f} (clone) "
+          f"bound_ms={bound_ms:.5f} (bytes); host ms per call {host_ms(lambda: fc.fence_copy_cuda(preds_cls)):.4f}")
+    return dict(ms=ms, plain_ms=library_ms, library_ms=library_ms, bound_ms=bound_ms, max_abs_err=0.0)
+
+
+TRAIN_COUNTERS = ("matcher_gt_max", "matcher_assign", "scatter_fwd", "scatter_bwd", "fence", "nms")
+
+
+def train_counters():
+    from det3d_tpu_torch.kernels import fence_cuda, matcher_cuda, nms_cuda, scatter_cuda
+
+    return dict(zip(TRAIN_COUNTERS, (matcher_cuda.gt_max_counter, matcher_cuda.assign_counter,
+                                     scatter_cuda.counter, scatter_cuda.bwd_counter, fence_cuda.counter,
+                                     nms_cuda.counter)))
+
+
+def train_stage_breakdown(trainer, state, batch, steps: int) -> dict[str, float]:
+    """Median ms of each stage of `Trainer.train_step`, host clock with a
+    synchronize after every stage."""
+    from det3d_tpu_torch.losses import detection_loss
+
+    spans: dict[str, list[float]] = {}
+    for _ in range(steps):
+        marks = [("start", time.perf_counter())]
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        dev_batch = trainer.to_device(batch)
+        mark("host batch to card")
+        frames, tgt = trainer.prepare(dev_batch)
+        mark("prepare (voxelize, mask, assign)")
+        preds = trainer.model(frames.voxels, frames.num_points_per_voxel, frames.coors, train=True)
+        preds = dict(preds, cls_preds=trainer.fence(preds["cls_preds"]))
+        mark("forward (+ fence)")
+        loss_dict = detection_loss(preds, tgt.labels, tgt.bbox_targets, tgt.dir_targets)
+        mark("loss")
+        for p in trainer.params:
+            p.grad = None
+        loss_dict["loss"].backward()
+        mark("backward")
+        trainer.apply_gradients(state)
+        mark("optimizer (clip + Adam)")
+        for (_, t0), (name, t1) in zip(marks, marks[1:]):
+            spans.setdefault(name, []).append((t1 - t0) * 1e3)
+    return {name: statistics.median(v) for name, v in spans.items()}
+
+
+def count_syncs(fn) -> list[str]:
+    """The host-card synchronisations that one call of `fn` makes (as
+    torch's sync debug mode reports them), by the line that made them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{w.filename.split('/')[-1]}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+
+
+def profile_device_time(fn, n: int) -> tuple[float, list[tuple[str, float]]] | None:
+    """Device time per call of `fn` from a torch.profiler trace (sum of the
+    card's kernel, memset and memcpy spans) and the top device ops per call;
+    None when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    if not by_name:
+        return None
+    return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+
+
+def compare_train_steps(cfg32, batch) -> None:
+    """One float32 step with the kernels against one with the plain
+    versions, from the same weights and batch (phase 8). Tolerances of
+    tests/test_torch_train.py: loss terms rtol 1e-5; gradients within 1e-4
+    of each tensor's largest; updated parameters within 1e-6 where the
+    gradient is above 1e-3 of its tensor's largest, else within 2·lr (Adam's
+    first step is about lr·sign(g)); batch statistics rtol 1e-5."""
+    from det3d_tpu_torch.kernels import fence_cuda, scatter_cuda
+    from det3d_tpu_torch.train.trainer import Trainer
+
+    runs = []
+    for plain in (False, True):
+        trainer = Trainer(cfg32)
+        state = trainer.init_state(SEED)
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        if plain:
+            trainer.assigner = trainer.assigner.plain
+            trainer.model.scatter = scatter_cuda.scatter_to_bev_plain
+            trainer.fence = fence_cuda.fence_copy_plain
+        state, loss, _ = trainer.train_step(state, batch)
+        grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+        runs.append((loss, grads, trainer.model.state_dict(), state.lr))
+        del trainer
+    (lk, gk, sk, lr), (lp, gp, sp, _) = runs
+    for key in lk:
+        torch.testing.assert_close(lk[key], lp[key], rtol=1e-5, atol=1e-6)
+    print("f32 step, kernels vs plain: loss " + ", ".join(f"{k}={float(lk[k]):.6f}/{float(lp[k]):.6f}" for k in lk))
+    worst_g = worst_p = worst_small = 0.0
+    for name, g in gk.items():
+        scale = gp[name].abs().max().item()
+        dg = (g - gp[name]).abs().max().item()
+        check(dg <= 1e-4 * scale + 1e-12, f"gradient of {name}: {dg} against scale {scale}")
+        worst_g = max(worst_g, dg / max(scale, 1e-30))
+        big = gp[name].abs() > 1e-3 * scale
+        dp = (sk[name] - sp[name]).abs()
+        if big.any():
+            check(dp[big].max().item() <= 1e-6, f"updated {name} differs where the gradient is large")
+            worst_p = max(worst_p, dp[big].max().item())
+        check(dp.max().item() <= 2 * lr, f"updated {name} differs by more than 2·lr")
+        worst_small = max(worst_small, dp.max().item())
+    for name in sk:
+        if "running" in name:
+            torch.testing.assert_close(sk[name], sp[name], rtol=1e-5, atol=1e-6)
+            check(not torch.equal(sk[name], before[name]), f"{name} was not updated")
+    print(f"f32 step, kernels vs plain: gradients within {worst_g:.2e} of each tensor's largest; updated "
+          f"params within {worst_p:.2e} where |g| is large, {worst_small:.2e} overall (lr {lr}); batch stats equal "
+          "to rtol 1e-5")
+
+
+
 def small_config():
     """A 32x32-grid geometry with the default 9 anchors per location."""
     from det3d_tpu_torch.config import load_config
@@ -346,6 +668,74 @@ def main() -> int:
         b = on_cpu.infer(torch.from_numpy(padded), int(n))
         assert_detections_close(a, b, f"small geometry frame {i}, card vs CPU")
 
+    phase("6. train-path kernels vs plain versions on the card")
+    from det3d_tpu_torch.train.trainer import Trainer, host_batch
+
+    trainer = Trainer(cfg)
+    state = trainer.init_state(SEED)
+    batch = host_batch(cfg, train_scenes(cfg, SEED))
+    print(f"batch of {TRAIN_BATCH}: points {batch.num_points.tolist()}, valid gt {batch.gt_valid.sum(1).tolist()} "
+          f"(classes {[np.bincount(c[v], minlength=4)[1:].tolist() for c, v in zip(batch.gt_classes, batch.gt_valid)]})")
+    dev_batch = trainer.to_device(batch)
+    matcher = check_matcher(trainer, dev_batch)
+    scatter_bwd = check_scatter_bwd(grid_xy, cfg.max_voxels, 64)
+    with torch.no_grad():
+        frames, _ = trainer.prepare(dev_batch)
+        preds = trainer.model(frames.voxels, frames.num_points_per_voxel, frames.coors)
+    fence = check_fence(preds["cls_preds"])
+    del frames, preds
+
+    phase("7. train step at full width (ntusl_20cm, bf16, batch 2)")
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = train_counters()
+    for c in counters.values():
+        c.launches = 0
+    times, history = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in loss.items()})
+    train_launches = {name: c.launches for name, c in counters.items()}
+    train_peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    print(f"ms/step median {step_ms:.3f} (host clock around train_step + synchronize; min {min(times):.3f}, "
+          f"max {max(times):.3f}) over {len(times)} steps after {TRAIN_WARMUP} warm-up steps")
+    print(f"peak memory allocated {train_peak} bytes")
+    print("loss by step: " + " ".join(f"{h['loss']:.4f}" for h in history))
+    print(f"last step: {history[-1]}; metrics tp {metrics['tp'].tolist()} fp {metrics['fp'].tolist()} "
+          f"fn {metrics['fn'].tolist()}")
+    for h in history:
+        check(all(np.isfinite(v) for v in h.values()), f"non-finite loss term in {h}")
+    check(history[-1]["loss"] < history[0]["loss"], "the loss did not fall on the repeated batch")
+    print(f"launches over {TRAIN_STEPS} steps: {train_launches}")
+    expected = {name: TRAIN_STEPS for name in TRAIN_COUNTERS}
+    expected["nms"] = 0
+    check(train_launches == expected, f"train-path launches {train_launches}, expected {expected}")
+    syncs = count_syncs(lambda: trainer.train_step(state, batch))
+    print(f"host-card synchronisations in one train_step: {len(syncs)} "
+          f"({', '.join(f'{k} x{v}' for k, v in sorted(collections.Counter(syncs).items()))})")
+    print("stage breakdown, median ms over 5 steps (synchronized after each stage):")
+    for name, ms in train_stage_breakdown(trainer, state, batch, 5).items():
+        print(f"  {name:36s} {ms:.3f}")
+    traced = profile_device_time(lambda: trainer.train_step(state, batch), 3)
+    if traced is None:
+        print("device time per step: not measured (the profiler trace holds no device events)")
+    else:
+        busy, top = traced
+        print(f"device time per step (torch.profiler, 3 steps): {busy:.3f} ms = "
+              f"{100 * busy / step_ms:.1f}% of the {step_ms:.3f} ms median step")
+        for name, ms in top:
+            print(f"  {ms:8.3f} ms  {name[:100]}")
+    del trainer, state
+
+    phase("8. f32 train step, kernels vs plain versions")
+    compare_train_steps(cfg32, batch)
+
     kernels = [
         {
             "name": "scatter_to_bev", "route": "cuda",
@@ -360,6 +750,36 @@ def main() -> int:
             "source": "det3d_tpu_torch/kernels/csrc/nms.cu",
             "replaces": "det3d_tpu/kernels/nms_pallas.py:30",
             "launches": launches["nms"], "library_ms": None, **nms,
+        },
+        {
+            "name": "scatter_to_bev_bwd", "route": "cuda",
+            "source": "det3d_tpu_torch/kernels/csrc/scatter.cu",
+            "replaces": "det3d_tpu/kernels/scatter_pallas.py:290",
+            "launches": train_launches["scatter_bwd"], "max_abs_err": scatter_bwd["max_abs_err"],
+            **{k: scatter_bwd[torch.bfloat16][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes",
+        },
+        {
+            "name": "matcher_gt_max", "route": "cuda",
+            "source": "det3d_tpu_torch/kernels/csrc/matcher.cu",
+            "replaces": "det3d_tpu/kernels/matcher_pallas.py:66",
+            "launches": train_launches["matcher_gt_max"], "max_abs_err": matcher["gt_max_err"],
+            "ms": matcher["gt_max_ms"], "plain_ms": matcher["gt_max_plain_ms"],
+            "bound_ms": matcher["gt_max_bound_ms"], "bound_by": matcher["gt_max_bound_by"], "library_ms": None,
+        },
+        {
+            "name": "matcher_assign", "route": "cuda",
+            "source": "det3d_tpu_torch/kernels/csrc/matcher.cu",
+            "replaces": "det3d_tpu/kernels/matcher_pallas.py:139",
+            "launches": train_launches["matcher_assign"], "max_abs_err": matcher["max_abs_err"],
+            "ms": matcher["assign_ms"], "plain_ms": matcher["assign_plain_ms"],
+            "bound_ms": matcher["assign_bound_ms"], "bound_by": matcher["assign_bound_by"], "library_ms": None,
+        },
+        {
+            "name": "fence_copy", "route": "cuda",
+            "source": "det3d_tpu_torch/kernels/csrc/fence.cu",
+            "replaces": "det3d_tpu/kernels/fence_pallas.py:23",
+            "launches": train_launches["fence"], "bound_by": "bytes", **fence,
         },
     ]
     print(f"\ntotal {time.time() - t_start:.1f} s")

@@ -26,11 +26,14 @@ _COMMON_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Per-library extra flags. NMS must equal its plain version bit for bit, so
-# no multiply-add contraction and IEEE division (no --use_fast_math).
+# Per-library extra flags. NMS and the matcher must equal their plain
+# versions bit for bit (keep masks; IoUs compared with ==), so no
+# multiply-add contraction and IEEE division (no --use_fast_math).
 EXTRA_FLAGS = {
     "scatter": (),
     "nms": ("-fmad=false", "-prec-div=true"),
+    "matcher": ("-fmad=false", "-prec-div=true"),
+    "fence": (),
 }
 
 

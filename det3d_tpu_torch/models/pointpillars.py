@@ -1,4 +1,4 @@
-"""PointPillars inference network in PyTorch.
+"""PointPillars network in PyTorch, for inference and training.
 
 Counterpart of the dense path of the JAX package's models/pointpillars.py
 (reference: networks/pointpillars8_shared.py): PFN → BEV scatter → RPN →
@@ -8,8 +8,9 @@ JAX checkpoint loads with `strict=True`.
 
 Parameters stay float32; convolutions and matmuls run in the config's
 compute dtype (weights cast per call), normalisation statistics in float32,
-as in the JAX package. Inference only: the PFN batch norm always uses its
-running statistics (training, with masked statistics, is a later slice).
+as in the JAX package. `forward(..., train=True)` is the JAX model's
+`train=True`: the PFN batch norm normalises with masked batch statistics
+and updates its running statistics; otherwise it uses the running ones.
 
 Layouts at the public boundary are the JAX package's: the canvas is
 (B, nx, ny, C), and the predictions are spatial channel-major —
@@ -51,7 +52,8 @@ class PFN(nn.Module):
             [nn.Conv1d(in_channels, out_channels, 1, bias=False), nn.BatchNorm1d(out_channels)]
         )
 
-    def forward(self, voxels: torch.Tensor, num_points: torch.Tensor, coors: torch.Tensor) -> torch.Tensor:
+    def forward(self, voxels: torch.Tensor, num_points: torch.Tensor, coors: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         # voxels (B, V, P, 4) f32, num_points (B, V) int32, coors (B, V, 3)
         vx, vy = self.voxel_size[0], self.voxel_size[1]
         x_offset = vx / 2 + self.offset[0]
@@ -73,8 +75,12 @@ class PFN(nn.Module):
 
         conv, bn = self.pfn_layers
         x = F.linear(features.to(self.dtype), conv.weight[:, :, 0].to(self.dtype))
-        # eval batch norm on the running statistics, in float32
-        y = (x.float() - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
+        if train:
+            mean, var = masked_batch_stats(x, mask, bn)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        # batch norm in float32
+        y = (x.float() - mean) * torch.rsqrt(var + bn.eps)
         x = (y * bn.weight + bn.bias).to(self.dtype)
         x = torch.relu(x)
         # max over ALL point slots, padding included: a padding slot carries
@@ -85,23 +91,81 @@ class PFN(nn.Module):
         return torch.where((num_points > 0)[..., None], x, 0.0).to(self.dtype)
 
 
-def instance_norm(x: torch.Tensor) -> torch.Tensor:
-    """InstanceNorm2d without affine, eps 1e-3, over (H, W) of an NCHW map
-    (reference :128): float32 single-pass moments, the biased variance, and
-    the normalisation applied in the input dtype, as the JAX package does."""
+def masked_batch_stats(x: torch.Tensor, mask: torch.Tensor, bn: nn.BatchNorm1d):
+    """Training statistics of the PFN batch norm (the JAX package's
+    MaskedBatchNorm, models/pointpillars.py:51-104): float32 mean and biased
+    variance over the valid point slots only, per channel of x (..., C);
+    `mask` (...) marks the valid slots. Updates `bn`'s running statistics
+    with the unbiased variance sum_sq / max(count - 1, 1), as torch's
+    BatchNorm1d stores it. `nn.BatchNorm1d`'s own train forward would
+    average the padding slots too, so it holds the parameters only."""
+    m = mask.to(torch.float32)[..., None]
+    xf = x.to(torch.float32)
+    red = tuple(range(x.dim() - 1))
+    count = m.sum()
+    denom = torch.clamp(count, min=1.0)
+    mean = (xf * m).sum(dim=red) / denom
+    sum_sq = (m * (xf - mean) ** 2).sum(dim=red)
+    with torch.no_grad():
+        # torch's convention: momentum is the share of the new batch statistic
+        var_unbiased = sum_sq / torch.clamp(count - 1.0, min=1.0)
+        bn.running_mean.copy_((1 - bn.momentum) * bn.running_mean + bn.momentum * mean)
+        bn.running_var.copy_((1 - bn.momentum) * bn.running_var + bn.momentum * var_unbiased)
+    return mean, sum_sq / denom
+
+
+def _in_moments(x: torch.Tensor):
+    """Per-(sample, channel) float32 mean and rsqrt(var + 1e-3) of an NCHW
+    map, from single-pass sums; and the element count per channel."""
     xf = x.float()
     n = x.shape[2] * x.shape[3]
     mean = xf.sum(dim=(2, 3)) / n
     var = torch.clamp((xf * xf).sum(dim=(2, 3)) / n - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + 1e-3)
+    return mean, torch.rsqrt(var + 1e-3), n
+
+
+def instance_norm(x: torch.Tensor) -> torch.Tensor:
+    """InstanceNorm2d without affine, eps 1e-3, over (H, W) of an NCHW map
+    (reference :128): float32 single-pass moments, the biased variance, and
+    the normalisation applied in the input dtype, as the JAX package does."""
+    mean, inv, _ = _in_moments(x)
     return (x - mean[:, :, None, None].to(x.dtype)) * inv[:, :, None, None].to(x.dtype)
 
 
+class InstanceNormFn(torch.autograd.Function):
+    """`instance_norm` with the analytic backward of the JAX package's
+    `_in_bwd` (models/pointpillars.py:321-332):
+        dx = r·(g − mean(g) − x̂·mean(g·x̂)),  x̂ = (x − μ)·r,
+    two float32 reductions and one elementwise pass over the cotangent, in
+    place of autograd through the single-pass moments (another rounding of
+    the same function, at a higher cost)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        mean, inv, n = _in_moments(x)
+        ctx.save_for_backward(x, mean, inv)
+        ctx.n = n
+        return (x - mean[:, :, None, None].to(x.dtype)) * inv[:, :, None, None].to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, inv = ctx.saved_tensors
+        inv_c = inv[:, :, None, None].to(x.dtype)
+        xhat = (x - mean[:, :, None, None].to(x.dtype)) * inv_c
+        m_g = g.float().sum(dim=(2, 3)) / ctx.n
+        m_gx = (g * xhat).float().sum(dim=(2, 3)) / ctx.n
+        dx = inv_c * (g - m_g[:, :, None, None].to(g.dtype) - xhat * m_gx[:, :, None, None].to(g.dtype))
+        return dx.to(x.dtype)
+
+
 class InstanceNorm(nn.Module):
-    """`instance_norm` as a module, so Sequential indices match the
-    reference's (it holds no parameters or buffers)."""
+    """Instance norm as a module, so Sequential indices match the
+    reference's (it holds no parameters or buffers): `instance_norm` under
+    no_grad, `InstanceNormFn` when a gradient is wanted."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            return InstanceNormFn.apply(x)
         return instance_norm(x)
 
 
@@ -234,9 +298,11 @@ class PointPillars(nn.Module):
         self.heads = SharedHead(self.rpn.out_channels, cfg.num_anchors_per_loc, cfg.box_code_size)
         self.scatter = scatter_to_bev
 
-    def forward(self, voxels: torch.Tensor, num_points: torch.Tensor, coors: torch.Tensor) -> dict:
-        # voxels (B, V, P, 4), num_points (B, V) int32, coors (B, V, 3) int32
-        pillar_features = self.pillar_point_net(voxels, num_points, coors)
+    def forward(self, voxels: torch.Tensor, num_points: torch.Tensor, coors: torch.Tensor,
+                train: bool = False) -> dict:
+        # voxels (B, V, P, 4), num_points (B, V) int32, coors (B, V, 3) int32;
+        # train: masked batch statistics in the PFN (and their running update)
+        pillar_features = self.pillar_point_net(voxels, num_points, coors, train)
         canvas = self.scatter(pillar_features.contiguous(), coors.contiguous(), self.grid_xy)
         x = canvas.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         return self.heads(self.rpn(x))
@@ -261,4 +327,6 @@ def init_weights(model: PointPillars, seed: int) -> PointPillars:
             w.copy_(torch.randn(w.shape, generator=gen) * std)
             if module.bias is not None:
                 module.bias.zero_()
+        elif isinstance(module, nn.BatchNorm1d):
+            module.reset_parameters()  # unit scale, zero bias, identity running stats
     return model

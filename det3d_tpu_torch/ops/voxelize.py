@@ -24,6 +24,7 @@ their point cap. The kept pillar set is identical.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,13 +62,22 @@ class VoxelizedFrame(NamedTuple):
     voxel_num: torch.Tensor          # () int32
 
 
+@functools.cache
+def _grid_tensors(spec: VoxelizerSpec, device: torch.device):
+    """The grid's voxel size, offset and size as tensors on `device`, made
+    once: a tensor made from a Python list copies to the card and waits for
+    it, which would stall every frame."""
+    return (
+        torch.tensor(spec.voxel_size, dtype=torch.float32, device=device),
+        torch.tensor(spec.offset, dtype=torch.float32, device=device),
+        torch.tensor(spec.grid_size, dtype=torch.int32, device=device),
+    )
+
+
 def point_cell_coords(points: torch.Tensor, spec: VoxelizerSpec):
     """Per-point integer cell coordinate and in-grid flag (floor-divide
     binning of reference voxel_generator.py:89-92)."""
-    dev = points.device
-    voxel_size = torch.tensor(spec.voxel_size, dtype=torch.float32, device=dev)
-    offset = torch.tensor(spec.offset, dtype=torch.float32, device=dev)
-    grid = torch.tensor(spec.grid_size, dtype=torch.int32, device=dev)
+    voxel_size, offset, grid = _grid_tensors(spec, points.device)
     coor = torch.floor((points[:, :3] - offset) / voxel_size).to(torch.int32)
     inside = ((coor >= 0) & (coor < grid)).all(dim=-1)
     return coor, inside

@@ -4,8 +4,11 @@
 CPU half: `scatter_to_bev_plain` against `scatter_to_bev_pallas(interpret=
 True)` — equal, the scatter only moves values; `nms_keep_plain` against
 `greedy_nms_pallas(interpret=True)` and the sequential numpy oracle — keep
-masks equal, both evaluate the same float32 IoU expression. JAX is imported
-inside those tests only, so that the GPU half runs where JAX is absent.
+masks equal, both evaluate the same float32 IoU expression; the wrappers'
+input checks and device dispatch (the matcher's and the train step's
+parity with JAX are in test_torch_targets.py and test_torch_train.py). JAX
+is imported inside those tests only, so that the GPU half runs where JAX
+is absent.
 
 GPU half: needs a CUDA card and skips without one (decided in a fixture,
 never at import). On the card, from the repository root:
@@ -20,7 +23,8 @@ import pytest
 import torch
 
 import np_ref
-from det3d_tpu_torch.kernels import build, nms_cuda, scatter_cuda
+from det3d_tpu_torch.config import load_config
+from det3d_tpu_torch.kernels import build, fence_cuda, matcher_cuda, nms_cuda, scatter_cuda
 from det3d_tpu_torch.ops.nms import greedy_keep, rank_cap
 
 torch.set_num_threads(1)
@@ -164,6 +168,49 @@ class TestNmsPlain:
             fn(boxes, valid, 0.1)
 
 
+class TestTrainKernelWrappers:
+    def test_kernels_reject_cpu_tensors(self):
+        feats, coors = (torch.from_numpy(a) for a in scatter_case(1, 20, 4, (8, 8), 10, 6))
+        with pytest.raises(ValueError):
+            scatter_cuda.scatter_to_bev_bwd_cuda(torch.zeros(1, 8, 8, 4), coors)
+        with pytest.raises(ValueError):
+            fence_cuda.fence_copy_cuda(feats)
+        cfg = load_config(MATCH_CFG)
+        assigner = make_assigner(cfg, "cpu")
+        mask, gt_boxes, gt_classes, gt_valid = matcher_case(cfg, assigner, 0, "cpu")
+        with pytest.raises(ValueError):
+            matcher_cuda.match_cuda(assigner.tables, mask.reshape(2, -1), gt_boxes,
+                                    gt_boxes[..., :4].contiguous(), gt_classes, gt_valid)
+
+    @pytest.mark.parametrize("view", ["cls_preds", "sliced", "contiguous", "unit_axes"])
+    def test_fence_iteration_layout_is_the_copy(self, view):
+        if view == "cls_preds":
+            y = torch.randn(2, 90, 8, 6).contiguous(memory_format=torch.channels_last)
+            x = y[:, :9].reshape(2, 9, 1, 8, 6).transpose(1, 2)
+        elif view == "sliced":
+            x = torch.randn(4, 6, 10)[:, 1::2, 3:]
+        elif view == "contiguous":
+            x = torch.randn(3, 4, 5)
+        else:
+            x = torch.randn(1, 5, 1, 7)[:, :, :, ::3]
+        sizes, src, dst = fence_cuda._iteration_layout(x)
+        assert len(sizes) <= max(x.dim(), 1) and all(s > 1 for s in sizes)
+        # the iteration space read from the source and written to the output
+        # through their strides is the copy
+        seen = torch.as_strided(x, sizes, src, x.storage_offset())
+        out = torch.empty(x.numel(), dtype=x.dtype)
+        torch.as_strided(out, sizes, dst).copy_(seen)
+        assert torch.equal(out, x.reshape(-1))
+        assert src == sorted(src, reverse=True)
+        if view == "cls_preds":
+            assert sizes == [2, 8 * 6, 9] and src[-1] == 1
+
+    def test_matcher_and_fence_build_flags(self):
+        assert {"-fmad=false", "-prec-div=true"} <= set(build.EXTRA_FLAGS["matcher"])
+        assert set(build.EXTRA_FLAGS) == {"scatter", "nms", "matcher", "fence"}
+        assert all((build.CSRC / f"{name}.cu").exists() for name in build.EXTRA_FLAGS)
+
+
 def test_build_hash_covers_source_and_flags(monkeypatch):
     """A library's file name changes with its flags, so a stale build of
     other flags is never loaded."""
@@ -171,6 +218,49 @@ def test_build_hash_covers_source_and_flags(monkeypatch):
     monkeypatch.setitem(build.EXTRA_FLAGS, "nms", ())
     assert build._library_path("nms") != before
     assert before.parent == build.BUILD_DIR and before.suffix == ".so"
+
+
+# --- the matcher's inputs (numpy-made, no JAX) -----------------------------
+
+# the mid geometry (100x100 feature map, 9 anchor channels, 16 gt)
+MATCH_CFG = {
+    "detection_range": [-50.0, -50.0, -2.5, 50.0, 50.0, 8.5],
+    "center_limit": [-50.0, -50.0, -10.0, 50.0, 50.0, 10.0],
+    "voxel_size": [0.5, 0.5, 11.0], "max_voxels": 2000, "max_num_points": 8,
+    "max_points": 20000, "max_gt_boxes": 16, "compute_dtype": "float32",
+}
+
+
+def make_assigner(cfg, device):
+    from det3d_tpu_torch.anchors import build_anchors
+    from det3d_tpu_torch.targets import make_target_assigner
+
+    return make_target_assigner(cfg, build_anchors(cfg), device)
+
+
+def matcher_case(cfg, assigner, seed, device, n_gt=12):
+    """A batch of two: gt on anchor centres of random classes (ties and
+    force-matches happen), padding rows, a random anchor mask."""
+    from det3d_tpu_torch.targets import pad_gt
+
+    r = np.random.RandomState(seed)
+    anchors = assigner.tables.anchors.cpu().numpy()
+    hw = assigner.grid_hw[0] * assigner.grid_hw[1]
+    rows = []
+    for _ in range(2):
+        classes = r.randint(1, len(cfg.class_specs) + 1, n_gt).astype(np.int32)
+        boxes = np.zeros((n_gt, 7), np.float32)
+        for i, c in enumerate(classes):
+            c0, c1 = assigner.channels[c - 1]
+            boxes[i] = anchors[r.randint(c0 * hw, c1 * hw)]
+            boxes[i, :2] += r.uniform(-0.6, 0.6, 2)
+            boxes[i, 3:6] *= r.uniform(0.6, 1.4, 3)
+            boxes[i, 6] = r.uniform(-np.pi, np.pi)
+        rows.append(pad_gt(cfg, boxes, classes))
+    gt_boxes, gt_classes, gt_valid = (torch.from_numpy(np.stack(x)).to(device) for x in zip(*rows))
+    fx, fy = assigner.grid_hw
+    mask = torch.from_numpy(r.rand(2, anchors.shape[0] // hw, fx, fy) > 0.3).to(device)
+    return mask, gt_boxes, gt_classes, gt_valid
 
 
 # --- GPU half: the CUDA kernels against their plain versions -------------
@@ -221,3 +311,84 @@ def test_nms_kernel_rejects_large_k(cuda):
     valid = torch.ones((1, nms_cuda.MAX_K + 1), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         nms_cuda.nms_keep(boxes, valid, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "no valid gt", "every anchor masked"])
+def test_matcher_kernels_equal_plain(cuda, case):
+    from det3d_tpu_torch.targets import gt_standup
+
+    cfg = load_config(MATCH_CFG)
+    assigner = make_assigner(cfg, cuda)
+    mask, gt_boxes, gt_classes, gt_valid = matcher_case(cfg, assigner, 1, cuda)
+    if case == "no valid gt":
+        gt_valid = torch.zeros_like(gt_valid)
+    elif case == "every anchor masked":
+        mask = torch.zeros_like(mask)
+    before = (matcher_cuda.gt_max_counter.launches, matcher_cuda.assign_counter.launches)
+    got = assigner(gt_boxes, gt_classes, gt_valid, mask)
+    want = assigner.plain(gt_boxes, gt_classes, gt_valid, mask)
+    bits = matcher_cuda.gt_max_bits_cuda(assigner.tables, mask.reshape(2, -1), gt_boxes, gt_standup(gt_boxes),
+                                         gt_classes, gt_valid)
+    torch.cuda.synchronize()
+    assert (matcher_cuda.gt_max_counter.launches, matcher_cuda.assign_counter.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(matcher_cuda.decode_gt_max(bits), assigner.gt_max_plain(gt_boxes, gt_classes, gt_valid, mask))
+    for name in ("labels", "bbox_outside_weights", "dir_targets"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    torch.testing.assert_close(got.bbox_targets, want.bbox_targets, rtol=1e-6, atol=1e-6)
+    if case == "random":
+        assert (got.labels > 0).sum() >= 12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["channels_last", "strided"])
+def test_scatter_bwd_kernel_bit_equal(cuda, dtype, layout):
+    feats, coors = scatter_case(2, 300, 16, (40, 30), 250, seed=5)
+    co = torch.from_numpy(coors).to(cuda)
+    g = torch.randn(2, 16, 40, 30, device=cuda).to(dtype)
+    if layout == "channels_last":
+        g = g.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        assert g.is_contiguous()
+    else:
+        g = torch.randn(2, 40, 60, 16, device=cuda).to(dtype)[:, :, ::2]  # y stride doubled
+    before = scatter_cuda.bwd_counter.launches
+    got = scatter_cuda.scatter_to_bev_bwd_cuda(g, co)
+    want = scatter_cuda.scatter_to_bev_bwd_plain(g, co)
+    torch.cuda.synchronize()
+    assert scatter_cuda.bwd_counter.launches == before + 1
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(ints), want.view(ints))
+
+
+@pytest.mark.gpu
+def test_scatter_autograd_uses_both_kernels(cuda):
+    feats, coors = scatter_case(2, 300, 16, (40, 30), 250, seed=6)
+    f = torch.from_numpy(feats).to(cuda).requires_grad_()
+    co = torch.from_numpy(coors).to(cuda)
+    before = (scatter_cuda.counter.launches, scatter_cuda.bwd_counter.launches)
+    g = torch.randn(2, 40, 30, 16, device=cuda)
+    scatter_cuda.scatter_to_bev(f, co, (40, 30)).backward(g)
+    torch.cuda.synchronize()
+    assert (scatter_cuda.counter.launches, scatter_cuda.bwd_counter.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(f.grad, scatter_cuda.scatter_to_bev_bwd_plain(g, co))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", ["cls_preds", "contiguous", "odd_bytes", "int64_sliced"])
+def test_fence_kernel_bit_equal(cuda, view):
+    if view == "cls_preds":
+        y = torch.randn(2, 90, 50, 40, device=cuda).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x = y[:, :9].reshape(2, 9, 1, 50, 40).transpose(1, 2)
+    elif view == "contiguous":
+        x = torch.randn(2, 1, 9, 50, 40, device=cuda)
+    elif view == "odd_bytes":
+        x = torch.randint(0, 255, (7, 13, 3), device=cuda, dtype=torch.uint8)
+    else:
+        x = torch.randint(-5, 5, (6, 10, 4), device=cuda)[:, 2::3]
+    before = fence_cuda.counter.launches
+    got = fence_cuda.s2b_fence(x)
+    torch.cuda.synchronize()
+    assert fence_cuda.counter.launches == before + 1 and got.is_contiguous()
+    assert got.dtype == x.dtype and torch.equal(got, x.clone())

@@ -138,7 +138,9 @@ def test_package_imports_no_jax_fresh_process():
     code = (
         "import sys, det3d_tpu_torch, det3d_tpu_torch.pipeline, det3d_tpu_torch.weights, "
         "det3d_tpu_torch.data.synthetic, det3d_tpu_torch.kernels.scatter_cuda, "
-        "det3d_tpu_torch.kernels.nms_cuda, chip_smoke\n"
+        "det3d_tpu_torch.kernels.nms_cuda, det3d_tpu_torch.kernels.matcher_cuda, "
+        "det3d_tpu_torch.kernels.fence_cuda, det3d_tpu_torch.targets, det3d_tpu_torch.losses, "
+        "det3d_tpu_torch.train.trainer, det3d_tpu_torch.train.metrics, chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r})\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
     )
