@@ -30,7 +30,23 @@ Phases, each printed as it runs; any failure exits non-zero:
      profiler's device share;
   8. one float32 train step with the kernels against one with the plain
      versions, from the same weights and batch: loss, gradients, updated
-     parameters and batch statistics at the CPU tests' tolerances.
+     parameters and batch statistics at the CPU tests' tolerances;
+  9. the layout path's kernels vs their plain versions at the 20 cm shapes
+     (16k pillars x 64 channels; batch 1 and 2): the s2d scatter in H-major
+     and W-major order, the blocked-halo s2d scatter (8 blocks, halo (4, 3))
+     and both backwards, bit-equal in f32 and bf16, each timed against its
+     bytes bound, its plain version and zeros + index_put_;
+ 10. packed inference at full width: ntusl_20cm with pack_w, then with
+     pack_w + block0_blocked (bf16, 20 frames each): ms/frame, peak memory,
+     stage breakdown, launches (the s2d or the blocked scatter once a
+     frame, the dense scatter never); in f32, the kernel path against the
+     plain path, and packed against dense `cls_preds`;
+ 11. the packed train step at full width: ntusl_20cm with pack_w and its
+     shipped block0_blocked_train + late_blocked_train (bf16, batch 2, 20
+     steps: ms/step, peak memory, falling loss, the blocked scatter and its
+     backward once a step, breakdown), the packed step without blocking
+     (the s2d scatter and its backward once a step), and one f32 packed +
+     blocked step with the kernels against one with the plain versions.
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package.
@@ -69,6 +85,12 @@ TRAIN_BATCH = 2
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 20
 TRAIN_POINTS = 97_000  # ground points of each scene; ~100k with the objects
+LAYOUT_TRAIN_STEPS = 10  # steps of the packed train step without blocking
+# packed (and blocked) against dense cls_preds in f32 with TF32 off: the
+# same function with other convolutions summing in other orders through
+# 20 layers, each renormalised by an InstanceNorm; a fraction of the
+# largest |cls_preds| (at least 1)
+PACKED_VS_DENSE_TOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -241,9 +263,10 @@ def stage_breakdown(det, frames) -> dict[str, float]:
         mark("voxelize + anchor mask")
         feats = model.pillar_point_net(frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
         mark("PFN")
-        canvas = model.scatter(feats.contiguous(), frame.coors[None].contiguous(), model.grid_xy)
+        layout = model.layout(1, False)
+        canvas = model.canvas(feats, frame.coors[None], layout)
         mark("BEV scatter (kernel)")
-        x = model.rpn(canvas.permute(0, 3, 1, 2))
+        x = model.rpn(canvas, *layout)
         mark("RPN")
         preds = model.heads(x)
         mark("head")
@@ -424,15 +447,177 @@ def check_fence(preds_cls: torch.Tensor) -> dict:
     return dict(ms=ms, plain_ms=library_ms, library_ms=library_ms, bound_ms=bound_ms, max_abs_err=0.0)
 
 
+def layout_inputs(b: int, v: int, c: int, grid_xy, n_valid: int, dtype, gen: torch.Generator):
+    """Features (b, v, c) and coordinates on the card: n_valid pillars on
+    unique cells of each sample, at random slots, -1 rows elsewhere."""
+    nx, ny = grid_xy
+    feats = torch.randn((b, v, c), generator=gen).to(dtype)
+    coors = torch.full((b, v, 3), -1, dtype=torch.int32)
+    for i in range(b):
+        cells = torch.randperm(nx * ny, generator=gen)[:n_valid]
+        slots = torch.randperm(v, generator=gen)[:n_valid]
+        coors[i, slots, 0] = (cells // ny).to(torch.int32)
+        coors[i, slots, 1] = (cells % ny).to(torch.int32)
+        coors[i, slots, 2] = 0
+    return feats.cuda(), coors.cuda()
+
+
+def check_layout_scatters(grid_xy, v: int, c: int, nblk: int, halo) -> dict:
+    """The s2d and blocked scatters and their backwards against their plain
+    versions, bit for bit, in f32 and bf16 at batch 1 and 2 (phase 9); then
+    their times at the main path's shapes: the s2d scatter at batch 1 (packed
+    inference), the blocked scatter, both backwards at batch 2 (the train
+    step). Bounds: each input read once, each output written once (the
+    backwards read only the kept rows and their halo copies)."""
+    from det3d_tpu_torch.kernels import scatter_cuda as sc
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    nx, ny = grid_xy
+    nx2, ny2 = nx // 2, ny // 2
+    rb, rtot = sc.blocked_rows(grid_xy, nblk, halo)
+    result = {name: {"max_abs_err": 0.0} for name in LAYOUT_COUNTERS}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 2):
+            for n_valid in (12_000, 0):
+                feats, coors = layout_inputs(b, v, c, grid_xy, n_valid, dtype, gen)
+                cases = [(f"s2d w_major={wm}", sc.scatter_to_bev_s2d_cuda(feats, coors, grid_xy, wm),
+                          sc.scatter_to_bev_s2d_plain(feats, coors, grid_xy, wm)) for wm in (False, True)]
+                cases.append(("blocked", sc.scatter_to_bev_s2d_blocked_cuda(feats, coors, grid_xy, nblk, halo),
+                              sc.scatter_to_bev_s2d_blocked_plain(feats, coors, grid_xy, nblk, halo)))
+                g = torch.randn((b, 4 * c, nx2, ny2), generator=gen).to(dtype).cuda()
+                g = g.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)  # as the entry conv returns it
+                cases.append(("s2d bwd", sc.scatter_to_bev_s2d_bwd_cuda(g, coors),
+                              sc.scatter_to_bev_s2d_bwd_plain(g, coors)))
+                g5 = torch.randn((b * nblk, 4 * c, rtot, ny2), generator=gen).to(dtype).cuda()
+                g5 = g5.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1).unflatten(0, (b, nblk))
+                cases.append(("blocked bwd", sc.scatter_to_bev_s2d_blocked_bwd_cuda(g5, coors, halo),
+                              sc.scatter_to_bev_s2d_blocked_bwd_plain(g5, coors, halo)))
+                torch.cuda.synchronize()
+                for name, got, want in cases:
+                    equal = got.stride() == want.stride() and torch.equal(bits(got), bits(want))
+                    err = (got.float() - want.float()).abs().max().item()
+                    print(f"{name:17s} {str(dtype):15s} batch {b} valid={n_valid:5d}: bit-equal={equal}")
+                    check(equal, f"{name} {dtype} batch {b} with {n_valid} pillars differs from the plain version")
+                    key = {"blocked": "blocked_fwd", "s2d bwd": "s2d_bwd", "blocked bwd": "blocked_bwd"}.get(
+                        name, "s2d_fwd")
+                    result[key]["max_abs_err"] = max(result[key]["max_abs_err"], err)
+
+        elt = torch.finfo(dtype).bits // 8
+        coors_bytes = v * 3 * 4
+        for key, b in (("s2d_fwd", 1), ("blocked_fwd", 2), ("s2d_bwd", 2), ("blocked_bwd", 2)):
+            feats, coors = layout_inputs(b, v, c, grid_xy, 12_000, dtype, gen)
+            bi, x2, y2, phase, keep = sc._s2d_index(coors, grid_xy)
+            kept = int(keep.sum())
+            if key == "s2d_fwd":
+                idx = (bi[keep], x2[keep], y2[keep], phase[keep])
+                rows = feats[keep]
+                fn = lambda: sc.scatter_to_bev_s2d_cuda(feats, coors, grid_xy)
+                plain = lambda: sc.scatter_to_bev_s2d_plain(feats, coors, grid_xy)
+                library = lambda: torch.zeros((b, nx2, ny2, 4, c), dtype=dtype, device="cuda").index_put_(idx, rows)
+                moved = (b * nx * ny * c + b * v * c) * elt + b * coors_bytes
+            elif key == "blocked_fwd":
+                _, y2b, phb, places = sc._blocked_places(coors, grid_xy, nblk, halo)
+                idx = tuple(torch.cat(parts) for parts in zip(*[
+                    (bi[p], blk[p], row[p], y2b[p], phb[p]) for p, blk, row in places]))
+                rows = torch.cat([feats[p] for p, _, _ in places])
+                fn = lambda: sc.scatter_to_bev_s2d_blocked_cuda(feats, coors, grid_xy, nblk, halo)
+                plain = lambda: sc.scatter_to_bev_s2d_blocked_plain(feats, coors, grid_xy, nblk, halo)
+                library = lambda: torch.zeros((b, nblk, rtot, ny2, 4, c), dtype=dtype,
+                                              device="cuda").index_put_(idx, rows)
+                moved = (b * nblk * rtot * ny2 * 4 * c + b * v * c) * elt + b * coors_bytes
+            elif key == "s2d_bwd":
+                g = torch.randn((b, 4 * c, nx2, ny2), generator=gen).to(dtype).cuda()
+                g = g.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+                idx = (bi[keep], x2[keep], y2[keep], phase[keep])
+                g5 = g.unflatten(-1, (4, c))
+                fn = lambda: sc.scatter_to_bev_s2d_bwd_cuda(g, coors)
+                plain = lambda: sc.scatter_to_bev_s2d_bwd_plain(g, coors)
+                library = lambda: g5[idx]
+                moved = (kept * c + b * v * c) * elt + b * coors_bytes
+            else:
+                g = torch.randn((b * nblk, 4 * c, rtot, ny2), generator=gen).to(dtype).cuda()
+                g = g.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1).unflatten(0, (b, nblk))
+                copies = sum(int(p.sum()) for p, _, _ in sc._blocked_places(coors, grid_xy, nblk, halo)[3])
+                fn = lambda: sc.scatter_to_bev_s2d_blocked_bwd_cuda(g, coors, halo)
+                plain = lambda: sc.scatter_to_bev_s2d_blocked_bwd_plain(g, coors, halo)
+                library = None  # the halo sum needs a gather and a scatter-add: no one-call equivalent
+                moved = (copies * c + b * v * c) * elt + b * coors_bytes
+            t = dict(ms=cuda_ms(fn), plain_ms=cuda_ms(plain, iters=10, warmup=2),
+                     library_ms=None if library is None else cuda_ms(library),
+                     bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+            print(f"{key:12s} {str(dtype):15s} batch {b}: kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                  f"library_ms={lib} bound_ms={t['bound_ms']:.5f} (bytes: {moved}); "
+                  f"host ms per call {host_ms(fn):.4f}")
+            result[key][dtype] = t
+    return result
+
+
+@torch.no_grad()
+def run_frames(det, frames, counters) -> dict:
+    """`Detector.detect` over `frames` after one warm-up frame, with every
+    counter set to 0 just before and read just after: ms/frame, peak
+    memory, launches."""
+    det.detect(frames[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    times, detections = [], []
+    for pts_np in frames[1:]:
+        t0 = time.perf_counter()
+        annos = det.detect(pts_np)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        detections.append(len(annos["score"]))
+        for key in ("location", "dimensions", "rotation_y", "score"):
+            check(bool(np.isfinite(annos[key]).all()), f"non-finite {key}")
+    return dict(ms=statistics.median(times), min=min(times), max=max(times), n=len(times),
+                peak=torch.cuda.max_memory_allocated(), launches={k: c.launches for k, c in counters.items()},
+                detections=detections)
+
+
+def run_steps(trainer, state, batch, steps: int, counters) -> dict:
+    """`Trainer.train_step` over `steps` steps of one batch after warm-up
+    steps, counters set to 0 just before and read just after: ms/step, peak
+    memory, launches, the loss by step."""
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    times, history = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in loss.items()})
+    for h in history:
+        check(all(np.isfinite(v) for v in h.values()), f"non-finite loss term in {h}")
+    check(history[-1]["loss"] < history[0]["loss"], "the loss did not fall on the repeated batch")
+    return dict(ms=statistics.median(times), min=min(times), max=max(times), n=steps,
+                peak=torch.cuda.max_memory_allocated(), launches={k: c.launches for k, c in counters.items()},
+                history=history, metrics=metrics)
+
+
 TRAIN_COUNTERS = ("matcher_gt_max", "matcher_assign", "scatter_fwd", "scatter_bwd", "fence", "nms")
+LAYOUT_COUNTERS = ("s2d_fwd", "s2d_bwd", "blocked_fwd", "blocked_bwd")
 
 
-def train_counters():
+def train_counters(layouts: bool = False):
+    """The launch counters of the train path's kernels; with `layouts`,
+    the layout path's four scatter kernels too."""
     from det3d_tpu_torch.kernels import fence_cuda, matcher_cuda, nms_cuda, scatter_cuda
 
-    return dict(zip(TRAIN_COUNTERS, (matcher_cuda.gt_max_counter, matcher_cuda.assign_counter,
-                                     scatter_cuda.counter, scatter_cuda.bwd_counter, fence_cuda.counter,
-                                     nms_cuda.counter)))
+    counters = dict(zip(TRAIN_COUNTERS, (matcher_cuda.gt_max_counter, matcher_cuda.assign_counter,
+                                         scatter_cuda.counter, scatter_cuda.bwd_counter, fence_cuda.counter,
+                                         nms_cuda.counter)))
+    if layouts:
+        counters.update(zip(LAYOUT_COUNTERS, (scatter_cuda.s2d_counter, scatter_cuda.s2d_bwd_counter,
+                                              scatter_cuda.blocked_counter, scatter_cuda.blocked_bwd_counter)))
+    return counters
 
 
 def train_stage_breakdown(trainer, state, batch, steps: int) -> dict[str, float]:
@@ -504,6 +689,15 @@ def profile_device_time(fn, n: int) -> tuple[float, list[tuple[str, float]]] | N
     return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
 
 
+def use_plain_scatters(model) -> None:
+    """Set the plain versions in place of every scatter kernel of `model`."""
+    from det3d_tpu_torch.kernels import scatter_cuda
+
+    model.scatter = scatter_cuda.scatter_to_bev_plain
+    model.scatter_s2d = scatter_cuda.scatter_to_bev_s2d_plain
+    model.scatter_s2d_blocked = scatter_cuda.scatter_to_bev_s2d_blocked_plain
+
+
 def compare_train_steps(cfg32, batch) -> None:
     """One float32 step with the kernels against one with the plain
     versions, from the same weights and batch (phase 8). Tolerances of
@@ -511,7 +705,7 @@ def compare_train_steps(cfg32, batch) -> None:
     of each tensor's largest; updated parameters within 1e-6 where the
     gradient is above 1e-3 of its tensor's largest, else within 2·lr (Adam's
     first step is about lr·sign(g)); batch statistics rtol 1e-5."""
-    from det3d_tpu_torch.kernels import fence_cuda, scatter_cuda
+    from det3d_tpu_torch.kernels import fence_cuda
     from det3d_tpu_torch.train.trainer import Trainer
 
     runs = []
@@ -521,7 +715,7 @@ def compare_train_steps(cfg32, batch) -> None:
         before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
         if plain:
             trainer.assigner = trainer.assigner.plain
-            trainer.model.scatter = scatter_cuda.scatter_to_bev_plain
+            use_plain_scatters(trainer.model)
             trainer.fence = fence_cuda.fence_copy_plain
         state, loss, _ = trainer.train_step(state, batch)
         grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
@@ -609,28 +803,14 @@ def main() -> int:
     phase("4. main path at full width (ntusl_20cm, bf16)")
     print(f"grid {cfg.grid_size}, {cfg.max_voxels} pillars x {cfg.max_num_points} points, "
           f"{det.anchor_set.num_anchors} anchors, {N_POINTS} points per frame")
-    det.detect(frames[0])  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    scatter_cuda.counter.launches = 0
-    nms_cuda.counter.launches = 0
-    times, counts = [], []
-    for pts_np in frames[1:]:
-        t0 = time.perf_counter()
-        annos = det.detect(pts_np)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        counts.append(len(annos["score"]))
-        for key in ("location", "dimensions", "rotation_y", "score"):
-            check(bool(np.isfinite(annos[key]).all()), f"non-finite {key}")
-    launches = {"scatter": scatter_cuda.counter.launches, "nms": nms_cuda.counter.launches}
-    peak = torch.cuda.max_memory_allocated()
-    print(f"ms/frame median {statistics.median(times):.3f} (host clock around detect + synchronize; "
-          f"min {min(times):.3f}, max {max(times):.3f}) over {len(times)} frames")
-    print(f"peak memory allocated {peak} bytes; detections per frame {counts}")
+    run = run_frames(det, frames, {"scatter": scatter_cuda.counter, "nms": nms_cuda.counter})
+    launches, frame_ms = run["launches"], run["ms"]
+    print(f"ms/frame median {frame_ms:.3f} (host clock around detect + synchronize; "
+          f"min {run['min']:.3f}, max {run['max']:.3f}) over {run['n']} frames")
+    print(f"peak memory allocated {run['peak']} bytes; detections per frame {run['detections']}")
     print(f"launches on the main path: {launches}")
     for name, n in launches.items():
-        check(n == len(times), f"{name} kernel launched {n} times over {len(times)} frames")
+        check(n == run["n"], f"{name} kernel launched {n} times over {run['n']} frames")
     print("stage breakdown, median ms (synchronized after each stage):")
     for name, ms in stage_breakdown(det, frames[1:]).items():
         print(f"  {name:36s} {ms:.3f}")
@@ -640,7 +820,7 @@ def main() -> int:
     else:
         busy, top = traced
         print(f"device time per frame (torch.profiler, 5 frames): {busy:.3f} ms = "
-              f"{100 * busy / statistics.median(times):.1f}% of the {statistics.median(times):.3f} ms median frame")
+              f"{100 * busy / frame_ms:.1f}% of the {frame_ms:.3f} ms median frame")
         for name, ms in top:
             print(f"  {ms:8.3f} ms  {name[:100]}")
     d = det.infer(torch.from_numpy(frames[1]).cuda(), N_POINTS)
@@ -680,38 +860,20 @@ def main() -> int:
     matcher = check_matcher(trainer, dev_batch)
     scatter_bwd = check_scatter_bwd(grid_xy, cfg.max_voxels, 64)
     with torch.no_grad():
-        frames, _ = trainer.prepare(dev_batch)
-        preds = trainer.model(frames.voxels, frames.num_points_per_voxel, frames.coors)
+        vox, tgt = trainer.prepare(dev_batch)
+        preds = trainer.model(vox.voxels, vox.num_points_per_voxel, vox.coors)
     fence = check_fence(preds["cls_preds"])
-    del frames, preds
+    del vox, tgt, preds  # so that the peaks below count only their own phase
 
     phase("7. train step at full width (ntusl_20cm, bf16, batch 2)")
-    for _ in range(TRAIN_WARMUP):
-        trainer.train_step(state, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counters = train_counters()
-    for c in counters.values():
-        c.launches = 0
-    times, history = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, loss, metrics = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        history.append({k: float(v) for k, v in loss.items()})
-    train_launches = {name: c.launches for name, c in counters.items()}
-    train_peak = torch.cuda.max_memory_allocated()
-    step_ms = statistics.median(times)
-    print(f"ms/step median {step_ms:.3f} (host clock around train_step + synchronize; min {min(times):.3f}, "
-          f"max {max(times):.3f}) over {len(times)} steps after {TRAIN_WARMUP} warm-up steps")
-    print(f"peak memory allocated {train_peak} bytes")
+    run = run_steps(trainer, state, batch, TRAIN_STEPS, train_counters())
+    train_launches, step_ms, history, metrics = run["launches"], run["ms"], run["history"], run["metrics"]
+    print(f"ms/step median {step_ms:.3f} (host clock around train_step + synchronize; min {run['min']:.3f}, "
+          f"max {run['max']:.3f}) over {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up steps")
+    print(f"peak memory allocated {run['peak']} bytes")
     print("loss by step: " + " ".join(f"{h['loss']:.4f}" for h in history))
     print(f"last step: {history[-1]}; metrics tp {metrics['tp'].tolist()} fp {metrics['fp'].tolist()} "
           f"fn {metrics['fn'].tolist()}")
-    for h in history:
-        check(all(np.isfinite(v) for v in h.values()), f"non-finite loss term in {h}")
-    check(history[-1]["loss"] < history[0]["loss"], "the loss did not fall on the repeated batch")
     print(f"launches over {TRAIN_STEPS} steps: {train_launches}")
     expected = {name: TRAIN_STEPS for name in TRAIN_COUNTERS}
     expected["nms"] = 0
@@ -735,6 +897,95 @@ def main() -> int:
 
     phase("8. f32 train step, kernels vs plain versions")
     compare_train_steps(cfg32, batch)
+
+    phase("9. layout kernels vs plain versions on the card")
+    from det3d_tpu_torch.models.pointpillars import Layout, block0_blocking
+
+    nblk, halo = block0_blocking(grid_xy)
+    layout_k = check_layout_scatters(grid_xy, cfg.max_voxels, 64, nblk, halo)
+
+    phase("10. packed inference at full width (ntusl_20cm + pack_w, bf16)")
+    counters = train_counters(layouts=True)
+    frame_runs = {}
+    for name, flags, layout in (("packed", dict(pack_w=True), Layout(True, False, False)),
+                                ("packed + blocked", dict(pack_w=True, block0_blocked=True),
+                                 Layout(True, True, False))):
+        det_l = Detector(cfg.replace(**flags)).init_weights(SEED)
+        check(det_l.model.layout(1, False) == layout, f"{name}: layout {det_l.model.layout(1, False)}")
+        run = run_frames(det_l, frames, counters)
+        frame_runs[name] = run
+        print(f"{name}: ms/frame median {run['ms']:.3f} (min {run['min']:.3f}, max {run['max']:.3f}) over "
+              f"{run['n']} frames; peak memory allocated {run['peak']} bytes")
+        print(f"{name}: launches {run['launches']}")
+        want = {k: 0 for k in counters}
+        want.update(nms=run["n"], **{"blocked_fwd" if layout.block0_blocked else "s2d_fwd": run["n"]})
+        check(run["launches"] == want, f"{name}: launches {run['launches']}, expected {want}")
+        print(f"{name}: stage breakdown, median ms (synchronized after each stage):")
+        for stage, ms in stage_breakdown(det_l, frames[1:]).items():
+            print(f"  {stage:36s} {ms:.3f}")
+        traced = device_time(det_l, frames[1:6])
+        if traced is not None:
+            print(f"{name}: device time per frame (torch.profiler, 5 frames): {traced[0]:.3f} ms = "
+                  f"{100 * traced[0] / run['ms']:.1f}% of the median frame")
+        del det_l
+    pts = torch.from_numpy(frames[2]).cuda()
+    dense32 = Detector(cfg32).init_weights(SEED)
+    with torch.no_grad():
+        frame, _ = dense32.preprocess(pts, N_POINTS)
+        args = (frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
+        dense_cls = dense32.model(*args)["cls_preds"]
+    del dense32
+    for name, flags in (("packed", dict(pack_w=True)), ("packed + blocked", dict(pack_w=True, block0_blocked=True))):
+        det_l = Detector(cfg32.replace(**flags)).init_weights(SEED)
+        with torch.no_grad():
+            cls = det_l.model(*args)["cls_preds"]
+        with_kernels = det_l.infer(pts, N_POINTS)
+        use_plain_scatters(det_l.model)
+        det_l.postprocess.nms_keep = nms_cuda.nms_keep_plain
+        with_plain = det_l.infer(pts, N_POINTS)
+        assert_detections_close(with_kernels, with_plain, f"ntusl_20cm f32 {name}, kernels vs plain")
+        # the same weights on the dense network: one function, summed in
+        # other orders by other convolutions (f32, TF32 off)
+        scale = dense_cls.abs().max().item()
+        err = (cls - dense_cls).abs().max().item()
+        print(f"f32 {name} vs dense cls_preds: max abs diff {err:.3e} (largest |cls_preds| {scale:.3f})")
+        check(err <= PACKED_VS_DENSE_TOL * max(scale, 1.0), f"{name} cls_preds differ from the dense network's")
+        del det_l
+
+    phase("11. packed train step at full width (ntusl_20cm + pack_w, bf16, batch 2)")
+    step_runs = {}
+    for name, flags, layout in (
+        ("packed + blocked (shipped train levers)", dict(pack_w=True), Layout(True, True, True)),
+        ("packed", dict(pack_w=True, block0_blocked_train=False, late_blocked_train=False),
+         Layout(True, False, False)),
+    ):
+        trainer = Trainer(cfg.replace(**flags))
+        check(trainer.model.layout(TRAIN_BATCH, True) == layout, f"{name}: layout")
+        state = trainer.init_state(SEED)
+        n = TRAIN_STEPS if layout.block0_blocked else LAYOUT_TRAIN_STEPS
+        run = run_steps(trainer, state, batch, n, counters)
+        step_runs[name] = run
+        losses = [h["loss"] for h in run["history"]]
+        print(f"{name}: ms/step median {run['ms']:.3f} (min {run['min']:.3f}, max {run['max']:.3f}) over {n} "
+              f"steps after {TRAIN_WARMUP} warm-up steps; peak memory allocated {run['peak']} bytes")
+        print(f"{name}: loss by step: " + " ".join(f"{v:.4f}" for v in losses))
+        print(f"{name}: launches {run['launches']}")
+        want = {k: n for k in ("matcher_gt_max", "matcher_assign", "fence")}
+        want.update({k: 0 for k in ("scatter_fwd", "scatter_bwd", "nms")})
+        want.update({k: n if (k.startswith("blocked") == layout.block0_blocked) else 0 for k in LAYOUT_COUNTERS})
+        check(run["launches"] == want, f"{name}: launches {run['launches']}, expected {want}")
+        print(f"{name}: stage breakdown, median ms over 5 steps (synchronized after each stage):")
+        for stage, ms in train_stage_breakdown(trainer, state, batch, 5).items():
+            print(f"  {stage:36s} {ms:.3f}")
+        if layout.block0_blocked:
+            traced = profile_device_time(lambda: trainer.train_step(state, batch), 3)
+            if traced is not None:
+                print(f"{name}: device time per step (torch.profiler, 3 steps): {traced[0]:.3f} ms = "
+                      f"{100 * traced[0] / run['ms']:.1f}% of the median step")
+                for op, ms in traced[1][:8]:
+                    print(f"  {ms:8.3f} ms  {op[:100]}")
+        del trainer, state
+    compare_train_steps(cfg32.replace(pack_w=True), batch)
 
     kernels = [
         {
@@ -782,6 +1033,19 @@ def main() -> int:
             "launches": train_launches["fence"], "bound_by": "bytes", **fence,
         },
     ]
+    blocked_train = step_runs["packed + blocked (shipped train levers)"]["launches"]
+    for name, key, replaces, launches in (
+        ("scatter_to_bev_s2d", "s2d_fwd", 93, frame_runs["packed"]["launches"]["s2d_fwd"]),
+        ("scatter_to_bev_s2d_bwd", "s2d_bwd", 178, step_runs["packed"]["launches"]["s2d_bwd"]),
+        ("scatter_to_bev_s2d_blocked", "blocked_fwd", 358, blocked_train["blocked_fwd"]),
+        ("scatter_to_bev_s2d_blocked_bwd", "blocked_bwd", 421, blocked_train["blocked_bwd"]),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "det3d_tpu_torch/kernels/csrc/scatter.cu",
+            "replaces": f"det3d_tpu/kernels/scatter_pallas.py:{replaces}", "launches": launches,
+            "max_abs_err": layout_k[key]["max_abs_err"], "bound_by": "bytes",
+            **{k: layout_k[key][torch.bfloat16][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        })
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -12,10 +12,29 @@ Derived values reproduced exactly:
     framework/anchor_assigner.py:222-245;
   * the feature map, always the voxel grid at half resolution.
 
-The TPU layout levers of the JAX config (pack_w, fuse_in_stats,
-block0_blocked*, late_blocked_train, split_head) have no meaning here: the
-port runs the plain dense network, so those JSON keys are ignored like any
-other unknown key.
+Layout keys. The port honours four of the JAX config's layout keys, read
+from the same JSON keys and applied by the same rules
+(models/pointpillars.PointPillars.forward):
+  * `pack_w`: the w-parity packed network fed by the space-to-depth (s2d)
+    canvas; needs nx % 2 == 0 and ny % 4 == 0;
+  * `block0_blocked` (inference) and `block0_blocked_train` (training, at
+    batch <= 2): block0 on the blocked-halo s2d canvas; need packing and
+    `block0_blocking(grid)` > 1 block;
+  * `late_blocked_train` (training, at batch <= 2): blocks 1-2
+    batch-over-row-blocks. The port takes it only with packing; the JAX
+    package also takes it on its dense network.
+Two divergences, both so that the dense network stays the port's main
+path: `pack_w` defaults to False here (True in the JAX package), and
+`late_blocked_train` needs `pack_w`. The packing exists to fill the TPU's
+128 lanes; on the card the defaults are chosen by measurement
+(PERF.md), so `configs/ntusl_20cm.json`, which does not name `pack_w`,
+builds the dense network, and its `block0_blocked_train` /
+`late_blocked_train` keys are inert. The packed path is taken where a
+config says `"pack_w": true` or a caller writes `cfg.replace(pack_w=True)`.
+Parameters and `state_dict` keys do not depend on the layout.
+
+`fuse_in_stats` and `split_head` (inference fusions without a kernel) are
+not ported: those JSON keys are ignored like any other unknown key.
 """
 
 from __future__ import annotations
@@ -108,6 +127,12 @@ class Config:
     head: str = "shared"             # detection head: "shared" | "multi"
     max_gt_boxes: int = 64           # static per-class gt budget for targets
     compute_dtype: str = "bfloat16"  # conv/matmul compute dtype ("float32" for parity runs)
+
+    # ---- layout levers (see the module docstring; all off by default) ----
+    pack_w: bool = False                # w-parity packed network on the s2d canvas
+    block0_blocked: bool = False        # inference: blocked-halo block0 (needs pack_w)
+    block0_blocked_train: bool = False  # training, batch <= 2: the same
+    late_blocked_train: bool = False    # training, batch <= 2: blocks 1-2 row-blocked (needs pack_w)
 
     # ---- derived (reference: framework/voxel_generator.py:7-15) ----
     detection_range: tuple[float, ...] = ()
@@ -233,6 +258,10 @@ def load_config(path: str | Path | dict, **overrides: Any) -> Config:
         max_gt_boxes=int(get("max_gt_boxes", 64)),
         compute_dtype=get("compute_dtype", "bfloat16"),
         head=get("head", "shared"),
+        pack_w=bool(get("pack_w", False)),
+        block0_blocked=bool(get("block0_blocked", False)),
+        block0_blocked_train=bool(get("block0_blocked_train", False)),
+        late_blocked_train=bool(get("late_blocked_train", False)),
     )
     cfg = _with_derived(cfg)
     # The feature map is ALWAYS the voxel grid at half resolution: the RPN's

@@ -17,16 +17,38 @@ Layouts at the public boundary are the JAX package's: the canvas is
 cls (B, 1, nch, fx, fy), box (B, 7, nch, fx, fy), dir (B, 2, nch, fx, fy).
 The canvas permuted to (B, C, nx, ny) is an NCHW tensor in channels_last
 memory, which the convolutions take without a copy.
+
+Layout paths (Config.pack_w, block0_blocked, block0_blocked_train,
+late_blocked_train; selected in `PointPillars.forward` by the JAX model's
+rules, see `PointPillars.layout`). The dense network is the port's default
+and main path. With `pack_w` the network runs the JAX package's w-parity
+packed form: the space-to-depth canvas (B, nx/2, ny/2, 4C) from
+`scatter_to_bev_s2d` feeds block0 as packed maps, whose channel p·C + c
+holds column 2w + p (in channels_last memory a packed (B, 2C, H, W/2) map
+is the same memory as the dense (B, C, H, W) one), through convolutions
+whose kernels are the dense kernels' taps rearranged with structured zeros
+(`pack_*_kernel`, `packed_conv`); the upsample branches emit packed maps
+and the neck's concatenation unpacks them. `block0_blocked*` runs block0
+batch-over-row-blocks on the blocked-halo canvas of
+`scatter_to_bev_s2d_blocked` (VALID-row convolutions, `instance_norm_blocked`),
+`late_blocked_train` runs blocks 1-2 so in training. The packing acts on
+the weights at each call: the modules, parameters and `state_dict` keys are
+the dense network's whatever the layout, so one checkpoint serves all of
+them.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from det3d_tpu_torch.config import Config
-from det3d_tpu_torch.kernels.scatter_cuda import scatter_to_bev
+from det3d_tpu_torch.kernels.scatter_cuda import scatter_to_bev, scatter_to_bev_s2d, scatter_to_bev_s2d_blocked
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -114,22 +136,61 @@ def masked_batch_stats(x: torch.Tensor, mask: torch.Tensor, bn: nn.BatchNorm1d):
     return mean, sum_sq / denom
 
 
-def _in_moments(x: torch.Tensor):
+def _parity_sum(s: torch.Tensor) -> torch.Tensor:
+    """(B, 2C) per-channel sums of a packed map → (B, C) sums of its logical
+    channels (channel j and j + C are one channel at even and odd columns)."""
+    c2 = s.shape[-1] // 2
+    return s[:, :c2] + s[:, c2:]
+
+
+def _moments_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: int, packed: bool):
+    """(B, C) float32 sums over n elements per channel → mean,
+    rsqrt(var + 1e-3) and the count. `packed`: channels j and j + C/2 are
+    one logical channel at even and odd columns, so their sums merge (the
+    JAX package's `_moments_from_sums`)."""
+    if packed:
+        s1, s2, n = _parity_sum(s1), _parity_sum(s2), 2 * n
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + 1e-3)
+    if packed:
+        mean, inv = torch.cat([mean, mean], dim=-1), torch.cat([inv, inv], dim=-1)
+    return mean, inv, n
+
+
+def _in_moments(x: torch.Tensor, packed: bool = False):
     """Per-(sample, channel) float32 mean and rsqrt(var + 1e-3) of an NCHW
     map, from single-pass sums; and the element count per channel."""
     xf = x.float()
-    n = x.shape[2] * x.shape[3]
-    mean = xf.sum(dim=(2, 3)) / n
-    var = torch.clamp((xf * xf).sum(dim=(2, 3)) / n - mean * mean, min=0.0)
-    return mean, torch.rsqrt(var + 1e-3), n
+    return _moments_from_sums(xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3)), x.shape[2] * x.shape[3], packed)
 
 
-def instance_norm(x: torch.Tensor) -> torch.Tensor:
+def _reduce_cc(a: torch.Tensor, packed: bool, n: int) -> torch.Tensor:
+    """Per-(sample, channel) float32 mean of an NCHW map over n elements,
+    with the packed parity merge (the JAX package's `_reduce_cc`)."""
+    s = a.float().sum(dim=(2, 3))
+    if packed:
+        s = _parity_sum(s).repeat(1, 2)
+    return s / n
+
+
+def _bc(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B, C) statistics broadcast over an NCHW map, in its dtype."""
+    return t[:, :, None, None].to(like.dtype)
+
+
+def _bc5(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B, C) statistics broadcast over a blocked map's (B, nblk, C, R, W) view."""
+    return t[:, None, :, None, None].to(like.dtype)
+
+
+def instance_norm(x: torch.Tensor, packed: bool = False) -> torch.Tensor:
     """InstanceNorm2d without affine, eps 1e-3, over (H, W) of an NCHW map
     (reference :128): float32 single-pass moments, the biased variance, and
-    the normalisation applied in the input dtype, as the JAX package does."""
-    mean, inv, _ = _in_moments(x)
-    return (x - mean[:, :, None, None].to(x.dtype)) * inv[:, :, None, None].to(x.dtype)
+    the normalisation applied in the input dtype, as the JAX package does.
+    `packed`: a w-parity packed map, normalised as the unpacked map would be."""
+    mean, inv, _ = _in_moments(x, packed)
+    return (x - _bc(mean, x)) * _bc(inv, x)
 
 
 class InstanceNormFn(torch.autograd.Function):
@@ -138,35 +199,110 @@ class InstanceNormFn(torch.autograd.Function):
         dx = r·(g − mean(g) − x̂·mean(g·x̂)),  x̂ = (x − μ)·r,
     two float32 reductions and one elementwise pass over the cotangent, in
     place of autograd through the single-pass moments (another rounding of
-    the same function, at a higher cost)."""
+    the same function, at a higher cost); the means merge the parities of a
+    packed map."""
 
     @staticmethod
-    def forward(ctx, x):
-        mean, inv, n = _in_moments(x)
+    def forward(ctx, x, packed=False):
+        mean, inv, n = _in_moments(x, packed)
         ctx.save_for_backward(x, mean, inv)
-        ctx.n = n
-        return (x - mean[:, :, None, None].to(x.dtype)) * inv[:, :, None, None].to(x.dtype)
+        ctx.n, ctx.packed = n, packed
+        return (x - _bc(mean, x)) * _bc(inv, x)
 
     @staticmethod
     def backward(ctx, g):
         x, mean, inv = ctx.saved_tensors
-        inv_c = inv[:, :, None, None].to(x.dtype)
-        xhat = (x - mean[:, :, None, None].to(x.dtype)) * inv_c
-        m_g = g.float().sum(dim=(2, 3)) / ctx.n
-        m_gx = (g * xhat).float().sum(dim=(2, 3)) / ctx.n
-        dx = inv_c * (g - m_g[:, :, None, None].to(g.dtype) - xhat * m_gx[:, :, None, None].to(g.dtype))
-        return dx.to(x.dtype)
+        inv_c = _bc(inv, x)
+        xhat = (x - _bc(mean, x)) * inv_c
+        m_g = _reduce_cc(g, ctx.packed, ctx.n)
+        m_gx = _reduce_cc(g * xhat, ctx.packed, ctx.n)
+        dx = inv_c * (g - _bc(m_g, g) - xhat * _bc(m_gx, g))
+        return dx.to(x.dtype), None
+
+
+def _instance_norm(x: torch.Tensor, packed: bool = False) -> torch.Tensor:
+    """`instance_norm` under no_grad, `InstanceNormFn` when a gradient is wanted."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return InstanceNormFn.apply(x, packed)
+    return instance_norm(x, packed)
 
 
 class InstanceNorm(nn.Module):
     """Instance norm as a module, so Sequential indices match the
-    reference's (it holds no parameters or buffers): `instance_norm` under
-    no_grad, `InstanceNormFn` when a gradient is wanted."""
+    reference's (it holds no parameters or buffers)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if torch.is_grad_enabled() and x.requires_grad:
-            return InstanceNormFn.apply(x)
-        return instance_norm(x)
+        return _instance_norm(x)
+
+
+# --- blocked-halo instance norm ---------------------------------------------
+#
+# A blocked map is NCHW (B·nblk, C, R, W) in channels_last memory: nblk row
+# blocks of each sample, each with `top` and `bot` margin rows that duplicate
+# the neighbouring blocks' rows (zeros past the canvas edge) around
+# `valid_rows` rows of its own. `_blocks` views it as (B, nblk, C, R, W).
+
+
+def _blocks(x: torch.Tensor, nblk: int) -> torch.Tensor:
+    return x.unflatten(0, (-1, nblk))
+
+
+def _zero_margins(y5: torch.Tensor, top: int, bot: int) -> torch.Tensor:
+    """Zero the first block's top and the last block's bottom margin rows
+    (outside the canvas), in place."""
+    if top:
+        y5[:, 0, :, :top] = 0
+    if bot:
+        y5[:, -1, :, y5.shape[3] - bot:] = 0
+    return y5
+
+
+class InstanceNormBlockedFn(torch.autograd.Function):
+    """InstanceNorm over a blocked-halo map (the JAX package's
+    `_instance_norm_blocked`, models/pointpillars.py:688-771): statistics
+    from the valid rows [top, top + valid_rows) of every block, each canvas
+    row counted once; the whole map, margins included, normalised, so that
+    duplicated rows stay equal to their originals; then the out-of-canvas
+    margin rows re-zeroed, as the dense convolution's zero padding reads
+    them. The analytic backward, with ĝ = g after the same re-zeroing:
+        dx = r·(ĝ − 1_valid·(mean_n(ĝ) + x̂·mean_n(ĝ·x̂))),
+    where the ĝ sums run over the whole blocked map (every output depends on
+    μ and r) while the divisor n and the correction's rows are the valid
+    rows only (μ and r depend on them alone)."""
+
+    @staticmethod
+    def forward(ctx, x, nblk, top, bot, valid_rows, packed):
+        x5 = _blocks(x, nblk)
+        xs = x5[:, :, :, top:top + valid_rows].float()
+        mean, inv, n = _moments_from_sums(xs.sum(dim=(1, 3, 4)), (xs * xs).sum(dim=(1, 3, 4)),
+                                          nblk * valid_rows * x.shape[3], packed)
+        ctx.save_for_backward(x, mean, inv)
+        ctx.args = (nblk, top, bot, valid_rows, packed, n)
+        y5 = (x5 - _bc5(mean, x)) * _bc5(inv, x)
+        return _zero_margins(y5, top, bot).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, inv = ctx.saved_tensors
+        nblk, top, bot, valid_rows, packed, n = ctx.args
+        x5 = _blocks(x, nblk)
+        g5 = _zero_margins(_blocks(g, nblk).clone(), top, bot)
+        inv_c = _bc5(inv, x)
+        xhat = (x5 - _bc5(mean, x)) * inv_c
+        s_g = g5.float().sum(dim=(1, 3, 4))
+        s_gx = (g5 * xhat).float().sum(dim=(1, 3, 4))
+        if packed:
+            s_g, s_gx = _parity_sum(s_g).repeat(1, 2), _parity_sum(s_gx).repeat(1, 2)
+        rowmask = torch.zeros((x5.shape[3], 1), dtype=g.dtype, device=g.device)
+        rowmask[top:top + valid_rows] = 1
+        dx = inv_c * (g5 - rowmask * (_bc5(s_g / n, g) + xhat * _bc5(s_gx / n, g)))
+        return dx.flatten(0, 1).to(x.dtype), None, None, None, None, None
+
+
+def instance_norm_blocked(x: torch.Tensor, nblk: int, top: int, bot: int, valid_rows: int,
+                          packed: bool = True) -> torch.Tensor:
+    """`InstanceNormBlockedFn` on a blocked map (B·nblk, C, R, W)."""
+    return InstanceNormBlockedFn.apply(x, nblk, top, bot, valid_rows, packed)
 
 
 class Conv2d(nn.Conv2d):
@@ -185,6 +321,244 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         return F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride)
 
 
+# --- w-parity packing --------------------------------------------------------
+#
+# The JAX package's packed block0 (models/pointpillars.py:459-611): a map
+# (H, W, C) is held as (H, W/2, 2C) with channel p·C + c holding column
+# 2w + p, and every block0 convolution becomes a convolution on packed maps
+# whose kernel is the dense (3, 3, C, O) kernel's taps rearranged with
+# structured zeros. A tap of the dense kernel at column offset dj lands at
+# packed kernel column s, input parity pi, output parity po iff
+# dj = 2(s - 1) + pi - po (stride 1) lies in [-1, 1]. The `_*_taps`
+# functions build the JAX package's packed HWIO kernels from any HWIO array
+# (here an array of flat indices); the port applies the result as an index
+# map to its OIHW weights, so a packed kernel is one gather of the
+# parameter, differentiable, and exactly the JAX kernel's values.
+
+
+def _pack_entry_taps(w: np.ndarray, zero: np.ndarray) -> np.ndarray:
+    """(3,3,C,O) stride-2 entry kernel → (2,3,4C,2O) on the s2d canvas: row
+    taps di = 2(r-1)+a, column taps dj = 2(s-1)+b-2p (`_pack_entry_kernel`)."""
+    def tap(di, dj):
+        return w[di + 1, dj + 1] if -1 <= di <= 1 and -1 <= dj <= 1 else zero
+
+    return np.stack([np.stack([
+        np.concatenate([np.concatenate([tap(2 * (r - 1) + a, 2 * (s - 1) + b - 2 * p) for p in (0, 1)], axis=1)
+                        for a in (0, 1) for b in (0, 1)], axis=0)
+        for s in (0, 1, 2)]) for r in (0, 1)])
+
+
+def _pack_res_taps(w: np.ndarray, zero: np.ndarray) -> np.ndarray:
+    """(3,3,C,O) stride-1 kernel → (3,3,2C,2O) packed → packed: column taps
+    dj = 2(s-1)+pi-po (`_pack_res_kernel`)."""
+    def tap(r, dj):
+        return w[r, dj + 1] if -1 <= dj <= 1 else zero
+
+    return np.stack([np.stack([
+        np.concatenate([np.concatenate([tap(r, 2 * (s - 1) + pi - po) for po in (0, 1)], axis=1)
+                        for pi in (0, 1)], axis=0)
+        for s in (0, 1, 2)]) for r in (0, 1, 2)])
+
+
+def _pack_down_taps(w: np.ndarray, zero: np.ndarray) -> np.ndarray:
+    """(3,3,C,O) stride-2 kernel → (3,2,2C,O), packed input → dense output:
+    column taps dj = 2(s-1)+pi (`_pack_down_kernel`)."""
+    def tap(r, dj):
+        return w[r, dj + 1] if -1 <= dj <= 1 else zero
+
+    return np.stack([np.stack([
+        np.concatenate([tap(r, 2 * (s - 1) + pi) for pi in (0, 1)], axis=0)
+        for s in (0, 1)]) for r in (0, 1, 2)])
+
+
+def _pack_pointwise_taps(w: np.ndarray, zero: np.ndarray) -> np.ndarray:
+    """(1,1,C,O) kernel → block-diagonal (1,1,2C,2O): parities never mix in
+    a 1x1 (`PackedPointwise`)."""
+    return np.concatenate([np.concatenate([w[0, 0], zero], axis=1),
+                           np.concatenate([zero, w[0, 0]], axis=1)], axis=0)[None, None]
+
+
+_PACKERS = {"entry": _pack_entry_taps, "res": _pack_res_taps, "down": _pack_down_taps,
+            "pointwise": _pack_pointwise_taps}
+
+
+@functools.cache
+def _pack_index(kind: str, cout: int, cin: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Index map of a packed OIHW kernel into the flat dense OIHW kernel
+    (cout, cin, k, k) followed by one zero (index cout·cin·k·k); and its
+    inverse, the packed positions of each dense tap (n, K), padded with the
+    position one past the packed kernel's end."""
+    n = cout * cin * k * k
+    flat = np.arange(n).reshape(cout, cin, k, k).transpose(2, 3, 1, 0)  # HWIO
+    packed = np.ascontiguousarray(_PACKERS[kind](flat, np.full((cin, cout), n)).transpose(3, 2, 0, 1))
+    src = packed.ravel()
+    pos = np.flatnonzero(src < n)
+    pos = pos[np.argsort(src[pos], kind="stable")]
+    counts = np.bincount(src[pos], minlength=n)
+    inv = np.full((n, counts.max()), src.size)
+    inv[np.repeat(np.arange(n), counts), np.concatenate([np.arange(c) for c in counts])] = pos
+    return packed, inv
+
+
+class _PackKernel(torch.autograd.Function):
+    """The packed kernel as a gather of the dense one; the backward sums
+    each dense tap's packed copies (at most a few) by a gather of the
+    gradient, so the structured zeros' cotangents are never accumulated
+    (an index backward would serialise them on the one zero slot)."""
+
+    @staticmethod
+    def forward(ctx, w, idx, inv):
+        ctx.save_for_backward(inv)
+        ctx.shape = w.shape
+        return F.pad(w.reshape(-1), (0, 1))[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return F.pad(g.reshape(-1), (0, 1))[inv].sum(-1).reshape(ctx.shape), None, None
+
+
+_PACK_INDEX_ON_DEVICE: dict = {}
+
+
+def pack_kernel(w: torch.Tensor, kind: str) -> torch.Tensor:
+    """A dense OIHW kernel → its packed OIHW kernel of `kind` ('entry',
+    'res', 'down', 'pointwise'): one gather, differentiable. The index maps
+    are made once per device."""
+    cout, cin, k, _ = w.shape
+    key = (kind, cout, cin, k, w.device)
+    maps = _PACK_INDEX_ON_DEVICE.get(key)
+    if maps is None:
+        maps = _PACK_INDEX_ON_DEVICE[key] = tuple(torch.from_numpy(a).to(w.device)
+                                                  for a in _pack_index(kind, cout, cin, k))
+    return _PackKernel.apply(w, *maps)
+
+
+def pack_entry_kernel(w: torch.Tensor) -> torch.Tensor:
+    """(O, C, 3, 3) → (2O, 4C, 2, 3): the entry conv on the s2d canvas."""
+    return pack_kernel(w, "entry")
+
+
+def pack_res_kernel(w: torch.Tensor) -> torch.Tensor:
+    """(O, C, 3, 3) → (2O, 2C, 3, 3): a stride-1 conv, packed → packed."""
+    return pack_kernel(w, "res")
+
+
+def pack_down_kernel(w: torch.Tensor) -> torch.Tensor:
+    """(O, C, 3, 3) → (O, 2C, 3, 2): a stride-2 conv, packed → dense."""
+    return pack_kernel(w, "down")
+
+
+# kind: (packing, stride, the JAX package's ((top, bottom), (left, right))
+# padding); the `_valid` kinds take no row padding (halo rows supply it)
+_PACKED_CONVS = {
+    "entry": ("entry", (1, 2), ((1, 0), (1, 0))),
+    "res": ("res", (1, 1), ((1, 1), (1, 1))),
+    "down": ("down", (2, 1), ((1, 0), (1, 0))),
+    "entry_valid": ("entry", (1, 2), ((0, 0), (1, 0))),
+    "res_valid": ("res", (1, 1), ((0, 0), (1, 1))),
+    "down_valid": ("down", (2, 1), ((0, 0), (1, 0))),
+}
+
+
+def conv2d_padded(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
+    """F.conv2d with the JAX package's per-side padding ((top, bottom),
+    (left, right)). `F.conv2d` pads both sides alike, so an axis whose
+    sides differ is padded by `F.pad` (which keeps channels_last) and
+    convolved with no padding; an axis whose larger leading pad gives the
+    same number of outputs (its extra trailing row is never read) takes the
+    symmetric padding and no copy."""
+    sym, extra = [], [0, 0, 0, 0]  # F.pad order: left, right, top, bottom
+    for axis, ((lo, hi), k, st) in enumerate(zip(padding, w.shape[2:], stride)):
+        n = x.shape[2 + axis]
+        if lo == hi or (hi < lo and (n + 2 * lo - k) // st == (n + lo + hi - k) // st):
+            sym.append(lo)
+        else:
+            sym.append(0)
+            extra[2 - 2 * axis: 4 - 2 * axis] = [lo, hi]
+    if any(extra):
+        x = F.pad(x, extra)
+    return F.conv2d(x, w, None, stride, tuple(sym))
+
+
+def packed_conv(x: torch.Tensor, weight: torch.Tensor, kind: str) -> torch.Tensor:
+    """A block0 convolution on packed maps (the JAX package's `PackedConv`):
+    the dense OIHW `weight`, packed for `kind`, in the input's dtype.
+    'entry': s2d canvas → packed; 'res': packed → packed; 'down': packed →
+    dense; the `_valid` kinds take no row padding."""
+    packing, stride, padding = _PACKED_CONVS[kind]
+    return conv2d_padded(x, pack_kernel(weight, packing).to(x.dtype), stride, padding)
+
+
+def packed_pointwise(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The stride-1 upsample branch's 1x1 on a packed map (the JAX package's
+    `PackedPointwise`): `weight` is the ConvTranspose2d kernel (C, O, 1, 1),
+    applied block-diagonally to both parities."""
+    return F.conv2d(x, pack_kernel(weight.transpose(0, 1), "pointwise").to(x.dtype))
+
+
+def pack_columns(y: torch.Tensor) -> torch.Tensor:
+    """Dense (B, O, H, W) in channels_last memory → packed (B, 2O, H, W/2).
+    NHWC memory (B, H, W, O) read as (B, H, W/2, 2O) is the packing itself,
+    so this is a view; `view` raises rather than copy a map that is not
+    channels_last."""
+    b, o, h, w = y.shape
+    return y.permute(0, 2, 3, 1).view(b, h, w // 2, 2 * o).permute(0, 3, 1, 2)
+
+
+def unpack_columns(x: torch.Tensor) -> torch.Tensor:
+    """Packed (B, 2O, H, W/2) in channels_last memory → dense (B, O, H, W), a view."""
+    b, o2, h, w2 = x.shape
+    return x.permute(0, 2, 3, 1).view(b, h, 2 * w2, o2 // 2).permute(0, 3, 1, 2)
+
+
+# --- row blocking -------------------------------------------------------------
+
+
+def block0_blocking(grid_xy) -> tuple[int, tuple[int, int]]:
+    """(nblk, halo) of the blocked-halo block0 at this grid (the JAX
+    package's `block0_blocking`): halo (4, 3) rows (the 2-row entry conv
+    takes 1 top row, each of the 3 residual convs 1 row a side); nblk the
+    largest of 8/4/2 dividing the s2d rows with at least 8 rows a block, or
+    1 where none does (the blocked path is then off)."""
+    nx2 = grid_xy[0] // 2
+    nblk = next((n for n in (8, 4, 2) if nx2 % n == 0 and nx2 // n > 7), 1)
+    return nblk, (4, 3)
+
+
+def late_blocking(rows_out: int) -> int:
+    """nblk for a late-blocked block from its output rows (the JAX
+    package's `late_blocking`): the largest of 8/4/2 dividing them with at
+    least 32 rows a block, or 1 (dense)."""
+    return next((n for n in (8, 4, 2) if rows_out % n == 0 and rows_out // n >= 32), 1)
+
+
+def unblock_rows(x: torch.Tensor, bsz: int) -> torch.Tensor:
+    """Blocked (B·nblk, C, R, W) with no margins left → (B, C, nblk·R, W):
+    in channels_last memory the blocks of a sample are consecutive rows, so
+    this is a reshape (a view where the map is channels_last)."""
+    n, c, r, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(bsz, n // bsz * r, w, c).permute(0, 3, 1, 2)
+
+
+def reblock_rows(x: torch.Tensor, nblk: int, rb2: int, m: int) -> torch.Tensor:
+    """(B, C, H, W) → halo'd input blocks (B·nblk, C, Rin, W) for a stride-2
+    entry conv with one top pad row (the JAX package's `_reblock_rows`):
+    block i's output rows are [i·rb2 − m, (i+1)·rb2 + m), so its input rows
+    are [2(i·rb2 − m) − 1, 2((i+1)·rb2 + m − 1) + 2); rows outside the map
+    are zero, the dense conv's zero padding. One zero fill and one copy per
+    block; autograd sums the halo copies' cotangents into their source rows."""
+    bsz, c, h, w = x.shape
+    rin = 2 * (rb2 + 2 * m) + 1
+    xn = x.permute(0, 2, 3, 1)
+    out = xn.new_zeros((bsz, nblk, rin, w, c))
+    for i in range(nblk):
+        lo = 2 * (i * rb2 - m) - 1
+        lo_c, hi_c = max(lo, 0), min(lo + rin, h)
+        out[:, i, lo_c - lo:hi_c - lo] = xn[:, lo_c:hi_c]
+    return out.view(bsz * nblk, rin, w, c).permute(0, 3, 1, 2)
+
+
 class Resnet2(nn.Module):
     """Full-pre-activation residual unit, (IN → ReLU → 3x3 conv) x n plus
     identity; `conv_block` indices 2 and 5 hold the convs, as in the
@@ -200,6 +574,34 @@ class Resnet2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.conv_block(x)
 
+    def _convs(self):
+        return [self.conv_block[3 * i + 2] for i in range(len(self.conv_block) // 3)]
+
+    def forward_packed(self, x: torch.Tensor) -> torch.Tensor:
+        """The unit on a packed map (the JAX package's `PreActResidual`,
+        packed=True)."""
+        h = x
+        for conv in self._convs():
+            h = packed_conv(torch.relu(_instance_norm(h, True)), conv.weight, "res")
+        return x + h
+
+    def forward_blocked(self, x: torch.Tensor, nblk: int, valid_rows: int, top_in: int,
+                        packed: bool) -> torch.Tensor:
+        """The unit on a blocked map (B·nblk, C, R, W) with `top_in` margin
+        rows a side (the JAX package's `_BlockedPreActResidual`): each conv
+        is VALID in rows and takes one margin row a side; the identity is
+        cropped to match."""
+        h = x
+        convs = self._convs()
+        for i, conv in enumerate(convs):
+            h = torch.relu(instance_norm_blocked(h, nblk, top_in - i, top_in - i, valid_rows, packed))
+            if packed:
+                h = packed_conv(h, conv.weight, "res_valid")
+            else:
+                h = F.conv2d(h, conv.weight.to(h.dtype), None, 1, (0, 1))
+        k = len(convs)
+        return x[:, :, k:x.shape[2] - k] + h
+
 
 class RPN(nn.Module):
     """Three strided blocks (depths 2/4/4, widths 64/128/256) and three
@@ -209,7 +611,15 @@ class RPN(nn.Module):
     Block b is [3x3 stride-2 conv, IN, ReLU, Resnet2(2) x depth/2,
     Resnet2(1)]. torch's padding=1 on an even input equals the JAX
     package's (1, 0) padding: the last row and column of padding are never
-    read."""
+    read.
+
+    `forward(x, pack_w, block0_blocked, late_blocked)` runs the JAX
+    package's RPN with those flags on the same modules and parameters:
+    `pack_w` takes the s2d canvas (B, 4C, nx/2, ny/2), block0 and the
+    upsample branches packed; `block0_blocked` takes the blocked canvas
+    (B, nblk, R, ny/2, 4C) instead; `late_blocked` runs blocks 2-3 (the JAX
+    package's blocks 1-2) batch-over-row-blocks where `late_blocking`
+    finds blocks. `fuse_in_stats` and `split_out` are not ported."""
 
     def __init__(
         self,
@@ -239,14 +649,93 @@ class RPN(nn.Module):
             )
             cin = width
         self.num_blocks = len(layer_nums)
+        self.layer_nums = tuple(layer_nums)
+        self.upsample_strides = tuple(upsample_strides)
+        self.num_upsample_filters = tuple(num_upsample_filters)
         self.out_channels = sum(num_upsample_filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pack_w: bool = False, block0_blocked: bool = False,
+                late_blocked: bool = False) -> torch.Tensor:
+        if not pack_w:
+            ups = []
+            for b in range(1, self.num_blocks + 1):
+                x = getattr(self, f"block{b}")(x)
+                ups.append(getattr(self, f"deconv{b}")(x))
+            return torch.cat(ups, dim=1)
+        return self._forward_packed(x, block0_blocked, late_blocked)
+
+    def _forward_packed(self, x: torch.Tensor, block0_blocked: bool, late_blocked: bool) -> torch.Tensor:
+        """The JAX package's `RPN.__call__` with pack_w (models/pointpillars.py:947-1043)."""
         ups = []
         for b in range(1, self.num_blocks + 1):
-            x = getattr(self, f"block{b}")(x)
-            ups.append(getattr(self, f"deconv{b}")(x))
-        return torch.cat(ups, dim=1)
+            block = getattr(self, f"block{b}")
+            depth = self.layer_nums[b - 1]
+            if b == 1 and block0_blocked:
+                x = self._blocked_block0(x)
+            elif b > 1 and late_blocked and depth == 4 and late_blocking(x.shape[2] // 2) > 1:
+                x = self._blocked_late(x, b, late_blocking(x.shape[2] // 2))
+            else:
+                if b == 1:
+                    x = packed_conv(x, block[0].weight, "entry")
+                elif b == 2:
+                    x = packed_conv(x, block[0].weight, "down")
+                else:
+                    x = block[0](x)
+                x = torch.relu(_instance_norm(x, b == 1))
+                for unit in block[3:]:
+                    x = unit.forward_packed(x) if b == 1 else unit(x)
+            up = getattr(self, f"deconv{b}")[0]
+            if self.upsample_strides[b - 1] > 1:
+                u = pack_columns(up(x))
+            else:
+                u = packed_pointwise(x, up.weight)
+            ups.append(torch.relu(_instance_norm(u, True)))
+        # parity-outer concat: out[:, :, h, 2·w2 + p] must be the 320
+        # channels of dense column 2·w2 + p, so the branches' parity-p halves
+        # are concatenated p-major and unpacked (the concat moves the data;
+        # the unpack is a view)
+        halves = [u[:, p * bw:(p + 1) * bw] for p in (0, 1) for u, bw in zip(ups, self.num_upsample_filters)]
+        return unpack_columns(torch.cat(halves, dim=1))
+
+    def _blocked_block0(self, x5: torch.Tensor) -> torch.Tensor:
+        """All of block0 on the blocked-halo canvas (B, nblk, R, ny/2, 4C),
+        R = rows per block + 4 + 3 (the JAX package's `_blocked_block0`):
+        VALID-row convs take one margin row a side per conv (the entry the
+        top one only), the blocked IN counts each valid row once, the
+        residual identities crop to match; the margins retire at the last
+        conv and the unblock is a reshape."""
+        block = self.block1
+        if self.layer_nums[0] != 2:
+            raise ValueError("the blocked block0 needs depth 2")
+        bsz, nblk, r0, w2, c4 = x5.shape
+        x = x5.view(bsz * nblk, r0, w2, c4).permute(0, 3, 1, 2)
+        x = packed_conv(x, block[0].weight, "entry_valid")  # margins (3, 3)
+        rb = r0 - 7
+        x = torch.relu(instance_norm_blocked(x, nblk, 3, 3, rb, True))
+        x = block[3].forward_blocked(x, nblk, rb, 3, True)  # margins (1, 1)
+        x = block[4].forward_blocked(x, nblk, rb, 1, True)  # margins (0, 0)
+        return unblock_rows(x, bsz)
+
+    def _blocked_late(self, x: torch.Tensor, b: int, nblk: int) -> torch.Tensor:
+        """Block b (2 or 3) batch-over-row-blocks (the JAX package's
+        `_blocked_late`): re-block the input with fresh 5-row output halos,
+        then the stride-2 entry ('down_valid' on block2's packed input) and
+        the residual units (convs [2, 2, 1]) VALID in rows at batch B·nblk,
+        the margins retiring one row per conv; the unblock is a reshape."""
+        block = getattr(self, f"block{b}")
+        rows_out = x.shape[2] // 2
+        rb = rows_out // nblk
+        m = 5
+        bsz = x.shape[0]
+        xb = reblock_rows(x, nblk, rb, m)
+        if b == 2:
+            x = packed_conv(xb, block[0].weight, "down_valid")
+        else:
+            x = conv2d_padded(xb, block[0].weight.to(xb.dtype), (2, 2), ((0, 0), (1, 0)))
+        x = torch.relu(instance_norm_blocked(x, nblk, m, m, rb, False))
+        for unit, top in zip(block[3:], (m, m - 2, 1)):
+            x = unit.forward_blocked(x, nblk, rb, top, False)
+        return unblock_rows(x, bsz)
 
 
 class SharedHead(nn.Module):
@@ -280,32 +769,67 @@ class SharedHead(nn.Module):
         return {"cls_preds": split(cls, 1), "box_preds": split(box, code), "dir_preds": split(dire, 2)}
 
 
+class Layout(NamedTuple):
+    """The layout path of one forward (`PointPillars.layout`)."""
+
+    pack_w: bool
+    block0_blocked: bool
+    late_blocked: bool
+
+
 class PointPillars(nn.Module):
     """PFN → scatter → RPN → SharedHead (reference :346-382).
 
-    `scatter` makes the canvas: `kernels.scatter_cuda.scatter_to_bev`
-    by default (the CUDA kernel on the card); a caller may set the plain
-    version in its place to compare the two end to end."""
+    The scatters make the RPN's input: `scatter` the dense canvas,
+    `scatter_s2d` the s2d canvas and `scatter_s2d_blocked` the blocked one,
+    the `kernels.scatter_cuda` functions by default (the CUDA kernels on
+    the card); a caller may set the plain versions in their place to
+    compare the two end to end."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         if cfg.head != "shared":
             raise NotImplementedError(f"head {cfg.head!r}: only the shared head is ported")
+        self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         self.grid_xy = (cfg.grid_size[0], cfg.grid_size[1])
         self.pillar_point_net = PFN(cfg.voxel_size, cfg.detection_offset, self.dtype)
         self.rpn = RPN()
         self.heads = SharedHead(self.rpn.out_channels, cfg.num_anchors_per_loc, cfg.box_code_size)
         self.scatter = scatter_to_bev
+        self.scatter_s2d = scatter_to_bev_s2d
+        self.scatter_s2d_blocked = scatter_to_bev_s2d_blocked
+
+    def layout(self, batch: int, train: bool) -> Layout:
+        """The JAX model's selection (models/pointpillars.py:1246-1338):
+        packing needs an even nx and ny % 4 == 0; block0 blocking needs
+        packing and more than one block at this grid; the train-time flags
+        act only at batch <= 2. Late blocking also needs packing here (the
+        JAX model runs it on the dense network too; see config.py)."""
+        nx, ny = self.grid_xy
+        cfg = self.cfg
+        pack = cfg.pack_w and nx % 2 == 0 and ny % 4 == 0
+        blocked = (cfg.block0_blocked_train and batch <= 2) if train else cfg.block0_blocked
+        late = train and batch <= 2 and cfg.late_blocked_train
+        return Layout(pack, pack and blocked and block0_blocking(self.grid_xy)[0] > 1, pack and late)
+
+    def canvas(self, pillar_features: torch.Tensor, coors: torch.Tensor, layout: Layout) -> torch.Tensor:
+        """The RPN's input for `layout`: the dense or s2d canvas as an NCHW
+        view of channels_last memory, or the blocked canvas as it is."""
+        feats, coors = pillar_features.contiguous(), coors.contiguous()
+        if layout.block0_blocked:
+            return self.scatter_s2d_blocked(feats, coors, self.grid_xy, *block0_blocking(self.grid_xy))
+        scatter = self.scatter_s2d if layout.pack_w else self.scatter
+        return scatter(feats, coors, self.grid_xy).permute(0, 3, 1, 2)
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor, coors: torch.Tensor,
                 train: bool = False) -> dict:
         # voxels (B, V, P, 4), num_points (B, V) int32, coors (B, V, 3) int32;
         # train: masked batch statistics in the PFN (and their running update)
+        layout = self.layout(voxels.shape[0], train)
         pillar_features = self.pillar_point_net(voxels, num_points, coors, train)
-        canvas = self.scatter(pillar_features.contiguous(), coors.contiguous(), self.grid_xy)
-        x = canvas.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        return self.heads(self.rpn(x))
+        x = self.canvas(pillar_features, coors, layout)
+        return self.heads(self.rpn(x, *layout))
 
 
 @torch.no_grad()

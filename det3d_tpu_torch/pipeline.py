@@ -6,7 +6,8 @@ networks/pointpillars8_shared.py:346-382, framework/inference.py:26-138):
 voxelization, the anchor mask, the network and post-processing run on the
 detector's device with no host round trip until `detect` formats the
 result. PyTorch runs eagerly, so the stages are plain method calls; the two
-CUDA kernels (BEV scatter, NMS) each launch once per frame on the card.
+CUDA kernels (the BEV scatter of the config's layout, NMS) each launch once
+per frame on the card.
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@ is imported inside those tests only, so that the GPU half runs where JAX
 is absent.
 
 GPU half: needs a CUDA card and skips without one (decided in a fixture,
-never at import). On the card, from the repository root:
+never at import): every kernel against its plain version, bit for bit
+for the scatters (dense, s2d in both orders, blocked s2d) and their
+backwards. On the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 """
@@ -392,3 +394,108 @@ def test_fence_kernel_bit_equal(cuda, view):
     torch.cuda.synchronize()
     assert fence_cuda.counter.launches == before + 1 and got.is_contiguous()
     assert got.dtype == x.dtype and torch.equal(got, x.clone())
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+S2D_SHAPES = [(1, 16000, 64, (800, 800), 12000), (2, 300, 10, (40, 32), 250), (1, 500, 64, (64, 64), 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_major", [False, True])
+@pytest.mark.parametrize("shape", S2D_SHAPES)
+def test_s2d_kernel_bit_equal(cuda, dtype, w_major, shape):
+    b, v, c, grid, n_valid = shape
+    feats, coors = scatter_case(b, v, c, grid, n_valid, seed=n_valid + 1)
+    f = torch.from_numpy(feats).to(device=cuda, dtype=dtype)
+    co = torch.from_numpy(coors).to(cuda)
+    before = scatter_cuda.s2d_counter.launches
+    got = scatter_cuda.scatter_to_bev_s2d(f, co, grid, w_major)
+    want = scatter_cuda.scatter_to_bev_s2d_plain(f, co, grid, w_major)
+    torch.cuda.synchronize()
+    assert scatter_cuda.s2d_counter.launches == before + 1
+    assert got.stride() == want.stride() and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["channels_last", "w_major", "strided"])
+def test_s2d_bwd_kernel_bit_equal(cuda, dtype, layout):
+    _, coors = scatter_case(2, 300, 16, (40, 32), 250, seed=7)
+    co = torch.from_numpy(coors).to(cuda)
+    if layout == "channels_last":  # the entry conv's input gradient
+        g = torch.randn(2, 64, 20, 16, device=cuda).to(dtype).contiguous(memory_format=torch.channels_last)
+        g = g.permute(0, 2, 3, 1)
+    elif layout == "w_major":
+        g = torch.randn(2, 16, 20, 64, device=cuda).to(dtype).transpose(1, 2)
+    else:
+        g = torch.randn(2, 20, 32, 64, device=cuda).to(dtype)[:, :, ::2]
+    before = scatter_cuda.s2d_bwd_counter.launches
+    got = scatter_cuda.scatter_to_bev_s2d_bwd_cuda(g, co)
+    want = scatter_cuda.scatter_to_bev_s2d_bwd_plain(g, co)
+    torch.cuda.synchronize()
+    assert scatter_cuda.s2d_bwd_counter.launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+
+
+BLOCKED_SHAPES = [(2, 16000, 64, (800, 800), 12000, 8), (2, 300, 10, (48, 40), 250, 3), (1, 500, 64, (64, 64), 0, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BLOCKED_SHAPES)
+def test_blocked_kernel_bit_equal(cuda, dtype, shape):
+    b, v, c, grid, n_valid, nblk = shape
+    feats, coors = scatter_case(b, v, c, grid, n_valid, seed=n_valid + 2)
+    f = torch.from_numpy(feats).to(device=cuda, dtype=dtype)
+    co = torch.from_numpy(coors).to(cuda)
+    before = scatter_cuda.blocked_counter.launches
+    got = scatter_cuda.scatter_to_bev_s2d_blocked(f, co, grid, nblk, (4, 3))
+    want = scatter_cuda.scatter_to_bev_s2d_blocked_plain(f, co, grid, nblk, (4, 3))
+    torch.cuda.synchronize()
+    assert scatter_cuda.blocked_counter.launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("shape", BLOCKED_SHAPES[:2])
+def test_blocked_bwd_kernel_bit_equal(cuda, dtype, layout, shape):
+    b, v, c, grid, n_valid, nblk = shape
+    _, coors = scatter_case(b, v, c, grid, n_valid, seed=n_valid + 3)
+    co = torch.from_numpy(coors).to(cuda)
+    rtot = grid[0] // 2 // nblk + 7
+    shape5 = (b, nblk, rtot, grid[1] // 2, 4 * c)
+    if layout == "contiguous":
+        g = torch.randn(shape5, device=cuda).to(dtype)
+    else:  # a channels_last conv gradient at batch b·nblk, seen as blocks, with a padded row stride
+        g = torch.randn(b, nblk, rtot + 1, grid[1] // 2, 4 * c, device=cuda).to(dtype)[:, :, :rtot]
+    before = scatter_cuda.blocked_bwd_counter.launches
+    got = scatter_cuda.scatter_to_bev_s2d_blocked_bwd_cuda(g, co, (4, 3))
+    want = scatter_cuda.scatter_to_bev_s2d_blocked_bwd_plain(g, co, (4, 3))
+    torch.cuda.synchronize()
+    assert scatter_cuda.blocked_bwd_counter.launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+def test_layout_scatters_autograd_use_their_kernels(cuda):
+    feats, coors = scatter_case(2, 300, 16, (48, 40), 250, seed=8)
+    co = torch.from_numpy(coors).to(cuda)
+    counters = (scatter_cuda.s2d_counter, scatter_cuda.s2d_bwd_counter, scatter_cuda.blocked_counter,
+                scatter_cuda.blocked_bwd_counter)
+    before = [c.launches for c in counters]
+    f = torch.from_numpy(feats).to(cuda).requires_grad_()
+    g = torch.randn(2, 24, 20, 64, device=cuda)
+    scatter_cuda.scatter_to_bev_s2d(f, co, (48, 40)).backward(g)
+    assert torch.equal(f.grad, scatter_cuda.scatter_to_bev_s2d_bwd_plain(g, co))
+    f.grad = None
+    g5 = torch.randn(2, 3, 15, 20, 64, device=cuda)
+    scatter_cuda.scatter_to_bev_s2d_blocked(f, co, (48, 40), 3, (4, 3)).backward(g5)
+    assert torch.equal(f.grad, scatter_cuda.scatter_to_bev_s2d_blocked_bwd_plain(g5, co, (4, 3)))
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 1 for n in before]

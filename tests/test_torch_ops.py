@@ -50,7 +50,9 @@ SMALL_DICT = {
 
 
 def _shared_fields(cfg) -> dict:
-    names = {f.name for f in dataclasses.fields(tconfig.Config)}
+    """Every field of the port's Config but `pack_w`, whose default differs
+    on purpose (False in the port, True in the JAX package)."""
+    names = {f.name for f in dataclasses.fields(tconfig.Config)} - {"pack_w"}
     return {n: getattr(cfg, n) for n in names}
 
 
@@ -82,6 +84,7 @@ class TestConfig:
         tf["class_specs"] = tuple(dataclasses.asdict(s) for s in t.class_specs)
         assert tf == jf
         assert t.num_anchors == j.num_anchors and t.num_anchors_per_loc == j.num_anchors_per_loc
+        assert t.pack_w is False and j.pack_w is True
 
     def test_replace_rederives_geometry(self):
         j = jconfig.load_config(SMALL_DICT).replace(voxel_size=(0.5, 0.5, 11.0))

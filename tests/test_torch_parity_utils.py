@@ -36,10 +36,17 @@ def mid_cfg():
     return mid_cfg()
 
 
-def to_torch_cfg(cfg) -> tcfg.Config:
-    """The port's Config with every field the port shares with the JAX one."""
+LAYOUT_FIELDS = frozenset({"pack_w", "block0_blocked", "block0_blocked_train", "late_blocked_train"})
+
+
+def to_torch_cfg(cfg, layout: bool = False) -> tcfg.Config:
+    """The port's Config with every field the port shares with the JAX one;
+    the layout levers keep the port's defaults (the dense network) unless
+    `layout` asks for the JAX config's."""
     specs = tuple(tcfg.ClassSpec(**dataclasses.asdict(s)) for s in cfg.class_specs)
     names = {f.name for f in dataclasses.fields(tcfg.Config)} - {"class_specs"}
+    if not layout:
+        names -= LAYOUT_FIELDS
     return tcfg.Config(**{n: getattr(cfg, n) for n in names}, class_specs=specs)
 
 
@@ -72,3 +79,29 @@ def golden_detectors(which: str):
     # make_golden forces the bucketed top-k on for "mid" only
     approx = True if which == "mid" else None
     return jdet, variables, torch_detector(jdet.cfg, variables, approx_topk=approx)
+
+
+def jax_train_step(jcfg, samples) -> dict:
+    """JAX's f32 `Trainer.train_step` on `samples`, with the gradients that
+    reach its optimizer captured in front of it: the config, the samples,
+    the loss terms, the metric counts, and the weights before and after and
+    the gradients as the port's `state_dict` (numpy)."""
+    import jax.numpy as jnp
+    import optax
+
+    from det3d_tpu.train.trainer import Trainer as JaxTrainer
+    from det3d_tpu.train.trainer import host_batch as jax_host_batch
+
+    trainer = JaxTrainer(jcfg)
+    capture = optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p), lambda u, s, p=None: (u, u))
+    trainer.optimizer = optax.chain(capture, trainer.optimizer)
+    state = trainer.init_state(jax.random.PRNGKey(0))
+    new_state, loss, counts = jax.jit(trainer.train_step)(state, jax_host_batch(jcfg, samples))
+    before = numpy_variables({"params": state.params, "batch_stats": state.batch_stats})
+    after = numpy_variables({"params": new_state.params, "batch_stats": new_state.batch_stats})
+    grads = numpy_variables({"params": new_state.opt_state[0], "batch_stats": new_state.batch_stats})
+    return dict(
+        cfg=jcfg, samples=samples, loss={k: float(v) for k, v in loss.items()},
+        counts={k: np.asarray(v) for k, v in counts.items()},
+        before=before, after=variables_to_state_dict(after), grads=variables_to_state_dict(grads),
+    )

@@ -35,7 +35,6 @@ from det3d_tpu.models.pointpillars import PFN as JaxPFN
 from det3d_tpu.models.pointpillars import _instance_norm
 from det3d_tpu.models.pointpillars import scatter_to_bev as jax_scatter_to_bev
 from det3d_tpu.train import metrics as jmetrics
-from det3d_tpu.train.trainer import Trainer as JaxTrainer
 from det3d_tpu.train.trainer import host_batch as jax_host_batch
 from det3d_tpu_torch import losses
 from det3d_tpu_torch.kernels import fence_cuda, scatter_cuda
@@ -243,20 +242,7 @@ def jax_step():
     """JAX's f32 train step at the small config, with the gradients that
     reach its optimizer captured in front of it."""
     jcfg = pu.small_cfg().replace(batch_size=2)
-    trainer = JaxTrainer(jcfg)
-    capture = optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p), lambda u, s, p=None: (u, u))
-    trainer.optimizer = optax.chain(capture, trainer.optimizer)
-    state = trainer.init_state(jax.random.PRNGKey(0))
-    samples = _scenes(jcfg)
-    new_state, loss, counts = jax.jit(trainer.train_step)(state, jax_host_batch(jcfg, samples))
-    before = pu.numpy_variables({"params": state.params, "batch_stats": state.batch_stats})
-    after = pu.numpy_variables({"params": new_state.params, "batch_stats": new_state.batch_stats})
-    grads = pu.numpy_variables({"params": new_state.opt_state[0], "batch_stats": new_state.batch_stats})
-    return dict(
-        cfg=jcfg, samples=samples, loss={k: float(v) for k, v in loss.items()},
-        counts={k: np.asarray(v) for k, v in counts.items()},
-        before=before, after=variables_to_state_dict(after), grads=variables_to_state_dict(grads),
-    )
+    return pu.jax_train_step(jcfg, _scenes(jcfg))
 
 
 @pytest.fixture(scope="module")
