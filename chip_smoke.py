@@ -10,7 +10,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      parallel, with the compiler's register/shared-memory report;
   3. kernels vs their plain PyTorch versions on the card, at the shapes of
      the 20 cm main path: the BEV scatter bit-equal in f32 and bf16, NMS
-     keep masks equal; times from CUDA events;
+     keep masks equal (a real frame's 3 x 1000 candidates, random boxes,
+     1 to 8 classes, K from 33 to 1024, a chain of dependent decisions,
+     identical boxes, valid flags only in the last chunk); times from CUDA
+     events, the NMS mask kernel and sweep also apart;
   4. the main path at full width: configs/ntusl_20cm.json (800x800 grid,
      16k pillars x 15 points, 1.44M anchors, bf16) with seeded random
      weights, ~100k-point frames through `Detector.detect`; every kernel of
@@ -22,7 +25,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      20 cm shapes (batch 2): the matcher (a real frame pair, no valid gt,
      every anchor masked: labels, weights and dir equal, targets within
      1e-6), the scatter backward (bit-equal in f32 and bf16) and the fence
-     copy (bit-equal); device times from CUDA events, host times per call;
+     copy (bit-equal and contiguous on the head's three views, f32, odd
+     offsets and sizes, rank 6; the kernel each view took; timed with a warm
+     and with a flushed L2 against the contiguous-format `clone`); device
+     times from CUDA events, host times per call;
   7. the train step at full width: ntusl_20cm, bf16, batch 2, seeded
      weights, two seeded ~100k-point scenes repeated; ms/step, peak memory,
      launches per step of every train-path kernel, finite losses that fall,
@@ -81,6 +87,13 @@ NMS_OPS_PER_PAIR = 15
 # force-match compare, compare and or
 MATCH_OPS_PASS1 = 20
 MATCH_OPS_PASS2 = 24
+# the one-block-per-class NMS kernel that the mask + sweep design replaced, at
+# the 3 x 1000 real-frame shape on an H100 at 700 W (PERF.md, kernel table)
+NMS_PREV_MS = 0.3533
+# the element-per-thread fence kernel on the `cls_preds` view, before the
+# transpose kernel took that view (PERF.md, kernel table)
+FENCE_PREV_MS = 0.0209
+L2_FLUSH_BYTES = 128 * 2**20  # more than twice the H100's 50 MB L2
 TRAIN_BATCH = 2
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 20
@@ -129,6 +142,28 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def single_call_ms(fn, flush: torch.Tensor | None = None, reps: int = 10) -> float:
+    """Median device time of single calls, CUDA events around each. With
+    `flush`, a buffer larger than the L2, every call comes after a `zero_()`
+    of it, so the call finds its input in device memory, not in the cache.
+    A short spin kernel goes first, so the host has queued the call before
+    the card reaches it; the events' own cost (a few microseconds) is part
+    of every reading."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES // 40)  # ~0.5 ms
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def host_ms(fn, iters: int = 30) -> float:
     """Mean host time of one call (the wrapper's Python and the launch),
     with the card kept busy so that no call waits on it."""
@@ -144,7 +179,7 @@ def host_ms(fn, iters: int = 30) -> float:
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
 def scatter_inputs(v: int, c: int, grid_xy, n_valid: int, dtype, gen: torch.Generator):
@@ -191,21 +226,40 @@ def check_scatter(grid_xy, v: int, c: int) -> dict:
     return result
 
 
+def random_boxes(ncls: int, k: int, gen: torch.Generator) -> torch.Tensor:
+    centers = torch.rand((ncls, k, 2), generator=gen) * 80 - 40
+    dims = torch.rand((ncls, k, 2), generator=gen) * 7 + 1
+    return torch.cat([centers - dims / 2, centers + dims / 2], dim=-1).cuda()
+
+
 def nms_cases(candidates, gen: torch.Generator):
-    """(name, boxes (3, K, 4), valid (3, K)) cases on the card."""
+    """(name, boxes (ncls, K, 4), valid (ncls, K)) cases on the card: the
+    first three at the main path's 3 x 1000, then the shapes and data that
+    stress the chunked sweep."""
     k = max(c.valid.shape[0] for c in candidates)
-    real = torch.zeros((len(candidates), k, 4), device="cuda")
+    ncls = len(candidates)
+    real = torch.zeros((ncls, k, 4), device="cuda")
     for ci, c in enumerate(candidates):
         real[ci, : c.standup.shape[0]] = c.standup
     # ~20% invalid, as the score gate leaves a real frame's tail
-    some_invalid = torch.rand((len(candidates), k), generator=gen) >= 0.2
-    centers = torch.rand((3, 1000, 2), generator=gen) * 80 - 40
-    dims = torch.rand((3, 1000, 2), generator=gen) * 7 + 1
-    rand_boxes = torch.cat([centers - dims / 2, centers + dims / 2], dim=-1).cuda()
+    some_invalid = torch.rand((ncls, k), generator=gen) >= 0.2
+    ones = lambda *shape: torch.ones(shape, dtype=torch.bool, device="cuda")
+    # each box over the threshold only with its neighbours: kept and
+    # suppressed alternate along 1000 dependent decisions
+    x = torch.arange(1000, dtype=torch.float32, device="cuda") * 5
+    chain = torch.stack([x, torch.zeros_like(x), x + 9, torch.full_like(x, 9.0)], dim=-1)[None]
+    identical = torch.tensor([1.0, 2.0, 6.0, 5.0], device="cuda").expand(1, 1000, 4).contiguous()
+    last_chunk = (torch.arange(k, device="cuda") >= (k - 1) // 32 * 32).expand(ncls, k).contiguous()
     return [
-        ("random boxes", rand_boxes, torch.ones((3, 1000), dtype=torch.bool, device="cuda")),
+        ("random boxes", random_boxes(3, 1000, gen), ones(3, 1000)),
         ("real frame, 20% invalid", real.contiguous(), some_invalid.cuda()),
-        ("real frame, all invalid", real.contiguous(), torch.zeros((len(candidates), k), dtype=torch.bool, device="cuda")),
+        ("real frame, all invalid", real.contiguous(), ~ones(ncls, k)),
+        ("real frame, last chunk valid", real.contiguous(), last_chunk),
+        ("chain of 1000", chain.contiguous(), ones(1, 1000)),
+        ("1000 identical boxes", identical, ones(1, 1000)),
+        ("random 1 x 33", random_boxes(1, 33, gen), ones(1, 33)),
+        ("random 2 x 77", random_boxes(2, 77, gen), torch.rand((2, 77), generator=gen).cuda() >= 0.2),
+        ("random 8 x 1024", random_boxes(8, 1024, gen), torch.rand((8, 1024), generator=gen).cuda() >= 0.2),
     ]
 
 
@@ -219,18 +273,29 @@ def check_nms(candidates, iou_threshold: float) -> dict:
         want = nc.nms_keep_plain(boxes, valid, iou_threshold)
         torch.cuda.synchronize()
         equal = torch.equal(got, want)
-        print(f"nms {name:24s}: keep equal={equal} kept={int(got.sum())} of {int(valid.sum())} valid")
+        print(f"nms {name:28s} {tuple(valid.shape)}: keep equal={equal} kept={int(got.sum())} "
+              f"of {int(valid.sum())} valid")
         check(equal, f"nms keep mask differs from the plain version on '{name}'")
+    check(int(nc.nms_keep_cuda(*cases[4][1:], iou_threshold).sum()) == 500, "the chain keeps every other box")
+    check(int(nc.nms_keep_cuda(*cases[5][1:], iou_threshold).sum()) == 1, "identical boxes keep the first")
     _, boxes, valid = cases[1]
     ms = cuda_ms(lambda: nc.nms_keep_cuda(boxes, valid, iou_threshold))
+    # the two launches apart, over one scratch mask (the sweep reads what the mask kernel left there)
+    mask = nc.mask_scratch(boxes)
+    mask_ms = cuda_ms(lambda: nc.launch(boxes, valid, iou_threshold, mask, parts=1))
+    sweep_ms = cuda_ms(lambda: nc.launch(boxes, valid, iou_threshold, mask, parts=2))
     plain_ms = cuda_ms(lambda: nc.nms_keep_plain(boxes, valid, iou_threshold), iters=5, warmup=1)
     nv = valid.sum(dim=1).double()
     ops = float((nv * (nv - 1) / 2).sum()) * NMS_OPS_PER_PAIR
     moved = boxes.numel() * 4 + 2 * valid.numel()
     bound_ms = max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
     bound_by = "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
-    print(f"nms (3 x {boxes.shape[1]}, one launch) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms=none bound_ms={bound_ms:.6f} ({bound_by})")
+    print(f"nms (3 x {boxes.shape[1]}, one call, two launches) kernel_ms={ms:.4f} (mask kernel alone {mask_ms:.4f}, "
+          f"sweep alone {sweep_ms:.4f}; prev_ms={NMS_PREV_MS}, the one-block-per-class kernel it replaced) "
+          f"plain_ms={plain_ms:.4f} library_ms=none bound_ms={bound_ms:.6f} ({bound_by}); "
+          f"host ms per call {host_ms(lambda: nc.nms_keep_cuda(boxes, valid, iou_threshold)):.4f}")
+    for name, b, v in (cases[4], cases[8]):
+        print(f"nms {name}: kernel_ms={cuda_ms(lambda: nc.nms_keep_cuda(b, v, iou_threshold)):.4f}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
 
 
@@ -426,24 +491,59 @@ def check_scatter_bwd(grid_xy, v: int, c: int) -> dict:
     return result
 
 
-def check_fence(preds_cls: torch.Tensor) -> dict:
-    """The fence copy against `clone`, bit for bit, on the head's strided
-    `cls_preds` view and on a contiguous tensor."""
+def check_fence(preds: dict[str, torch.Tensor]) -> dict:
+    """The fence copy against the contiguous-format `clone`, bit for bit, on
+    the head's three strided views and on other layouts, each through the
+    kernel that `copy_plan` names; then its time on the `cls_preds` view."""
     from det3d_tpu_torch.kernels import fence_cuda as fc
 
-    for name, x in (("cls_preds view", preds_cls), ("contiguous", preds_cls.contiguous()),
-                    ("odd-sized f32", torch.randn(7, 13, 5, device="cuda"))):
-        got, want = fc.fence_copy_cuda(x), fc.fence_copy_plain(x)
+    preds_cls = preds["cls_preds"]
+    b, _, a, h, w = preds_cls.shape
+    head32 = torch.randn(b, a * 10, h, w, device="cuda").contiguous(memory_format=torch.channels_last)
+    views = [(f"{name} view", x) for name, x in preds.items()]
+    views += [
+        ("cls_preds view, f32", head32[:, :a].reshape(b, a, 1, h, w).transpose(1, 2)),
+        ("contiguous", preds_cls.contiguous()),
+        ("odd-sized f32", torch.randn(7, 13, 5, device="cuda")),
+        ("odd offset", preds_cls.contiguous().flatten()[1:]),
+        ("rank 6, strided", torch.randn(3, 4, 5, 6, 7, 8, device="cuda")[::2, :, 1:, ::3].permute(0, 5, 2, 3, 4, 1)),
+    ]
+    for name, x in views:
+        route = fc.copy_plan(x).route
+        before = fc.route_launches[route]
+        got, want = fc.fence_copy_cuda(x), x.clone(memory_format=torch.contiguous_format)
         torch.cuda.synchronize()
-        equal = torch.equal(bits(got), bits(want)) and got.is_contiguous()
-        print(f"fence {name:15s} {tuple(x.shape)} {x.dtype} strides {x.stride()}: bit-equal={equal}")
-        check(equal, f"fence copy differs from clone on the {name}")
-    ms = cuda_ms(lambda: fc.fence_copy_cuda(preds_cls))
-    library_ms = cuda_ms(lambda: preds_cls.clone())
+        equal = torch.equal(bits(got), bits(want)) and torch.equal(bits(fc.fence_copy_plain(x)), bits(want))
+        print(f"fence {name:20s} {tuple(x.shape)} {x.dtype} strides {x.stride()} offset {x.storage_offset()}: "
+              f"{route} kernel, bit-equal={equal} contiguous={got.is_contiguous()}")
+        check(equal and got.is_contiguous(), f"fence copy differs from the contiguous clone on the {name}")
+        check(fc.route_launches[route] == before + 1, f"the {route} kernel was not launched for the {name}")
+        if name.startswith("cls_preds view"):
+            check(route == "transpose", f"the {name} took the {route} kernel")
+        if name in ("contiguous", "odd offset"):
+            check(route == "contiguous", f"the {name} tensor took the {route} kernel")
+    del head32, views
+
+    kernel = lambda: fc.fence_copy_cuda(preds_cls)
+    library = lambda: preds_cls.clone(memory_format=torch.contiguous_format)
+    keep_order = lambda: preds_cls.clone()  # keeps the view's stride order: no transpose, an easier function
+    ms, library_ms, keep_order_ms = cuda_ms(kernel), cuda_ms(library), cuda_ms(keep_order)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     moved = 2 * preds_cls.numel() * preds_cls.element_size()
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    print(f"fence {tuple(preds_cls.shape)} kernel_ms={ms:.4f} plain_ms=library_ms={library_ms:.4f} (clone) "
-          f"bound_ms={bound_ms:.5f} (bytes); host ms per call {host_ms(lambda: fc.fence_copy_cuda(preds_cls)):.4f}")
+    print(f"fence {tuple(preds_cls.shape)} kernel_ms={ms:.4f} (prev_ms={FENCE_PREV_MS}, one element per thread) "
+          f"plain_ms=library_ms={library_ms:.4f} (clone(memory_format=contiguous_format)) "
+          f"clone_keep_order_ms={keep_order_ms:.4f} bound_ms={bound_ms:.5f} (bytes); "
+          f"host ms per call {host_ms(kernel):.4f}")
+    print("fence, single calls between CUDA events, median of 10, warm L2 / after a "
+          f"{L2_FLUSH_BYTES >> 20} MB zero_(): kernel {single_call_ms(kernel):.4f} / "
+          f"{single_call_ms(kernel, flush):.4f}, library {single_call_ms(library):.4f} / "
+          f"{single_call_ms(library, flush):.4f}, clone keeping order {single_call_ms(keep_order):.4f} / "
+          f"{single_call_ms(keep_order, flush):.4f}")
+    for name in ("box_preds", "dir_preds"):
+        x = preds[name]
+        print(f"fence {name} view: kernel_ms={cuda_ms(lambda: fc.fence_copy_cuda(x)):.4f} library_ms="
+              f"{cuda_ms(lambda: x.clone(memory_format=torch.contiguous_format)):.4f}")
     return dict(ms=ms, plain_ms=library_ms, library_ms=library_ms, bound_ms=bound_ms, max_abs_err=0.0)
 
 
@@ -862,7 +962,7 @@ def main() -> int:
     with torch.no_grad():
         vox, tgt = trainer.prepare(dev_batch)
         preds = trainer.model(vox.voxels, vox.num_points_per_voxel, vox.coors)
-    fence = check_fence(preds["cls_preds"])
+    fence = check_fence(preds)
     del vox, tgt, preds  # so that the peaks below count only their own phase
 
     phase("7. train step at full width (ntusl_20cm, bf16, batch 2)")

@@ -1,0 +1,226 @@
+"""Old against new for the two redesigned kernels, in one run on one card.
+
+    python -m det3d_tpu_torch.experiments.kernel_redesigns
+
+from the repository root, on a machine with one CUDA card and `nvcc`. It
+measures what `chip_smoke.py` does not carry: kernels that the package no
+longer launches.
+
+  * NMS: the one-block-per-class kernel (`experiments/nms_one_block.cu`) at
+    the main path's shape (a real frame's 3 x 1000 candidates, 20 % invalid),
+    its time and how it splits between building the suppression matrix and
+    sweeping it (clock64 stamps of thread 0, worst class; and the kernel with
+    the sweep cut out), beside `kernels/csrc/nms.cu` on the same inputs, in
+    turns (old, new, new, old), on a chain of 1000 dependent decisions and on
+    random boxes; the new mask kernel and sweep apart, both with the sweep
+    launched early or only after the mask kernel, and both in one launch
+    (`experiments/nms_one_launch.cu`: the last tile block of a class sweeps);
+    the sweep's register chain alone (`experiments/chain_probe.cu`) beside
+    the whole sweep's cycles per chunk.
+  * Fence: the `cls_preds` view (2 x 9 x 400 x 400 bf16 out of a
+    channels-last head output) through the generic element-per-thread kernel,
+    which copied it before, beside the transpose kernel that copies it now,
+    in turns, warm and after an L2 flush, the library's contiguous clone, and
+    the transpose kernel at other tile sizes than `copy_plan` picks.
+
+Every time is a device time from CUDA events (`chip_smoke.cuda_ms`,
+`chip_smoke.single_call_ms`); the card's name and power limit are printed
+first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from det3d_tpu_torch.kernels import build, fence_cuda, nms_cuda
+
+HERE = Path(__file__).parent
+
+
+def build_experiment(name: str, function: str, argtypes: list) -> ctypes.CDLL:
+    """Build `experiments/<name>.cu` with the NMS library's flags and bind `function`."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / f"lib{name}.so"
+    cmd = [build.nvcc_path(), *build._COMMON_FLAGS, *build.EXTRA_FLAGS["nms"], "-o", str(out), str(HERE / f"{name}.cu")]
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{done.stdout}{done.stderr}")
+    lib = ctypes.CDLL(str(out))
+    getattr(lib, function).argtypes = argtypes
+    getattr(lib, function).restype = ctypes.c_int
+    return lib
+
+
+def nms_old_and_new(thr: float, cases) -> None:
+    ptr = ctypes.c_void_p
+    lib = build_experiment("nms_one_block", "det3d_nms_one_block",
+                           [ptr] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ptr, ctypes.c_int, ptr])
+    fused = build_experiment("nms_one_launch", "det3d_nms_one_launch",
+                             [ptr] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float, ptr])
+
+    def one_launch(boxes, valid, mask, done):
+        keep = torch.empty(valid.shape, dtype=torch.bool, device="cuda")
+        err = fused.det3d_nms_one_launch(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(),
+                                         done.data_ptr(), boxes.shape[0], boxes.shape[1], thr,
+                                         torch.cuda.current_stream().cuda_stream)
+        cs.check(err == 0, f"nms_one_launch.cu failed with CUDA error {err}")
+        return keep
+
+    def one_block(boxes, valid, stamps, phases=3):
+        keep = torch.empty(valid.shape, dtype=torch.bool, device="cuda")
+        err = lib.det3d_nms_one_block(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), boxes.shape[0],
+                                      boxes.shape[1], thr, stamps.data_ptr(), phases,
+                                      torch.cuda.current_stream().cuda_stream)
+        cs.check(err == 0, f"nms_one_block.cu failed with CUDA error {err}")
+        return keep
+
+    for name, boxes, valid in cases:
+        stamps = torch.zeros((boxes.shape[0], 4), dtype=torch.int64, device="cuda")
+        want = nms_cuda.nms_keep_plain(boxes, valid, thr)
+        cs.check(torch.equal(one_block(boxes, valid, stamps), want), f"one-block kernel differs on '{name}'")
+        cs.check(torch.equal(nms_cuda.nms_keep_cuda(boxes, valid, thr), want), f"mask + sweep differs on '{name}'")
+        old = lambda: one_block(boxes, valid, stamps)
+        new = lambda: nms_cuda.nms_keep_cuda(boxes, valid, thr)
+        times = [cs.cuda_ms(fn) for fn in (old, new, new, old)]
+        print(f"nms '{name}' {tuple(valid.shape)}: one block per class {times[0]:.4f} / {times[3]:.4f} ms, "
+              f"mask + sweep {times[1]:.4f} / {times[2]:.4f} ms")
+        mask = nms_cuda.mask_scratch(boxes)
+        parts = {"mask kernel alone": 1, "sweep alone": 2, "both, sweep after the mask kernel": 3,
+                 "both, sweep launched early": 7}
+        for order in (parts, dict(reversed(parts.items()))):
+            print("  mask + sweep: " + ", ".join(
+                f"{label} {cs.cuda_ms(lambda: nms_cuda.launch(boxes, valid, thr, mask, parts=bits)):.4f} ms"
+                for label, bits in order.items()))
+        cs.check(torch.equal(nms_cuda.launch(boxes, valid, thr, mask, parts=7), want), "early launch differs")
+        done = torch.zeros(boxes.shape[0], dtype=torch.int32, device="cuda")
+        for _ in range(2):  # the second call finds the counters the first one set back
+            cs.check(torch.equal(one_launch(boxes, valid, mask, done), want), f"one launch differs on '{name}'")
+        two = lambda: nms_cuda.launch(boxes, valid, thr, mask)
+        one = lambda: one_launch(boxes, valid, mask, done)
+        t = [cs.cuda_ms(fn) for fn in (one, two, two, one)]
+        print(f"  one launch, the last tile block sweeps: {t[0]:.4f} / {t[3]:.4f} ms; two launches, the sweep "
+              f"launched early: {t[1]:.4f} / {t[2]:.4f} ms")
+        one_block(boxes, valid, stamps)
+        torch.cuda.synchronize()
+        t = stamps.cpu()
+        cycles = (t[:, 1:] - t[:, :-1]).tolist()
+        for ci, (build_c, sweep_c, write_c) in enumerate(cycles):
+            total = build_c + sweep_c + write_c
+            print(f"  class {ci}: {total} cycles after the box loads' start: matrix {build_c} "
+                  f"({100 * build_c / total:.1f} %), sweep {sweep_c} ({100 * sweep_c / total:.1f} %), "
+                  f"keep bytes {write_c} ({100 * write_c / total:.1f} %)")
+        worst = max(range(len(cycles)), key=lambda ci: sum(cycles[ci]))
+        share = [c / sum(cycles[worst]) for c in cycles[worst]]
+        whole = (times[0] + times[3]) / 2
+        print(f"  the slowest class bounds the launch: of {whole:.4f} ms, matrix {share[0] * whole:.4f} ms, "
+              f"sweep {share[1] * whole:.4f} ms")
+        matrix_only = cs.cuda_ms(lambda: one_block(boxes, valid, stamps, phases=1))
+        print(f"  the same kernel with the sweep cut out: {matrix_only:.4f} ms")
+
+
+def chain_alone() -> None:
+    """Cycles per row of the sweep's register chain with nothing around it."""
+    ptr = ctypes.c_void_p
+    lib = build_experiment("chain_probe", "det3d_chain_alone", [ptr] * 3 + [ctypes.c_int, ptr])
+    words = torch.randint(0, 2**31 - 1, (32, 32), dtype=torch.int32, device="cuda")
+    out = torch.zeros(32, dtype=torch.int32, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    reps = 100
+    for _ in range(2):
+        err = lib.det3d_chain_alone(words.data_ptr(), out.data_ptr(), cycles.data_ptr(), reps,
+                                    torch.cuda.current_stream().cuda_stream)
+        cs.check(err == 0, f"chain_probe.cu failed with CUDA error {err}")
+        torch.cuda.synchronize()
+    per_row = cycles.item() / (reps * 32)
+    print(f"nms sweep, the chain alone (one warp, {reps} x 32 rows in registers): {per_row:.2f} cycles a row, "
+          f"{32 * per_row:.0f} a chunk of 32 rows")
+
+
+def sweep_cycles(thr: float, boxes, valid) -> None:
+    """SM cycles of the whole sweep per chunk, from its time alone at two sizes
+    (the difference leaves the launch and the set-up out) and the SM clock."""
+    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, check=True).stdout.split()[0])
+    times = {}
+    for k in (512, 1024):
+        b, v = boxes[:, :k].contiguous(), valid[:, :k].contiguous()
+        mask = nms_cuda.mask_scratch(b)
+        nms_cuda.launch(b, v, thr, mask, parts=1)
+        times[k] = cs.cuda_ms(lambda: nms_cuda.launch(b, v, thr, mask, parts=2))
+    per_chunk_ms = (times[1024] - times[512]) / 16
+    print(f"nms sweep alone: {times[512]:.4f} ms at K = 512, {times[1024]:.4f} ms at K = 1024: "
+          f"{per_chunk_ms * 1e3:.3f} us a chunk of 32 rows, ~{per_chunk_ms * 1e-3 * clock_mhz * 1e6:.0f} cycles at the "
+          f"card's maximum SM clock of {clock_mhz:.0f} MHz")
+
+
+def fence_old_and_new() -> None:
+    head = torch.randn(2, 90, 400, 400, device="cuda").to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x = head[:, :9].reshape(2, 9, 1, 400, 400).transpose(1, 2)
+    plan = fence_cuda.copy_plan(x)
+    cs.check(plan.route == "transpose", f"cls_preds takes the {plan.route} kernel")
+    arrays = [(ctypes.c_int64 * fence_cuda.MAX_RANK)(*v) for v in (plan.sizes, plan.src, plan.dst)]
+
+    def copy_by(route: str, forced: fence_cuda.CopyPlan):
+        """`x` through the named kernel of csrc/fence.cu, whatever `copy_plan` says."""
+        out = torch.empty(x.shape, dtype=x.dtype, device="cuda")
+        err = fence_cuda._lib().det3d_fence_copy(
+            x.data_ptr(), out.data_ptr(), x.numel(), x.element_size(), fence_cuda.ROUTES.index(route),
+            len(plan.sizes), *(ctypes.addressof(a) for a in arrays), forced.inner, forced.tile, forced.row,
+            torch.cuda.current_stream().cuda_stream)
+        cs.check(err == 0, f"fence.cu failed with CUDA error {err}")
+        return out
+
+    generic = lambda: copy_by("generic", plan._replace(inner=0, tile=0, row=0))
+    new = lambda: fence_cuda.fence_copy_cuda(x)
+    library = lambda: x.clone(memory_format=torch.contiguous_format)
+    want = library()
+    cs.check(torch.equal(cs.bits(generic()), cs.bits(want)), "generic kernel differs")
+    cs.check(torch.equal(cs.bits(new()), cs.bits(want)), "transpose kernel differs")
+    times = [cs.cuda_ms(fn) for fn in (generic, new, new, generic)]
+    print(f"fence cls_preds {tuple(x.shape)}, 30 calls, warm L2: generic {times[0]:.4f} / {times[3]:.4f} ms, "
+          f"transpose {times[1]:.4f} / {times[2]:.4f} ms, library {cs.cuda_ms(library):.4f} ms, "
+          f"clone keeping order {cs.cuda_ms(lambda: x.clone()):.4f} ms")
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for label, fl in (("warm L2", None), ("after an L2 flush", flush)):
+        t = [cs.single_call_ms(fn, fl) for fn in (generic, new, library, new, generic)]
+        print(f"fence cls_preds, single calls, {label}: generic {t[0]:.4f} / {t[4]:.4f} ms, "
+              f"transpose {t[1]:.4f} / {t[3]:.4f} ms, library {t[2]:.4f} ms")
+    for tile in (64, 128, 256, 512):
+        piece = fence_cuda.VEC_BYTES // x.element_size()
+        forced = plan._replace(tile=tile, row=tile + (piece if tile // piece % 2 == 0 else 0))
+        tiled = lambda: copy_by("transpose", forced)
+        cs.check(torch.equal(cs.bits(tiled()), cs.bits(want)), f"transpose kernel differs at tile {tile}")
+        print(f"fence cls_preds, transpose with tiles of {tile} pixels: {cs.cuda_ms(tiled):.4f} ms warm, "
+              f"{cs.single_call_ms(tiled, flush):.4f} ms after an L2 flush")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_redesigns: no CUDA device", file=sys.stderr)
+        return 2
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.pipeline import Detector
+
+    print("nvidia-smi:", cs.card_line())
+    build.build_all(("nms", "fence"))
+    cfg = load_config("configs/ntusl_20cm.json", max_points=120_000)
+    det = Detector(cfg).init_weights(cs.SEED)
+    pts = torch.from_numpy(synthetic_cloud(cfg.max_points, cs.N_POINTS, seed=cs.SEED)).cuda()
+    cases = cs.nms_cases(det.infer_candidates(pts, cs.N_POINTS), torch.Generator().manual_seed(cs.SEED + 1))
+    thr = det.postprocess.params.nms_iou_threshold
+    nms_old_and_new(thr, [cases[1], cases[4], cases[0]])
+    chain_alone()
+    sweep_cycles(thr, cases[8][1], cases[8][2])
+    fence_old_and_new()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

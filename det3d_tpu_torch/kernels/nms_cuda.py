@@ -9,7 +9,8 @@ reference; the caller applies the `post_max_size` rank cap
 Counterpart of `nms_keep_pallas` in the JAX package (kernels/nms_pallas.py,
 `_nms_kernel`). `nms_keep` dispatches on the device of its input: a CPU
 tensor takes `nms_keep_plain` (ops/nms.greedy_keep), a CUDA tensor launches
-`csrc/nms.cu`, one block per class in one launch.
+`csrc/nms.cu`: the suppression mask of all classes over the whole card, then
+one sweep per class, two launches back to back for one call.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from det3d_tpu_torch.kernels import build
 from det3d_tpu_torch.ops.nms import greedy_keep
 
 MAX_K = 1024  # csrc/nms.cu keeps one 32-bit word of `removed` per lane
+MASK_ROW_WORDS = MAX_K // 32  # words per row of the suppression mask
 
-# launches of the CUDA kernel: one per `nms_keep` call on CUDA tensors
+# calls of the CUDA kernels: one per `nms_keep` call on CUDA tensors
 counter = build.LaunchCounter()
 
 
@@ -51,13 +53,36 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: floa
 def _lib() -> ctypes.CDLL:
     lib = build.load("nms")
     fn = lib.det3d_nms_keep
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
+def mask_scratch(boxes: torch.Tensor) -> torch.Tensor:
+    """The suppression mask's scratch tensor for `boxes`; the kernels write
+    every word they read, so it is not initialised."""
+    return torch.empty((*boxes.shape[:-1], MASK_ROW_WORDS), dtype=torch.int32, device=boxes.device)
+
+
+def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, mask: torch.Tensor, parts: int = 7):
+    """Launch `csrc/nms.cu` on checked CUDA tensors, uncounted: both kernels,
+    the sweep started early (`parts` 7; 3 starts it only when the mask kernel
+    has finished), or only the mask kernel (1) or only the sweep over an
+    earlier mask (2), which is how the two are timed apart."""
+    k = boxes.shape[-2]
+    ncls = boxes.shape[0] if boxes.dim() == 3 else 1
+    keep = torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    err = _lib().det3d_nms_keep(
+        boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), ncls, k, iou_threshold, parts, stream
+    )
+    if err != 0:
+        raise RuntimeError(f"nms.cu failed with CUDA error {err}")
+    return keep
+
+
 def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Launch `csrc/nms.cu` on CUDA tensors: all classes in one launch."""
+    """Launch `csrc/nms.cu` on CUDA tensors: all classes in one call."""
     _check(boxes, valid)
     if boxes.device.type != "cuda":
         raise ValueError(f"nms_keep_cuda needs CUDA tensors, got {boxes.device}")
@@ -66,14 +91,7 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
     k = boxes.shape[-2]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K={k} is outside the kernel's range [1, {MAX_K}]")
-    ncls = boxes.shape[0] if boxes.dim() == 3 else 1
-    keep = torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = _lib().det3d_nms_keep(
-        boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), ncls, k, iou_threshold, stream
-    )
-    if err != 0:
-        raise RuntimeError(f"nms.cu failed with CUDA error {err}")
+    keep = launch(boxes, valid, iou_threshold, mask_scratch(boxes))
     counter.launches += 1
     return keep
 

@@ -5,20 +5,24 @@ CPU half: `scatter_to_bev_plain` against `scatter_to_bev_pallas(interpret=
 True)` — equal, the scatter only moves values; `nms_keep_plain` against
 `greedy_nms_pallas(interpret=True)` and the sequential numpy oracle — keep
 masks equal, both evaluate the same float32 IoU expression; the wrappers'
-input checks and device dispatch (the matcher's and the train step's
+input checks and device dispatch; the fence's choice of kernel for each
+view and its transpose plan walked on the CPU (the matcher's and the train step's
 parity with JAX are in test_torch_targets.py and test_torch_train.py). JAX
 is imported inside those tests only, so that the GPU half runs where JAX
 is absent.
 
 GPU half: needs a CUDA card and skips without one (decided in a fixture,
 never at import): every kernel against its plain version, bit for bit
-for the scatters (dense, s2d in both orders, blocked s2d) and their
-backwards. On the card, from the repository root:
+for the scatters (dense, s2d in both orders, blocked s2d), their backwards
+and the fence's three kernels. On the card, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 """
 
 from __future__ import annotations
+
+import itertools
+import math
 
 import numpy as np
 import pytest
@@ -52,6 +56,83 @@ def nms_case(k, seed, spread=25.0, invalid=0.2):
     boxes = np.concatenate([c - d / 2, c + d / 2], -1)
     scores = np.sort(r.uniform(0, 1, k).astype(np.float32))[::-1].copy()
     return boxes, r.rand(k) >= invalid, scores
+
+
+def nms_special_case(name, k=1000):
+    """(K, 4) boxes and valid flags that stress the chunked sweep."""
+    if name == "chain":  # each box over the threshold only with its neighbours: K dependent decisions
+        x = np.arange(k, dtype=np.float32) * 5
+        zero = np.zeros(k, np.float32)
+        return np.stack([x, zero, x + 9, zero + 9], -1), np.ones(k, bool)
+    if name == "identical":  # the first box suppresses every other
+        return np.tile(np.array([[1.0, 2.0, 6.0, 5.0]], np.float32), (k, 1)), np.ones(k, bool)
+    assert name == "last_chunk"  # valid flags only in the last chunk of 32 rows
+    boxes, _, _ = nms_case(k, 30, invalid=0.0)
+    return boxes, np.arange(k) >= (k - 1) // 32 * 32
+
+
+def head_views(dtype, device="cpu", hw=(50, 40)):
+    """The head's three outputs as `SharedHead` returns them: views into one
+    channels-last (2, 90, H, W) tensor."""
+    h, w = hw
+    y = torch.randn(2, 90, h, w, device=device).to(dtype).contiguous(memory_format=torch.channels_last)
+    cls, box, dire = torch.split(y, [9, 63, 18], dim=1)
+    return {name: part.reshape(2, 9, k, h, w).transpose(1, 2)
+            for name, part, k in (("cls_preds", cls, 1), ("box_preds", box, 7), ("dir_preds", dire, 2))}
+
+
+# the fence's views and the kernel of csrc/fence.cu that copies each
+FENCE_ROUTES = {
+    "cls_preds": "transpose", "box_preds": "transpose", "dir_preds": "transpose", "cls_preds_f32": "transpose",
+    "odd_planes_u8": "transpose", "wide_run_f64": "generic", "contiguous": "contiguous", "odd_offset": "contiguous",
+    "odd_bytes_u8": "contiguous", "scalar": "contiguous", "int64_sliced": "generic", "unit_axes": "generic",
+    "rank6": "generic",
+}
+
+
+def fence_view(name, device="cpu"):
+    if name in ("cls_preds", "box_preds", "dir_preds"):
+        return head_views(torch.bfloat16, device)[name]
+    if name == "cls_preds_f32":
+        return head_views(torch.float32, device)["cls_preds"]
+    if name == "odd_planes_u8":  # 91 pixels of one byte: no output plane but the first is 16-byte aligned
+        y = torch.randint(0, 255, (2, 5, 7, 13), device=device, dtype=torch.uint8)
+        return y.contiguous(memory_format=torch.channels_last)[:, :3]
+    if name == "wide_run_f64":  # a run of 400 doubles per pixel: 16 pixels of it do not fit a tile
+        return torch.randn(3, 20, 400, device=device, dtype=torch.float64).transpose(1, 2)
+    if name == "contiguous":
+        return torch.randn(2, 1, 9, 50, 40, device=device)
+    if name == "odd_offset":  # the source pointer is 2 bytes past a 16-byte boundary
+        return torch.randn(2, 9, 50, 40, device=device).to(torch.bfloat16).flatten()[1:]
+    if name == "odd_bytes_u8":
+        return torch.randint(0, 255, (7, 13, 3), device=device, dtype=torch.uint8)
+    if name == "scalar":
+        return torch.tensor(3.5, device=device)
+    if name == "int64_sliced":
+        return torch.randint(-5, 5, (6, 10, 4), device=device)[:, 2::3]
+    if name == "unit_axes":
+        return torch.randn(1, 5, 1, 7, device=device)[:, :, :, ::3]
+    assert name == "rank6"
+    return torch.randn(3, 4, 5, 6, 7, 8, device=device)[::2, :, 1:, ::3].permute(0, 5, 2, 3, 4, 1)
+
+
+def emulate_transpose(x, plan):
+    """The transpose kernel's walk on the CPU: per block, a tile of `tile`
+    pixels x the run read in source order into rows of `row` elements, then
+    each row written to its output plane."""
+    pixel = len(plan.sizes) - plan.inner - 1
+    run_sizes, run_dst = plan.sizes[pixel + 1:], plan.dst[pixel + 1:]
+    run = math.prod(run_sizes)
+    out = torch.zeros(x.numel(), dtype=x.dtype)
+    for outer in itertools.product(*(range(n) for n in plan.sizes[:pixel])):
+        src0 = x.storage_offset() + sum(i * s for i, s in zip(outer, plan.src))
+        dst0 = sum(i * d for i, d in zip(outer, plan.dst))
+        for p0 in range(0, plan.sizes[pixel], plan.tile):
+            n = min(plan.tile, plan.sizes[pixel] - p0)
+            tile = torch.zeros(run, plan.row, dtype=x.dtype)
+            tile[:, :n] = torch.as_strided(x, (n, run), (plan.src[pixel], 1), src0 + p0 * plan.src[pixel]).T
+            torch.as_strided(out, (*run_sizes, n), (*run_dst, 1), dst0 + p0).copy_(tile[:, :n].reshape(*run_sizes, n))
+    return out.reshape(x.shape)
 
 
 class TestScatterPlain:
@@ -207,6 +288,37 @@ class TestTrainKernelWrappers:
         if view == "cls_preds":
             assert sizes == [2, 8 * 6, 9] and src[-1] == 1
 
+    @pytest.mark.parametrize("view", sorted(FENCE_ROUTES))
+    def test_fence_route_and_transpose_plan(self, view):
+        x = fence_view(view)
+        plan = fence_cuda.copy_plan(x)
+        assert plan.route == FENCE_ROUTES[view]
+        assert (plan.sizes, plan.src, plan.dst) == fence_cuda._iteration_layout(x)
+        if plan.route != "transpose":
+            assert (plan.inner, plan.tile, plan.row) == (0, 0, 0)
+            return
+        pixel = len(plan.sizes) - plan.inner - 1
+        run = math.prod(plan.sizes[pixel + 1:])
+        assert plan.dst[pixel] == 1 and plan.src[-1] == 1
+        assert plan.inner == (2 if view in ("box_preds", "dir_preds") else 1)
+        # a power-of-two tile of whole 16-byte pieces that fits the shared memory, rows an odd count of pieces
+        row_bytes = plan.row * x.element_size()
+        assert plan.tile & (plan.tile - 1) == 0 and 16 <= plan.tile <= fence_cuda.MAX_TILE
+        assert row_bytes % 16 == 0 and row_bytes // 16 % 2 == 1 and plan.row >= plan.tile
+        assert run * row_bytes <= fence_cuda.TILE_BYTES
+        got = emulate_transpose(x, plan)
+        assert got.is_contiguous() and torch.equal(got, x.contiguous())
+
+    def test_fence_plain_is_a_contiguous_copy(self):
+        x = fence_view("cls_preds")
+        assert not x.clone().is_contiguous()  # a bare clone keeps the view's stride order
+        for got in (fence_cuda.fence_copy_plain(x), fence_cuda.s2b_fence(x)):
+            assert got.is_contiguous() and got.data_ptr() != x.data_ptr()
+            assert torch.equal(got.view(torch.int16), x.contiguous().view(torch.int16))
+        before = (fence_cuda.counter.launches, dict(fence_cuda.route_launches))
+        fence_cuda.s2b_fence(x)
+        assert (fence_cuda.counter.launches, dict(fence_cuda.route_launches)) == before  # no kernel on the CPU
+
     def test_matcher_and_fence_build_flags(self):
         assert {"-fmad=false", "-prec-div=true"} <= set(build.EXTRA_FLAGS["matcher"])
         assert set(build.EXTRA_FLAGS) == {"scatter", "nms", "matcher", "fence"}
@@ -313,6 +425,74 @@ def test_nms_kernel_rejects_large_k(cuda):
     valid = torch.ones((1, nms_cuda.MAX_K + 1), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         nms_cuda.nms_keep(boxes, valid, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ncls,k,invalid", [(1, 1, 0.0), (1, 31, 0.2), (2, 32, 0.2), (8, 33, 0.2), (8, 1000, 0.2),
+                                            (1, 1000, 0.0), (3, 1024, 0.2)])
+def test_nms_kernel_equal_over_chunk_edges(cuda, ncls, k, invalid):
+    cases = [nms_case(k, 40 + i, invalid=invalid) for i in range(ncls)]
+    boxes = torch.from_numpy(np.stack([c[0] for c in cases])).to(cuda)
+    valid = torch.from_numpy(np.stack([c[1] for c in cases])).to(cuda)
+    got = nms_cuda.nms_keep(boxes, valid, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_cuda.nms_keep_plain(boxes, valid, 0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [33, 77, 1000, 1024])
+@pytest.mark.parametrize("case", ["chain", "identical", "last_chunk"])
+def test_nms_kernel_equal_on_sweep_cases(cuda, case, k):
+    boxes, valid = (torch.from_numpy(a).to(cuda) for a in nms_special_case(case, k))
+    before = nms_cuda.counter.launches
+    got = nms_cuda.nms_keep(boxes, valid, 0.1)  # 2-D input: one class
+    torch.cuda.synchronize()
+    assert nms_cuda.counter.launches == before + 1
+    assert torch.equal(got, nms_cuda.nms_keep_plain(boxes, valid, 0.1))
+    if case == "chain":
+        assert torch.equal(got.cpu(), torch.arange(k) % 2 == 0)
+    elif case == "identical":
+        assert int(got.sum()) == 1 and bool(got[0])
+
+
+@pytest.mark.gpu
+def test_nms_scratch_needs_no_initialisation(cuda):
+    """The sweep reads only words the mask kernel wrote: a scratch tensor
+    full of ones gives the same keep mask."""
+    cases = [nms_case(1000, 50 + i) for i in range(3)]
+    boxes = torch.from_numpy(np.stack([c[0] for c in cases])).to(cuda)
+    valid = torch.from_numpy(np.stack([c[1] for c in cases])).to(cuda)
+    ones = torch.full_like(nms_cuda.mask_scratch(boxes), -1)
+    got = nms_cuda.launch(boxes, valid, 0.1, ones)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_cuda.nms_keep_plain(boxes, valid, 0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", sorted(FENCE_ROUTES))
+def test_fence_kernel_routes_bit_equal(cuda, view):
+    x = fence_view(view, cuda)
+    before = (fence_cuda.counter.launches, fence_cuda.route_launches[FENCE_ROUTES[view]])
+    got = fence_cuda.s2b_fence(x)
+    torch.cuda.synchronize()
+    after = (fence_cuda.counter.launches, fence_cuda.route_launches[FENCE_ROUTES[view]])
+    assert after == (before[0] + 1, before[1] + 1)
+    want = x.clone(memory_format=torch.contiguous_format)
+    assert got.is_contiguous() and got.dtype == x.dtype and got.shape == x.shape
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    assert torch.equal(got.view(ints), want.view(ints))
+    assert torch.equal(fence_cuda.fence_copy_plain(x).view(ints), want.view(ints))
+
+
+@pytest.mark.gpu
+def test_fence_full_width_cls_preds_and_gradient(cuda):
+    x = head_views(torch.bfloat16, cuda, hw=(400, 400))["cls_preds"].requires_grad_()
+    got = fence_cuda.s2b_fence(x)
+    g = torch.randn_like(got)
+    (got * g).sum().backward()
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.equal(got.view(torch.int16), x.contiguous().view(torch.int16))
+    assert torch.equal(x.grad, g)
 
 
 @pytest.mark.gpu
