@@ -23,8 +23,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      against the CPU, at the tolerances of tests/test_golden_e2e.py;
   6. the train path's kernels vs their plain versions on the card, at the
      20 cm shapes (batch 2): the matcher (a real frame pair, no valid gt,
-     every anchor masked: labels, weights and dir equal, targets within
-     1e-6), the scatter backward (bit-equal in f32 and bf16) and the fence
+     every anchor masked, one class's anchors masked, gt outside the range,
+     a zero-size gt and two gt that tie everywhere, a matched threshold of
+     0: labels, weights, dir and gt-max equal, targets within 1e-6; what its
+     cull leaves of the real pair), the scatter backward (bit-equal in f32 and bf16) and the fence
      copy (bit-equal and contiguous on the head's three views, f32, odd
      offsets and sizes, rank 6; the kernel each view took; timed with a warm
      and with a flushed L2 against the contiguous-format `clone`); device
@@ -80,13 +82,21 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 # sub, add, max each), inter, union (add, sub), the division, the compare;
 # the per-box areas are counted once per box, not per pair
 NMS_OPS_PER_PAIR = 15
-# operations per (included anchor, valid gt of its class) pair in the
-# matcher: the IoU (iw, ih: min, max, sub each; two compares and a multiply
-# for inter; two areas of sub, sub, mul; union add, sub; compare, divide)
-# is 19; pass 1 adds the max, pass 2 the argmax compare and select and the
-# force-match compare, compare and or
+# operations per overlapping (included anchor, valid gt of its class) pair
+# in the matcher: the IoU (iw, ih: min, max, sub each; two compares and a
+# multiply for inter; two areas of sub, sub, mul; union add, sub; compare,
+# divide) is 19; pass 1 adds the max, pass 2 the argmax compare and select
+# and the force-match compare, compare and or. A pair that the kernels visit
+# and find disjoint costs the interval tests only (min, max, sub, compare,
+# twice)
 MATCH_OPS_PASS1 = 20
 MATCH_OPS_PASS2 = 24
+MATCH_OPS_DISJOINT = 8
+# the matcher kernels that looped over every gt of the class for every
+# anchor, before the cull by anchor-chunk boxes, at the same batch on an H100
+# at 700 W (PERF.md, kernel table)
+MATCHER_GT_MAX_PREV_MS = 0.1116
+MATCHER_ASSIGN_PREV_MS = 0.1160
 # the one-block-per-class NMS kernel that the mask + sweep design replaced, at
 # the 3 x 1000 real-frame shape on an H100 at 700 W (PERF.md, kernel table)
 NMS_PREV_MS = 0.3533
@@ -372,29 +382,90 @@ def train_scenes(cfg, seed: int):
     return [sample_scene(cfg, rng, (20, 40), ground_points=TRAIN_POINTS) for _ in range(TRAIN_BATCH)]
 
 
+MATCHER_CASES = ("real frames", "no valid gt", "every anchor masked", "a class's anchors masked",
+                 "gt outside the range", "zero-size gt, one standup box twice", "matched threshold 0")
+
+
 def matcher_inputs(trainer, batch, case: str):
     """(mask (B, A), gt_boxes, gt_bv, gt_classes, gt_valid) on the card."""
     from det3d_tpu_torch.targets import gt_standup
 
     masks = [trainer.detector.preprocess(batch.points[i], batch.num_points[i])[1] for i in range(TRAIN_BATCH)]
     mask = torch.stack(masks).reshape(TRAIN_BATCH, -1)
-    gt_valid = batch.gt_valid
+    gt_boxes, gt_classes, gt_valid = batch.gt_boxes.clone(), batch.gt_classes.clone(), batch.gt_valid
     if case == "no valid gt":
         gt_valid = torch.zeros_like(gt_valid)
     elif case == "every anchor masked":
         mask = torch.zeros_like(mask)
-    return mask, batch.gt_boxes, gt_standup(batch.gt_boxes), batch.gt_classes, gt_valid
+    elif case == "a class's anchors masked":  # its valid gt end at -1, the others' at >= 0
+        start = trainer.assigner.tables.class_start.tolist()
+        mask[:, start[1] : start[2]] = False
+    elif case == "gt outside the range":
+        gt_boxes[..., :2] += 500.0
+    elif case == "zero-size gt, one standup box twice":
+        gt_boxes[:, 1, 3:5] = 0.0
+        # row 3 ties with row 2 on every anchor and differs in z and height:
+        # the first of the two must be the one matched
+        gt_boxes[:, 3] = gt_boxes[:, 2]
+        gt_boxes[:, 3, 2] += 1.0
+        gt_boxes[:, 3, 5] *= 1.2
+        gt_classes[:, 3] = gt_classes[:, 2]
+    return mask, gt_boxes, gt_standup(gt_boxes), gt_classes, gt_valid
+
+
+def matcher_cull_stats(tables, mask, gt_bv, gt_classes, gt_valid) -> dict:
+    """What the matcher's cull leaves of this input, counted with tensor
+    operations: per (sample, anchor chunk) the candidate gt (valid, of the
+    chunk's classes, box not disjoint from the chunk's box), the pairs of an
+    included anchor and a candidate of its class that the kernels visit, and
+    those of them that overlap."""
+    from det3d_tpu_torch.kernels import matcher_cuda as mc
+
+    a, dev = mask.shape[1], mask.device
+    nchunks = tables.chunk_bv.shape[0]
+    bounds = tables.class_start.long()[1:-1].contiguous()
+    first = torch.arange(nchunks, device=dev) * mc.CHUNK
+    c_lo = torch.bucketize(first, bounds, right=True)
+    c_hi = torch.bucketize((first + mc.CHUNK).clamp(max=a) - 1, bounds, right=True)
+    cls = torch.where(gt_valid, gt_classes.long() - 1, -1)              # (B, G)
+    cb, gb = tables.chunk_bv[None, :, None, :], gt_bv[:, None, :, :]    # (1, C, 1, 4), (B, 1, G, 4)
+    cand = ((cls[:, None, :] >= c_lo[None, :, None]) & (cls[:, None, :] <= c_hi[None, :, None])
+            & ~(gb[..., 2] <= cb[..., 0]) & ~(cb[..., 2] <= gb[..., 0])
+            & ~(gb[..., 3] <= cb[..., 1]) & ~(cb[..., 3] <= gb[..., 1]))  # (B, C, G)
+    per_chunk = cand.sum(-1)
+    b_i, ch_i, g_i = cand.nonzero(as_tuple=True)
+    idx = ch_i[:, None] * mc.CHUNK + torch.arange(mc.CHUNK, device=dev)
+    exists = idx < a
+    idx = idx.clamp(max=a - 1)
+    active = exists & mask[b_i[:, None], idx] & (torch.bucketize(idx, bounds, right=True) == cls[b_i, g_i][:, None])
+    q, g4 = tables.anchors_bv[idx], gt_bv[b_i, g_i][:, None, :]
+    iw = torch.minimum(g4[..., 2], q[..., 2]) - torch.maximum(g4[..., 0], q[..., 0])
+    ih = torch.minimum(g4[..., 3], q[..., 3]) - torch.maximum(g4[..., 1], q[..., 1])
+    return dict(
+        chunks=per_chunk.numel(), none=int((per_chunk == 0).sum()), one=int((per_chunk == 1).sum()),
+        more=int((per_chunk > 1).sum()), most=int(per_chunk.max()), candidates=int(cand.sum()),
+        reached_chunks=int((per_chunk.sum(0) > 0).sum()),  # chunks whose anchors_bv some sample needs
+        visited=int(active.sum()), overlapping=int((active & (iw > 0) & (ih > 0)).sum()),
+    )
 
 
 def check_matcher(trainer, batch) -> dict:
     """Both matcher kernels against the plain dense assignment on the card."""
-    from det3d_tpu_torch.kernels import matcher_cuda as mc
+    import dataclasses
 
-    assigner = trainer.assigner
-    tables = assigner.tables
-    fx, fy = assigner.grid_hw
+    from det3d_tpu_torch.kernels import matcher_cuda as mc
+    from det3d_tpu_torch.targets import make_target_assigner
+
+    fx, fy = trainer.assigner.grid_hw
+    zero_thr = tuple(dataclasses.replace(s, matched_threshold=0.0, unmatched_threshold=0.0)
+                     for s in trainer.cfg.class_specs)
     result = {"max_abs_err": 0.0, "gt_max_err": 0.0}
-    for case in ("real frames", "no valid gt", "every anchor masked"):
+    for case in MATCHER_CASES:
+        assigner = trainer.assigner
+        if case == "matched threshold 0":  # an included anchor is positive on a row of zeros
+            assigner = make_target_assigner(trainer.cfg.replace(class_specs=zero_thr), trainer.detector.anchor_set,
+                                            "cuda")
+        tables = assigner.tables
         mask, gt_boxes, gt_bv, gt_classes, gt_valid = matcher_inputs(trainer, batch, case)
         spatial = mask.reshape(TRAIN_BATCH, -1, fx, fy)
         got_max = mc.decode_gt_max(mc.gt_max_bits_cuda(tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid))
@@ -408,17 +479,21 @@ def check_matcher(trainer, batch) -> dict:
         err = (got.bbox_targets - want.bbox_targets).abs().max().item()
         torch.testing.assert_close(got.bbox_targets, want.bbox_targets, rtol=1e-6, atol=1e-6)
         labels = got.labels
-        print(f"matcher {case:20s}: labels/weights/dir equal, gt-max equal, targets max_abs_err={err:.3e}; "
-              f"positives {int((labels > 0).sum())}, negatives {int((labels == 0).sum())}, "
-              f"ignored {int((labels < 0).sum())}")
+        print(f"matcher {case:36s}: labels/weights/dir equal, gt-max equal (valid gt at -1: "
+              f"{int((got_max[gt_valid] < 0).sum())}, at 0: {int((got_max[gt_valid] == 0).sum())}), "
+              f"targets max_abs_err={err:.3e}; positives {int((labels > 0).sum())}, "
+              f"negatives {int((labels == 0).sum())}, ignored {int((labels < 0).sum())}")
         result["max_abs_err"] = max(result["max_abs_err"], err)
 
+    assigner = trainer.assigner
+    tables = assigner.tables
     mask, gt_boxes, gt_bv, gt_classes, gt_valid = matcher_inputs(trainer, batch, "real frames")
     spatial = mask.reshape(TRAIN_BATCH, -1, fx, fy)
     args = (tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid)
     bits = mc.gt_max_bits_cuda(*args)
     result["gt_max_ms"] = cuda_ms(lambda: mc.gt_max_bits_cuda(*args))
     result["assign_ms"] = cuda_ms(lambda: mc.assign_cuda(*args, bits))
+    print(f"matcher, one call of both passes (match_cuda): {cuda_ms(lambda: mc.match_cuda(*args)):.4f} ms")
     print(f"matcher host ms per call (wrapper + launch): gt-max {host_ms(lambda: mc.gt_max_bits_cuda(*args)):.4f}, "
           f"assign {host_ms(lambda: mc.assign_cuda(*args, bits)):.4f}, "
           f"TargetAssigner.kernel {host_ms(lambda: assigner.kernel(gt_boxes, gt_classes, gt_valid, spatial)):.4f}")
@@ -426,8 +501,11 @@ def check_matcher(trainer, batch) -> dict:
     result["gt_max_plain_ms"] = cuda_ms(lambda: assigner.gt_max_plain(*plain), iters=5, warmup=1)
     result["assign_plain_ms"] = cuda_ms(lambda: assigner.plain(*plain), iters=5, warmup=1)
 
-    # bounds from this run's inputs: every input read once, every output
-    # written once; operations over the pairs this data needs
+    # bounds from this run's inputs: every byte the function needs read
+    # once, every output written once; operations over the pairs this data
+    # needs. The function needs the mask, the gt, the anchors' yaw plane
+    # (dir) and every output; it needs an anchor's standup box only where a
+    # gt reaches its chunk, and its other six planes only where it is positive.
     a = tables.anchors.shape[0]
     g = gt_valid.shape[1]
     hw = fx * fy
@@ -437,18 +515,33 @@ def check_matcher(trainer, batch) -> dict:
             included = int(mask[b, c0 * hw : c1 * hw].sum())
             valid = int((gt_valid[b] & (gt_classes[b] == ci + 1)).sum())
             pairs += included * valid
+    stats = matcher_cull_stats(tables, mask, gt_bv, gt_classes, gt_valid)
+    positives = int((assigner.kernel(*plain).labels > 0).sum())
+    print(f"matcher cull on the real frames: {stats}; {pairs} (included anchor, valid gt of its class) pairs, "
+          f"{positives} positives")
     gt_bytes = TRAIN_BATCH * g * (16 + 4 + 1)
-    pass1_bytes = a * 16 + TRAIN_BATCH * a + gt_bytes + TRAIN_BATCH * g * 4
-    pass2_bytes = a * (28 + 16) + TRAIN_BATCH * a + gt_bytes + TRAIN_BATCH * g * (28 + 4) \
+    reached = stats["reached_chunks"] * mc.CHUNK * 16 + tables.chunk_bv.numel() * 4
+    old_pass1 = a * 16 + TRAIN_BATCH * a + gt_bytes + TRAIN_BATCH * g * 4
+    old_pass2 = a * (28 + 16) + TRAIN_BATCH * a + gt_bytes + TRAIN_BATCH * g * (28 + 4) \
         + TRAIN_BATCH * a * (4 + 28 + 4 + 4)
-    for key, moved, ops in (("gt_max", pass1_bytes, pairs * MATCH_OPS_PASS1),
-                            ("assign", pass2_bytes, pairs * MATCH_OPS_PASS2)):
+    pass1_bytes = TRAIN_BATCH * a + gt_bytes + TRAIN_BATCH * g * 4 + reached
+    pass2_bytes = TRAIN_BATCH * a * (4 + 28 + 4 + 4) + TRAIN_BATCH * a + a * 4 + gt_bytes \
+        + TRAIN_BATCH * g * (28 + 4) + reached + positives * 24
+    print(f"matcher bytes counted before the cull (all of anchors and anchors_bv read once): pass 1 {old_pass1} "
+          f"({old_pass1 / HBM_BYTES_PER_S * 1e3:.5f} ms), pass 2 {old_pass2} ({old_pass2 / HBM_BYTES_PER_S * 1e3:.5f} ms); "
+          f"counted for what these inputs need: pass 1 {pass1_bytes}, pass 2 {pass2_bytes}")
+    disjoint = (stats["visited"] - stats["overlapping"]) * MATCH_OPS_DISJOINT
+    for key, moved, ops, prev in (
+            ("gt_max", pass1_bytes, stats["overlapping"] * MATCH_OPS_PASS1 + disjoint, MATCHER_GT_MAX_PREV_MS),
+            ("assign", pass2_bytes, stats["overlapping"] * MATCH_OPS_PASS2 + disjoint, MATCHER_ASSIGN_PREV_MS)):
         t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         result[f"{key}_bound_ms"] = max(t_bytes, t_ops) * 1e3
         result[f"{key}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"matcher {key}: kernel_ms={result[f'{key}_ms']:.4f} plain_ms={result[f'{key}_plain_ms']:.4f} "
+        check(result[f"{key}_ms"] >= result[f"{key}_bound_ms"], f"matcher {key} reads faster than its bound")
+        print(f"matcher {key}: kernel_ms={result[f'{key}_ms']:.4f} (prev_ms={prev}, the kernel without the cull) "
+              f"plain_ms={result[f'{key}_plain_ms']:.4f} "
               f"library_ms=none bound_ms={result[f'{key}_bound_ms']:.5f} ({result[f'{key}_bound_by']}; "
-              f"{moved} bytes, {ops} operations over {pairs} pairs)")
+              f"{moved} bytes, {ops} operations over {stats['overlapping']} overlapping of {stats['visited']} visited pairs)")
     return result
 
 

@@ -39,19 +39,31 @@ import torch
 
 import chip_smoke as cs
 from det3d_tpu_torch.kernels import build, fence_cuda, nms_cuda
+from det3d_tpu_torch.kernels import matcher_cuda as mc
 
 HERE = Path(__file__).parent
 
 
-def build_experiment(name: str, function: str, argtypes: list) -> ctypes.CDLL:
-    """Build `experiments/<name>.cu` with the NMS library's flags and bind `function`."""
+def start_build(source: Path, tag: str, defines=()) -> tuple[Path, subprocess.Popen]:
+    """Start `nvcc` on `source` with the NMS and matcher libraries' flags
+    (exact float32: no contraction, IEEE division) into `_build/lib<tag>.so`."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = build.BUILD_DIR / f"lib{name}.so"
-    cmd = [build.nvcc_path(), *build._COMMON_FLAGS, *build.EXTRA_FLAGS["nms"], "-o", str(out), str(HERE / f"{name}.cu")]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{done.stdout}{done.stderr}")
-    lib = ctypes.CDLL(str(out))
+    out = build.BUILD_DIR / f"lib{tag}.so"
+    cmd = [build.nvcc_path(), *build._COMMON_FLAGS, *build.EXTRA_FLAGS["nms"], *(f"-D{d}" for d in defines),
+           "-o", str(out), str(source)]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_build(out: Path, proc: subprocess.Popen) -> ctypes.CDLL:
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+    return ctypes.CDLL(str(out))
+
+
+def build_experiment(name: str, function: str, argtypes: list) -> ctypes.CDLL:
+    """Build `experiments/<name>.cu` and bind `function`."""
+    lib = finish_build(*start_build(HERE / f"{name}.cu", name))
     getattr(lib, function).argtypes = argtypes
     getattr(lib, function).restype = ctypes.c_int
     return lib
@@ -200,7 +212,115 @@ def fence_old_and_new() -> None:
               f"{cs.single_call_ms(tiled, flush):.4f} ms after an L2 flush")
 
 
-def main() -> int:
+# variants of csrc/matcher.cu by its compile-time switches: blocks per sample
+# of each pass, and pass 2's stores with or without the streaming hint
+MATCHER_VARIANTS = {
+    "pass 1 with 132 blocks a sample": ("MATCHER_BLOCKS_P1=132",),
+    "pass 1 with 528 blocks a sample": ("MATCHER_BLOCKS_P1=528",),
+    "pass 2 with 264 blocks a sample": ("MATCHER_BLOCKS_P2=264",),
+    "pass 2 with 528 blocks a sample": ("MATCHER_BLOCKS_P2=528",),
+    "pass 2 with a block for every 8 chunks": ("MATCHER_BLOCKS_P2=1000000",),
+    "pass 2 with plain stores": ("MATCHER_STREAMING_STORES=0",),
+}
+
+
+def matcher_old_and_new(cfg) -> None:
+    """The matcher kernels that visited every gt of the class for every anchor
+    (`experiments/matcher_per_gt.cu`) beside `kernels/csrc/matcher.cu` on the
+    full-width train batch, in turns; the new passes' parts and variants; what
+    the cull leaves of the input."""
+    from det3d_tpu_torch.train.trainer import Trainer, host_batch
+
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    jobs = {"old": start_build(HERE / "matcher_per_gt.cu", "matcher_per_gt")}
+    for n, (label, defines) in enumerate(MATCHER_VARIANTS.items()):
+        jobs[label] = start_build(build.CSRC / "matcher.cu", f"matcher_variant{n}", defines)
+    libs = {label: finish_build(*job) for label, job in jobs.items()}
+    old = libs.pop("old")
+    old.det3d_matcher_per_gt_max.argtypes = [ptr] * 6 + [i] * 4 + [ptr, ptr]
+    old.det3d_matcher_per_gt_assign.argtypes = [ptr] * 10 + [i] * 4 + [ptr] * 5
+    old.det3d_matcher_per_gt_max.restype = old.det3d_matcher_per_gt_assign.restype = i
+
+    trainer = Trainer(cfg)
+    trainer.init_state(cs.SEED)
+    batch = trainer.to_device(host_batch(cfg, cs.train_scenes(cfg, cs.SEED)))
+    args = cs.matcher_inputs(trainer, batch, "real frames")
+    tables = trainer.assigner.tables
+    mask, gt_boxes, gt_bv, gt_classes, gt_valid = args
+    (b, a), g, ncls = mask.shape, gt_valid.shape[1], tables.class_start.shape[0] - 1
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def old_gt_max():
+        bits = torch.empty((b, g), dtype=torch.int32, device="cuda")
+        err = old.det3d_matcher_per_gt_max(tables.anchors_bv.data_ptr(), mask.data_ptr(), gt_bv.data_ptr(),
+                                           gt_classes.data_ptr(), gt_valid.data_ptr(), tables.class_start.data_ptr(),
+                                           ncls, b, a, g, bits.data_ptr(), stream())
+        cs.check(err == 0, f"matcher_per_gt.cu gt-max failed with CUDA error {err}")
+        return bits
+
+    def old_assign(bits):
+        out = (torch.empty((b, a), dtype=torch.int32, device="cuda"), torch.empty((b, 7, a), device="cuda"),
+               torch.empty((b, a), device="cuda"), torch.empty((b, a), dtype=torch.int32, device="cuda"))
+        err = old.det3d_matcher_per_gt_assign(
+            tables.anchors.data_ptr(), tables.anchors_bv.data_ptr(), mask.data_ptr(), gt_boxes.data_ptr(),
+            gt_bv.data_ptr(), gt_classes.data_ptr(), gt_valid.data_ptr(), bits.data_ptr(),
+            tables.class_start.data_ptr(), tables.thresholds.data_ptr(), ncls, b, a, g,
+            *(t.data_ptr() for t in out), stream())
+        cs.check(err == 0, f"matcher_per_gt.cu assign failed with CUDA error {err}")
+        return out
+
+    new_gt_max = lambda: mc.gt_max_bits_cuda(tables, *args)
+    new_assign = lambda bits, early=False: mc.assign_cuda(tables, *args, bits, early=early)
+    bits = new_gt_max()
+    cs.check(torch.equal(old_gt_max(), bits), "old and new gt-max differ")
+    for name, x, y in zip(("labels", "targets", "weights", "dirs"), old_assign(bits), new_assign(bits)):
+        cs.check(torch.equal(x, y), f"old and new {name} differ")  # one logf: the targets are equal too
+    print(f"matcher on the train batch ({b} x {a} anchors, G = {g}): old and new results equal; "
+          f"cull: {cs.matcher_cull_stats(tables, *args[:1], *args[2:])}")
+
+    def in_turns(label, old_fn, new_fn):
+        t = [cs.cuda_ms(fn) for fn in (old_fn, new_fn, new_fn, old_fn)]
+        print(f"  {label}: every gt per anchor {t[0]:.4f} / {t[3]:.4f} ms, culled {t[1]:.4f} / {t[2]:.4f} ms")
+
+    in_turns("pass 1 (memset + kernel)", old_gt_max, new_gt_max)
+    in_turns("pass 2", lambda: old_assign(bits), lambda: new_assign(bits))
+    in_turns("both passes, one call", lambda: old_assign(old_gt_max()), lambda: mc.match_cuda(tables, *args))
+    parts = {"memset alone": 1, "kernel alone": 2, "memset + kernel": 3}
+    for order in (parts, dict(reversed(parts.items()))):
+        print("  pass 1: " + ", ".join(
+            f"{label} {cs.cuda_ms(lambda: mc.gt_max_bits_cuda(tables, *args, parts=p)):.4f} ms"
+            for label, p in order.items()))
+    both = lambda early: (lambda: new_assign(new_gt_max(), early))
+    t = [cs.cuda_ms(fn) for fn in (both(False), both(True), both(True), both(False))]
+    print(f"  both passes, pass 2 launched after pass 1 {t[0]:.4f} / {t[3]:.4f} ms, launched early "
+          f"{t[1]:.4f} / {t[2]:.4f} ms")
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    t = [cs.single_call_ms(fn, flush) for fn in (lambda: old_assign(bits), lambda: new_assign(bits))]
+    print(f"  pass 2, single calls after an L2 flush: every gt per anchor {t[0]:.4f} ms, culled {t[1]:.4f} ms")
+    # the same kernels on inputs that leave the cull nothing: no gt row to test, rows that reach no chunk
+    for case in ("no valid gt", "gt outside the range", "every anchor masked"):
+        other = cs.matcher_inputs(trainer, batch, case)
+        other_bits = mc.gt_max_bits_cuda(tables, *other)
+        print(f"  '{case}': pass 1 {cs.cuda_ms(lambda: mc.gt_max_bits_cuda(tables, *other)):.4f} ms, "
+              f"pass 2 {cs.cuda_ms(lambda: mc.assign_cuda(tables, *other, other_bits)):.4f} ms")
+    outputs = torch.empty(b * a * 10, dtype=torch.int32, device="cuda")
+    print(f"  the library's fill of pass 2's {outputs.numel() * 4} output bytes: {cs.cuda_ms(outputs.zero_):.4f} ms")
+    shipped = mc._lib()
+    want = new_assign(bits)
+    for label, lib in libs.items():
+        mc._lib = lambda lib=lib: mc.bind(lib)
+        try:
+            cs.check(torch.equal(new_gt_max(), bits), f"variant '{label}' differs in gt-max")
+            cs.check(all(torch.equal(x, y) for x, y in zip(new_assign(bits), want)), f"variant '{label}' differs")
+            variant = [cs.cuda_ms(new_gt_max), cs.cuda_ms(lambda: new_assign(bits))]
+        finally:
+            mc._lib = lambda: shipped
+        base = [cs.cuda_ms(new_gt_max), cs.cuda_ms(lambda: new_assign(bits))]
+        print(f"  {label}: pass 1 {variant[0]:.4f} ms, pass 2 {variant[1]:.4f} ms (as shipped, right after: "
+              f"{base[0]:.4f}, {base[1]:.4f})")
+
+
+def main(which=("nms", "fence", "matcher")) -> int:
     if not torch.cuda.is_available():
         print("kernel_redesigns: no CUDA device", file=sys.stderr)
         return 2
@@ -209,18 +329,25 @@ def main() -> int:
     from det3d_tpu_torch.pipeline import Detector
 
     print("nvidia-smi:", cs.card_line())
-    build.build_all(("nms", "fence"))
+    logs = build.build_all(("nms", "fence", "matcher"))
     cfg = load_config("configs/ntusl_20cm.json", max_points=120_000)
+    if "matcher" in which:
+        print("\n".join(line for line in logs["matcher"].splitlines() if "registers" in line or "Compiling" in line))
+        matcher_old_and_new(cfg)
+    if "nms" not in which and "fence" not in which:
+        return 0
     det = Detector(cfg).init_weights(cs.SEED)
     pts = torch.from_numpy(synthetic_cloud(cfg.max_points, cs.N_POINTS, seed=cs.SEED)).cuda()
     cases = cs.nms_cases(det.infer_candidates(pts, cs.N_POINTS), torch.Generator().manual_seed(cs.SEED + 1))
     thr = det.postprocess.params.nms_iou_threshold
-    nms_old_and_new(thr, [cases[1], cases[4], cases[0]])
-    chain_alone()
-    sweep_cycles(thr, cases[8][1], cases[8][2])
-    fence_old_and_new()
+    if "nms" in which:
+        nms_old_and_new(thr, [cases[1], cases[4], cases[0]])
+        chain_alone()
+        sweep_cycles(thr, cases[8][1], cases[8][2])
+    if "fence" in which:
+        fence_old_and_new()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(tuple(sys.argv[1:]) or ("nms", "fence", "matcher")))

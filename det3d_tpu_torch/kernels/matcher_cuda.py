@@ -6,7 +6,10 @@ assignment that never builds the (G, A) IoU matrix. `csrc/matcher.cu` has
 two kernels, each launched once per call for every class and every sample
 of the batch: pass 1 (`gt_max_bits_cuda`) takes each gt's best IoU over its
 class's included anchors, pass 2 (`assign_cuda`) assigns every anchor;
-`match_cuda` runs both.
+`match_cuda` runs both. Both cull by anchor chunk: a warp owns `CHUNK`
+consecutive anchors and visits only the gt whose standup box reaches the
+chunk's bounding box (`MatcherTables.chunk_bv`); the pairs it never visits
+have IoU exactly 0 and are given back as such.
 
 The plain twin is the dense `targets._assign_one_class`, per sample and
 class (`targets.TargetAssigner.plain`); `targets.TargetAssigner` dispatches
@@ -27,6 +30,10 @@ from det3d_tpu_torch.kernels import build
 
 MAX_G = 256        # csrc/matcher.cu keeps a sample's gt rows in shared memory
 MAX_CLASSES = 8
+CHUNK = 128        # consecutive anchors of one row of `chunk_bv`: a warp's, 4 a lane
+# in `match_cuda`, pass 2 starts while pass 1 still runs and waits for it only
+# before its first chunk with a candidate gt (PERF.md has both ways' times)
+ASSIGN_EARLY = True
 
 # launches of each kernel: one per call of its wrapper
 gt_max_counter = build.LaunchCounter()
@@ -34,23 +41,34 @@ assign_counter = build.LaunchCounter()
 
 
 class MatcherTables(NamedTuple):
-    """The anchor set as the kernels read it, on the device."""
+    """The anchor set on the device. The kernels read `anchors_t`,
+    `anchors_bv`, `chunk_bv`, `class_start` and `thresholds` (`anchors` gives
+    them only A); the plain version reads `anchors` and `anchors_bv`."""
 
     anchors: torch.Tensor      # (A, 7) float32, anchor-major flat order
     anchors_bv: torch.Tensor   # (A, 4) float32 standup boxes
     class_start: torch.Tensor  # (ncls + 1,) int32 flat offsets of the classes
     thresholds: torch.Tensor   # (ncls, 2) float32 [matched, unmatched]
+    anchors_t: torch.Tensor    # (7, A) float32: `anchors` as planes
+    chunk_bv: torch.Tensor     # (ceil(A / CHUNK), 4) float32: `targets.chunk_boxes`
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from `csrc/matcher.cu`."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.det3d_matcher_gt_max.argtypes = [p] * 7 + [i] * 6 + [p, p]
+    lib.det3d_matcher_gt_max.restype = ctypes.c_int
+    lib.det3d_matcher_assign.argtypes = [p] * 11 + [i] * 6 + [p] * 5
+    lib.det3d_matcher_assign.restype = ctypes.c_int
+    lib.det3d_matcher_chunk.restype = ctypes.c_int
+    if lib.det3d_matcher_chunk() != CHUNK:
+        raise RuntimeError(f"matcher.cu owns {lib.det3d_matcher_chunk()} anchors a warp, CHUNK is {CHUNK}")
+    return lib
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("matcher")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.det3d_matcher_gt_max.argtypes = [p] * 6 + [i] * 4 + [p, p]
-    lib.det3d_matcher_gt_max.restype = ctypes.c_int
-    lib.det3d_matcher_assign.argtypes = [p] * 10 + [i] * 4 + [p] * 5
-    lib.det3d_matcher_assign.restype = ctypes.c_int
-    return lib
+    return bind(build.load("matcher"))
 
 
 def _check(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_valid) -> None:
@@ -60,6 +78,8 @@ def _check(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_valid) -
     want = {
         "anchors": (tables.anchors, (a, 7), torch.float32),
         "anchors_bv": (tables.anchors_bv, (a, 4), torch.float32),
+        "anchors_t": (tables.anchors_t, (7, a), torch.float32),
+        "chunk_bv": (tables.chunk_bv, (-(-a // CHUNK), 4), torch.float32),
         "class_start": (tables.class_start, (ncls + 1,), torch.int32),
         "thresholds": (tables.thresholds, (ncls, 2), torch.float32),
         "mask": (mask, (b, a), torch.bool),
@@ -71,6 +91,7 @@ def _check(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_valid) -
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    for name, (t, _, _) in want.items():
         if t.device.type != "cuda" or t.device != mask.device:
             raise ValueError(f"{name} must be a CUDA tensor on the mask's device, got {t.device}")
         if not t.is_contiguous():
@@ -79,26 +100,31 @@ def _check(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_valid) -
         raise ValueError(f"G={g} is outside the kernel's range [1, {MAX_G}]")
     if not 1 <= ncls <= MAX_CLASSES:
         raise ValueError(f"{ncls} classes; the kernel takes 1 to {MAX_CLASSES}")
-    if tables.anchors_bv.data_ptr() % 16:
-        raise ValueError("anchors_bv must be 16-byte aligned (float4 loads)")
+    for name in ("anchors_bv", "anchors_t", "chunk_bv"):
+        if getattr(tables, name).data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
 
 
-def gt_max_bits_cuda(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_valid) -> torch.Tensor:
+def gt_max_bits_cuda(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_valid,
+                     parts: int = 3) -> torch.Tensor:
     """Launch pass 1: (B, G) int32, the float32 bits of each gt's best IoU
     over the included anchors of its class, -1 for padding and where no such
-    anchor exists (`decode_gt_max` turns them into floats)."""
+    anchor exists (`decode_gt_max` turns them into floats). One kernel launch
+    behind a memset of the result; `parts` is for timing them apart (bit 0
+    the memset, bit 1 the kernel) and gives a wrong result unless it is 3."""
     _check(tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid)
     b, g = gt_valid.shape
     bits = torch.empty((b, g), dtype=torch.int32, device=mask.device)
     err = _lib().det3d_matcher_gt_max(
-        tables.anchors_bv.data_ptr(), mask.data_ptr(), gt_bv.data_ptr(), gt_classes.data_ptr(),
-        gt_valid.data_ptr(), tables.class_start.data_ptr(), tables.class_start.shape[0] - 1,
-        b, tables.anchors.shape[0], g, bits.data_ptr(),
-        torch.cuda.current_stream(mask.device).cuda_stream,
+        tables.anchors_bv.data_ptr(), tables.chunk_bv.data_ptr(), mask.data_ptr(), gt_bv.data_ptr(),
+        gt_classes.data_ptr(), gt_valid.data_ptr(), tables.class_start.data_ptr(),
+        tables.class_start.shape[0] - 1, b, tables.anchors.shape[0], g, tables.chunk_bv.shape[0],
+        parts, bits.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"matcher.cu gt-max failed with CUDA error {err}")
-    gt_max_counter.launches += 1
+    if parts & 2:
+        gt_max_counter.launches += 1
     return bits
 
 
@@ -107,9 +133,15 @@ def decode_gt_max(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, -1.0, bits.view(torch.float32))
 
 
-def assign_cuda(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_valid, gmax_bits):
+def assign_cuda(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_valid, gmax_bits,
+                early: bool = False):
     """Launch pass 2 with pass 1's `gmax_bits`: labels (B, A) int32,
-    targets (B, 7, A) float32, weights (B, A) float32, dirs (B, A) int32."""
+    targets (B, 7, A) float32, weights (B, A) float32, dirs (B, A) int32.
+    `early` lets it start while the kernel before it on the stream still
+    runs; it waits for that kernel before it reads `gmax_bits` or ends, and
+    reads its other inputs at once. So pass `early` only where that kernel
+    is pass 1 (which has waited for whatever made those inputs), as
+    `match_cuda` does."""
     _check(tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid)
     b, g = gt_valid.shape
     if tuple(gmax_bits.shape) != (b, g) or gmax_bits.dtype != torch.int32 or not gmax_bits.is_contiguous():
@@ -121,10 +153,11 @@ def assign_cuda(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_val
     weights = torch.empty((b, a), dtype=torch.float32, device=dev)
     dirs = torch.empty((b, a), dtype=torch.int32, device=dev)
     err = _lib().det3d_matcher_assign(
-        tables.anchors.data_ptr(), tables.anchors_bv.data_ptr(), mask.data_ptr(),
-        gt_boxes.data_ptr(), gt_bv.data_ptr(), gt_classes.data_ptr(), gt_valid.data_ptr(),
+        tables.anchors_t.data_ptr(), tables.anchors_bv.data_ptr(), tables.chunk_bv.data_ptr(),
+        mask.data_ptr(), gt_boxes.data_ptr(), gt_bv.data_ptr(), gt_classes.data_ptr(), gt_valid.data_ptr(),
         gmax_bits.data_ptr(), tables.class_start.data_ptr(), tables.thresholds.data_ptr(),
-        tables.class_start.shape[0] - 1, b, a, g,
+        tables.class_start.shape[0] - 1, b, a, g, tables.chunk_bv.shape[0],
+        int(early),
         labels.data_ptr(), targets.data_ptr(), weights.data_ptr(), dirs.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -140,4 +173,4 @@ def match_cuda(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_vali
     gt_valid (B, G) bool. Returns labels (B, A) int32, targets (B, 7, A)
     float32, weights (B, A) float32 and dirs (B, A) int32."""
     bits = gt_max_bits_cuda(tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid)
-    return assign_cuda(tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid, bits)
+    return assign_cuda(tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid, bits, early=ASSIGN_EARLY)

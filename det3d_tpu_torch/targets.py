@@ -17,7 +17,8 @@ direction target. Semantics, as in the JAX package:
 
 `TargetAssigner` works on a batch and dispatches on the device of its
 input: CUDA tensors go through `kernels/matcher_cuda.py` (two launches per
-call, all classes and samples), CPU tensors through the plain dense
+call, all classes and samples; the kernels cull by the anchor chunks'
+bounding boxes, `chunk_boxes`), CPU tensors through the plain dense
 `_assign_one_class` per sample and class.
 """
 
@@ -104,6 +105,20 @@ def _assign_one_class(
     return labels, targets, fg.to(torch.float32), dirs
 
 
+def chunk_boxes(anchors_bv: np.ndarray, chunk: int) -> np.ndarray:
+    """(A, 4) standup boxes → (ceil(A / chunk), 4) float32: the bounding box
+    [min x1, min y1, max x2, max y2] of every `chunk` consecutive anchors
+    (the last chunk may be short). A gt whose standup box is disjoint from a
+    chunk's box overlaps none of the chunk's anchors, whatever the anchor
+    set's order; the matcher kernels skip such pairs."""
+    starts = np.arange(0, anchors_bv.shape[0], chunk)
+    if starts.size == 0:
+        return np.zeros((0, 4), np.float32)
+    lo = np.minimum.reduceat(anchors_bv[:, :2], starts, axis=0)
+    hi = np.maximum.reduceat(anchors_bv[:, 2:], starts, axis=0)
+    return np.ascontiguousarray(np.concatenate([lo, hi], axis=1), dtype=np.float32)
+
+
 class TargetAssigner:
     """`assigner(gt_boxes, gt_classes, gt_valid, anchors_mask)` for a batch:
     gt_boxes (B, G, 7) float32 padded to `cfg.max_gt_boxes` (padding rows
@@ -125,6 +140,8 @@ class TargetAssigner:
             anchors_bv=torch.from_numpy(np.ascontiguousarray(anchor_set.anchors_bv)).to(device),
             class_start=torch.tensor(starts, dtype=torch.int32, device=device),
             thresholds=torch.tensor(self.thresholds, dtype=torch.float32, device=device),
+            anchors_t=torch.from_numpy(np.ascontiguousarray(anchor_set.anchors.T)).to(device),
+            chunk_bv=torch.from_numpy(chunk_boxes(anchor_set.anchors_bv, matcher_cuda.CHUNK)).to(device),
         )
 
     def __call__(self, gt_boxes, gt_classes, gt_valid, anchors_mask) -> TargetAssignment:
@@ -170,7 +187,8 @@ class TargetAssigner:
 
     def gt_max_plain(self, gt_boxes, gt_classes, gt_valid, anchors_mask) -> torch.Tensor:
         """(B, G) each gt's best IoU over its class's included anchors, -1
-        where there is none: the plain twin of `matcher_cuda.gt_max_cuda`."""
+        where there is none: the plain twin of `matcher_cuda.gt_max_bits_cuda`
+        followed by `decode_gt_max`."""
         hw = self.grid_hw[0] * self.grid_hw[1]
         out = torch.full(gt_valid.shape, -1.0, device=gt_boxes.device)
         for i in range(anchors_mask.shape[0]):

@@ -495,18 +495,72 @@ def test_fence_full_width_cls_preds_and_gradient(cuda):
     assert torch.equal(x.grad, g)
 
 
+# the anchors' count is odd and no class range is a multiple of the kernels'
+# chunk: the scalar instantiation, and chunks that straddle two classes
+RAGGED_MATCH_CFG = dict(MATCH_CFG, detection_range=[-22.5, -22.5, -2.5, 22.5, 22.5, 8.5],
+                        center_limit=[-22.5, -22.5, -10.0, 22.5, 22.5, 10.0])
+MATCHER_CASES = [
+    "random", "no valid gt", "every anchor masked", "class with valid gt and no included anchor",
+    "class with included anchors and no valid gt", "gt outside the range", "zero-size gt",
+    "two gt with one standup box", "boxes that only touch", "matched threshold 0", "G = 256",
+    "odd A, classes straddle chunks",
+]
+
+
+def matcher_special_case(case, device):
+    """(assigner, mask (2, nch, fx, fy), gt_boxes, gt_classes, gt_valid) for
+    one of MATCHER_CASES; sample 1 stays the random scene."""
+    import dataclasses
+
+    cfg = load_config(RAGGED_MATCH_CFG if case == "odd A, classes straddle chunks" else MATCH_CFG)
+    if case == "G = 256":
+        cfg = cfg.replace(max_gt_boxes=256)
+    if case == "matched threshold 0":
+        cfg = cfg.replace(class_specs=tuple(
+            dataclasses.replace(s, matched_threshold=0.0, unmatched_threshold=0.0) for s in cfg.class_specs))
+    assigner = make_assigner(cfg, device)
+    mask, gt_boxes, gt_classes, gt_valid = matcher_case(cfg, assigner, 1, "cpu", n_gt=200 if case == "G = 256" else 12)
+    hw = assigner.grid_hw[0] * assigner.grid_hw[1]
+    c0, c1 = assigner.channels[1]
+    if case == "no valid gt":
+        gt_valid[:] = False
+    elif case == "every anchor masked":
+        mask[:] = False
+    elif case == "class with valid gt and no included anchor":
+        gt_classes[0, 1] = 2
+        mask[0, c0:c1] = False
+    elif case == "class with included anchors and no valid gt":
+        gt_classes[0][gt_classes[0] == 2] = 3
+    elif case == "gt outside the range":
+        gt_boxes[0, :, :2] += 200.0
+    elif case == "zero-size gt":
+        gt_boxes[0, 1, 3:5] = 0.0
+        gt_boxes[0, 2, 3] = 0.0
+    elif case == "two gt with one standup box":
+        # equal IoU with every anchor, other z and height: the first row is the one matched
+        gt_classes[0, 2] = gt_classes[0, 1]
+        gt_boxes[0, 2] = gt_boxes[0, 1]
+        gt_boxes[0, 2, 2] += 1.0
+        gt_boxes[0, 2, 5] *= 1.2
+    elif case == "boxes that only touch":
+        # the gt's standup box starts exactly where an anchor's ends
+        ci = int(gt_classes[0, 1]) - 1
+        k0 = assigner.channels[ci][0] * hw
+        anchors, bvs = assigner.tables.anchors.cpu().numpy(), assigner.tables.anchors_bv.cpu().numpy()
+        one = np.float32(1.0)
+        k = next(k for k in range(k0, k0 + hw) if np.float32(np.float32(bvs[k, 2] + one) - one) == bvs[k, 2])
+        gt = anchors[k].copy()
+        gt[0], gt[3], gt[4], gt[6] = np.float32(bvs[k, 2] + one), 2.0, 2.0, 0.0
+        gt_boxes[0, 1] = torch.from_numpy(gt)
+    return assigner, *(t.to(device) for t in (mask, gt_boxes, gt_classes, gt_valid))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["random", "no valid gt", "every anchor masked"])
+@pytest.mark.parametrize("case", MATCHER_CASES)
 def test_matcher_kernels_equal_plain(cuda, case):
     from det3d_tpu_torch.targets import gt_standup
 
-    cfg = load_config(MATCH_CFG)
-    assigner = make_assigner(cfg, cuda)
-    mask, gt_boxes, gt_classes, gt_valid = matcher_case(cfg, assigner, 1, cuda)
-    if case == "no valid gt":
-        gt_valid = torch.zeros_like(gt_valid)
-    elif case == "every anchor masked":
-        mask = torch.zeros_like(mask)
+    assigner, mask, gt_boxes, gt_classes, gt_valid = matcher_special_case(case, cuda)
     before = (matcher_cuda.gt_max_counter.launches, matcher_cuda.assign_counter.launches)
     got = assigner(gt_boxes, gt_classes, gt_valid, mask)
     want = assigner.plain(gt_boxes, gt_classes, gt_valid, mask)
@@ -521,6 +575,25 @@ def test_matcher_kernels_equal_plain(cuda, case):
     torch.testing.assert_close(got.bbox_targets, want.bbox_targets, rtol=1e-6, atol=1e-6)
     if case == "random":
         assert (got.labels > 0).sum() >= 12
+    elif case == "matched threshold 0":
+        assert (got.labels[0] > 0).sum() > mask[0].sum() // 2  # positives on a row of zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("early", [False, True])
+def test_matcher_assign_early_or_late_launch(cuda, early):
+    """Pass 2 launched to start while pass 1 runs, or only after it: the same result."""
+    from det3d_tpu_torch.targets import gt_standup
+
+    assigner, mask, gt_boxes, gt_classes, gt_valid = matcher_special_case("random", cuda)
+    args = (assigner.tables, mask.reshape(2, -1), gt_boxes, gt_standup(gt_boxes), gt_classes, gt_valid)
+    for _ in range(3):
+        bits = matcher_cuda.gt_max_bits_cuda(*args)
+        got = matcher_cuda.assign_cuda(*args, bits, early=early)
+    want = assigner.plain(gt_boxes, gt_classes, gt_valid, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want.labels.reshape(2, -1))
+    torch.testing.assert_close(got[1], want.bbox_targets.reshape(2, 7, -1), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.gpu
