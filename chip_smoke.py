@@ -54,7 +54,18 @@ Phases, each printed as it runs; any failure exits non-zero:
      steps: ms/step, peak memory, falling loss, the blocked scatter and its
      backward once a step, breakdown), the packed step without blocking
      (the s2d scatter and its backward once a step), and one f32 packed +
-     blocked step with the kernels against one with the plain versions.
+     blocked step with the kernels against one with the plain versions;
+ 12. the applications at full width: a dataset of 8 train and 8 eval
+     ~100k-point scenes written to a temporary directory, `train_app.train`
+     (ntusl_20cm, bf16, batch 2, two prefetcher workers, 6 steps, a
+     checkpoint every 3, an in-training eval of 4 frames at step 6): ms/step
+     beside phase 7's bare step, the wait for batches, the eval's wall time
+     and its rotated-IoU share, launches (the train kernels once a step, the
+     scatter and NMS once an eval frame); `latest.pth` restored into a fresh
+     trainer bit-equal to the live one, and one more step; then
+     `infer_app.infer` of the checkpoint over the 8 eval frames through the
+     native reader: ms/frame, the pre / net / post breakdown, the mAP
+     strings, launches.
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package.
@@ -64,10 +75,14 @@ from __future__ import annotations
 
 import collections
 import json
+import multiprocessing
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -114,6 +129,13 @@ LAYOUT_TRAIN_STEPS = 10  # steps of the packed train step without blocking
 # 20 layers, each renormalised by an InstanceNorm; a fraction of the
 # largest |cls_preds| (at least 1)
 PACKED_VS_DENSE_TOL = 1e-3
+APP_FRAMES = 8      # scenes of each split that phase 12 writes
+APP_STEPS = 6       # train_app steps: a checkpoint every 3, an eval at 6
+APP_EVAL_FRAMES = 4
+APP_WORKERS = 2
+# infer's breakdown: one forward for the post stage's inputs, then each stage
+# 2 warm-up + 10 timed calls
+BREAKDOWN_CALLS = 12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -941,6 +963,112 @@ def compare_train_steps(cfg32, batch) -> None:
 
 
 
+def run_apps(cfg, counters, bare_step_ms: float) -> dict:
+    """Phase 12: the train and infer applications on a dataset written to a
+    temporary directory (removed after), with every counter set to 0 just
+    before each app and read just after."""
+    from det3d_tpu_torch.apps import infer_app, train_app
+    from det3d_tpu_torch.data.dataset import DetectionDataset
+    from det3d_tpu_torch.data.synthetic import write_split
+    from det3d_tpu_torch.eval import ap
+    from det3d_tpu_torch.train.checkpoint import CheckpointManager
+    from det3d_tpu_torch.train.trainer import Trainer, host_batch
+
+    root = Path(tempfile.mkdtemp(prefix="det3d-apps-"))
+    frame_overlaps = ap._frame_overlaps
+    overlaps_s: list[float] = []
+
+    def timed_overlaps(*args, **kw):  # the eval's rotated IoUs on the card, numpy out (so synced)
+        t0 = time.perf_counter()
+        out = frame_overlaps(*args, **kw)
+        overlaps_s.append(time.perf_counter() - t0)
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        for split, seed in (("train", SEED + 10), ("eval", SEED + 11)):
+            write_split(cfg, root / split, APP_FRAMES, seed, num_objects=(20, 40), ground_points=TRAIN_POINTS)
+        print(f"wrote {APP_FRAMES} train and {APP_FRAMES} eval scenes in {time.perf_counter() - t0:.2f} s")
+        app_cfg = cfg.replace(batch_size=TRAIN_BATCH, num_workers=APP_WORKERS, data_root=str(root),
+                              train_info=("train/data_info.pkl",), eval_info=("eval/data_info.pkl",))
+        model_dir = root / "model"
+        ds = DetectionDataset(app_cfg, app_cfg.train_info, training=True, seed=SEED)
+        sample_ms = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            ds[i]
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"one training sample (read + augment + range filter + shuffle) in this process: "
+              f"{[round(v, 1) for v in sample_ms]} ms")
+
+        ap._frame_overlaps = timed_overlaps
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        summary = train_app.train(app_cfg, max_steps=APP_STEPS, display_step=2, save_step=3, eval_step=APP_STEPS,
+                                  eval_frames=APP_EVAL_FRAMES, model_dir=str(model_dir))
+        train_s = time.perf_counter() - t0
+        train_launches = {k: c.launches for k, c in counters.items()}
+        ap._frame_overlaps = frame_overlaps
+        check(not multiprocessing.active_children(), "the prefetcher's workers outlived the train loop")
+        check(summary["steps"] == APP_STEPS, f"train_app ran {summary['steps']} steps")
+        waits = summary["batch_wait_s"]
+        print(f"train_app: {APP_STEPS} steps in {train_s:.2f} s; ms/step by display window of 2 steps "
+              f"{[round(v, 3) for v in summary['ms_per_step']]} (the first window holds the workers' start and the "
+              f"first batches; the last follows the eval) against phase 7's bare train_step {bare_step_ms:.3f}")
+        print(f"train_app: waited for batches {[round(w * 1e3, 3) for w in waits]} ms by step "
+              f"({APP_WORKERS} spawned workers; after the first: mean {1e3 * statistics.mean(waits[1:]):.3f} ms/step)")
+        print(f"train_app: checkpoint saves (latest.pth + <step>.pth, from the card) "
+              f"{[round(v * 1e3, 1) for v in summary['save_s']]} ms; the window of steps 3-4 holds the save at 3")
+        print(f"train_app: in-training eval ({APP_EVAL_FRAMES} frames) {summary['eval_s'][0]:.3f} s wall, of which "
+              f"_frame_overlaps (rotated IoU on the card, bev + 3d) {sum(overlaps_s):.3f} s in {len(overlaps_s)} calls")
+        print(f"train_app launches over {APP_STEPS} steps and {APP_EVAL_FRAMES} eval frames: {train_launches}")
+        want = {k: 0 for k in counters}
+        want.update({name: APP_STEPS for name in TRAIN_COUNTERS})
+        want.update(scatter_fwd=APP_STEPS + APP_EVAL_FRAMES, nms=APP_EVAL_FRAMES)
+        check(train_launches == want, f"train_app launches {train_launches}, expected {want}")
+
+        names = sorted(p.name for p in model_dir.iterdir())
+        print(f"model dir: {names}")
+        check({"3.pth", "6.pth", "latest.pth", "log.txt"} <= set(names), f"checkpoints written: {names}")
+        live, live_state = summary["trainer"], summary["state"]
+        fresh = Trainer(app_cfg)
+        fresh.init_state(SEED + 1)
+        restored = CheckpointManager(model_dir).restore_latest(fresh)
+        live_sd, fresh_sd = live.model.state_dict(), fresh.model.state_dict()
+        check(all(torch.equal(live_sd[k], fresh_sd[k]) for k in live_sd), "restored weights or batch statistics")
+        check(all(torch.equal(a, b) for a, b in zip(live_state.mu + live_state.nu, restored.mu + restored.nu)),
+              "restored Adam moments")
+        check((restored.step, restored.lr) == (live_state.step, live_state.lr), "restored step and lr")
+        print(f"latest.pth restored into a fresh Trainer: weights, batch statistics, moments, step {restored.step} "
+              f"and lr {restored.lr} bit-equal to the live trainer's")
+        _, loss, _ = fresh.train_step(restored, host_batch(app_cfg, train_scenes(app_cfg, SEED + 12)))
+        check(all(np.isfinite(float(v)) for v in loss.values()), f"loss after the restore: {loss}")
+        print(f"one more step after the restore: step {restored.step}, loss {float(loss['loss']):.4f}")
+        del live, fresh, summary
+
+        for c in counters.values():
+            c.launches = 0
+        out = infer_app.infer(app_cfg, checkpoint=str(model_dir), num_frames=APP_FRAMES, breakdown=True)
+        infer_launches = {k: c.launches for k, c in counters.items()}
+        check(out["reader"] == "native", f"infer read its frames with the {out['reader']} reader")
+        print(f"infer_app: reader {out['reader']}, {out['avg_ms']:.3f} ms/frame over {APP_FRAMES - 1} frames after "
+              f"the first; breakdown ms (median of 10) "
+              f"{ {k: round(v * 1e3, 3) for k, v in out['stages'].items()} }")
+        print(f"infer_app launches over {APP_FRAMES} frames and the breakdown: {infer_launches}")
+        want = {k: 0 for k in counters}
+        want.update(scatter_fwd=APP_FRAMES + 1 + BREAKDOWN_CALLS, nms=APP_FRAMES + BREAKDOWN_CALLS)
+        check(infer_launches == want, f"infer_app launches {infer_launches}, expected {want}")
+        check(len(out["eval_strs"]) == 3 and all("Metric: 3d" in e for e in out["eval_strs"]), "mAP strings")
+        for a in out["dt_annos"]:
+            for key in ("location", "dimensions", "rotation_y", "score"):
+                check(bool(np.isfinite(a[key]).all()), f"non-finite {key} in infer's annos")
+        return {k: train_launches[k] + infer_launches[k] for k in counters}
+    finally:
+        ap._frame_overlaps = frame_overlaps
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def small_config():
     """A 32x32-grid geometry with the default 9 anchors per location."""
     from det3d_tpu_torch.config import load_config
@@ -975,7 +1103,7 @@ def main() -> int:
 
     phase("2. build")
     t0 = time.time()
-    logs = build.build_all()
+    logs = build.build_all(tuple(build.EXTRA_FLAGS) + tuple(build.HOST_SOURCES))
     for name, log in logs.items():
         print(f"--- {name}.cu (ptxas -v)")
         print("\n".join(line for line in log.splitlines() if "ptxas" in line or "error" in line.lower()))
@@ -1180,6 +1308,11 @@ def main() -> int:
         del trainer, state
     compare_train_steps(cfg32.replace(pack_w=True), batch)
 
+    phase("12. apps at full width (train_app, checkpoint, infer_app; ntusl_20cm, bf16)")
+    t_apps = time.time()
+    app_launches = run_apps(cfg, train_counters(layouts=True), step_ms)
+    print(f"phase 12 took {time.time() - t_apps:.1f} s")
+
     kernels = [
         {
             "name": "scatter_to_bev", "route": "cuda",
@@ -1239,6 +1372,12 @@ def main() -> int:
             "max_abs_err": layout_k[key]["max_abs_err"], "bound_by": "bytes",
             **{k: layout_k[key][torch.bfloat16][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         })
+    app_keys = {"scatter_to_bev": "scatter_fwd", "nms_keep": "nms", "scatter_to_bev_bwd": "scatter_bwd",
+                "matcher_gt_max": "matcher_gt_max", "matcher_assign": "matcher_assign", "fence_copy": "fence",
+                "scatter_to_bev_s2d": "s2d_fwd", "scatter_to_bev_s2d_bwd": "s2d_bwd",
+                "scatter_to_bev_s2d_blocked": "blocked_fwd", "scatter_to_bev_s2d_blocked_bwd": "blocked_bwd"}
+    for k in kernels:  # launches over phase 12 (both apps), beside the main path's
+        k["app_launches"] = app_launches[app_keys[k["name"]]]
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

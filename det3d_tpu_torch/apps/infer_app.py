@@ -1,0 +1,132 @@
+"""Offline inference and evaluation: the reference's `infer()` entry.
+
+Counterpart of the JAX package's apps/infer_app.py (reference
+train.py:187-270): detect every frame of an eval set at batch 1, time it,
+optionally split the time into pre / net / post (`breakdown`), pickle the
+detection annos, then the official mAP at a sweep of range thresholds, the
+rotated-IoU matrices computed once and shared across the sweep. Frames of
+a dataset are read by `DetectionDataset.iter_points_native` (the native
+loader's threads where its library builds).
+
+Not ported: `batch > 1`, `spatial` and exported artifacts (ROADMAP items
+10-13). The JAX app's `exact_topk` becomes `approx_topk`, because the
+port's top-k is exact by default.
+"""
+
+from __future__ import annotations
+
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from det3d_tpu_torch.config import Config
+from det3d_tpu_torch.pipeline import Detector
+from det3d_tpu_torch.postprocess import PostProcessParams, to_annos
+from det3d_tpu_torch.utils.timing import StageTimers, block_until_ready, time_fn
+
+
+def _frames(cfg: Config, synthetic: bool, num_frames: int, seed: int, det: Detector):
+    """(reader name, gt annos, iterator of (padded points, n))."""
+    from det3d_tpu_torch.apps.train_app import _eval_samples, gt_annos_of
+
+    if synthetic:
+        samples, gt_annos = _eval_samples(cfg, True, num_frames, seed)
+        return "synthetic", gt_annos, (det.pad_points(s["points"]) for s in samples)
+    from det3d_tpu_torch.data.dataset import DetectionDataset
+
+    ds = DetectionDataset(cfg, cfg.eval_info, training=False)
+    order = np.arange(min(num_frames, len(ds)))
+    gt_annos = [gt_annos_of(ds.infos[i]) for i in order]
+    return ds.point_reader(), gt_annos, ((pts, n) for _, pts, n in ds.iter_points_native(order))
+
+
+def infer(
+    cfg: Config,
+    *,
+    checkpoint: str | None = None,
+    synthetic: bool = False,
+    num_frames: int = 64,
+    range_thresholds: tuple[float, ...] = (80.0, 85.0, 90.0),
+    breakdown: bool = False,
+    out_path: str | None = None,
+    seed: int = 1,
+    approx_topk: bool = False,
+    device=None,
+) -> dict:
+    """Returns {"dt_annos", "gt_annos", "eval_strs", "avg_ms", "reader",
+    "stages"}. `checkpoint`: a model directory (its `latest.pth`) or a
+    `.pth` file; seeded random weights without one. The first frame (the
+    kernels' build, cuDNN's choice of algorithms) is left out of the
+    average; with one frame, a second call of it is timed."""
+    from det3d_tpu_torch.eval.ap import get_official_eval_result
+
+    det = Detector(cfg, device, postprocess_params=PostProcessParams(approx_topk=True) if approx_topk else None)
+    if checkpoint:
+        from det3d_tpu_torch.train.checkpoint import load_latest_state
+
+        _, state = load_latest_state(cfg, checkpoint, det)
+        print(f"loaded checkpoint @ step {state.step}")
+    else:
+        det.init_weights(0)
+        print("WARNING: random weights (no checkpoint given)")
+
+    reader, gt_annos, frames = _frames(cfg, synthetic, num_frames, seed, det)
+    print(f"point reader: {reader}")
+    timers = StageTimers()
+    dt_annos = []
+    total = 0.0
+    first = None
+    for i, (pts, n) in enumerate(frames):
+        t0 = time.perf_counter()
+        out = block_until_ready(det.infer(torch.from_numpy(pts).to(det.device), int(n)))
+        dt = time.perf_counter() - t0
+        if i == 0:
+            first = (pts, n)
+        else:
+            total += dt
+            timers.add("e2e", dt)
+        dt_annos.append(to_annos(cfg, out))
+    if len(dt_annos) == 1:
+        t0 = time.perf_counter()
+        block_until_ready(det.infer(torch.from_numpy(first[0]).to(det.device), int(first[1])))
+        total = time.perf_counter() - t0
+        timers.add("e2e", total)
+    denom = max(len(dt_annos) - 1, 1)
+
+    if breakdown and first is not None:
+        _stage_breakdown(det, *first, timers)
+
+    avg_ms = 1e3 * total / denom
+    print(f"avg end-to-end: {avg_ms:.2f} ms/frame   [{timers.report()}]")
+
+    if out_path:
+        with open(out_path, "wb") as f:
+            pickle.dump(dt_annos, f)
+        print(f"wrote {out_path}")
+
+    eval_strs = []
+    cache: dict = {}  # rotated-IoU matrices shared across the range sweep
+    for rt in range_thresholds:
+        _, s = get_official_eval_result(gt_annos, dt_annos, list(cfg.detect_class), rt, overlaps_cache=cache,
+                                        device=det.device)
+        print(s)
+        eval_strs.append(s)
+    return {"dt_annos": dt_annos, "gt_annos": gt_annos, "eval_strs": eval_strs, "avg_ms": avg_ms,
+            "reader": reader, "stages": timers.averages()}
+
+
+@torch.no_grad()
+def _stage_breakdown(det: Detector, pts: np.ndarray, n, timers: StageTimers) -> None:
+    """Per-stage latency, median of 10 (reference train.py:244-258 prints
+    the same split): pre = voxelize + anchor mask, net = the network,
+    post = decode + NMS."""
+    points = torch.from_numpy(pts).to(det.device)
+    frame, mask = det.preprocess(points, int(n))
+    net_args = (frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
+    preds = {k: v[0] for k, v in det.model(*net_args).items()}
+    post = lambda p, m: det.postprocess.finalize_stage(det.postprocess.decode_stage(p, m))  # noqa: E731
+    for name, fn, args in (("pre", det.preprocess, (points, int(n))), ("net", det.model, net_args),
+                           ("post", post, (preds, mask))):
+        timers.add(name, time_fn(fn, *args, iters=10)["p50_ms"] / 1e3)

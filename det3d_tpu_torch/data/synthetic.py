@@ -3,10 +3,15 @@
 The port's own copy of the JAX package's data/synthetic.py generators, so
 that the port can make realistic frames where the JAX package is absent:
 `sample_scene` (ground plane plus surface-sampled boxes of the three
-classes, with exact ground truth) and `synthetic_cloud` (a ~100k-point
-frame with a real sweep's pillar occupancy)."""
+classes, with exact ground truth), `scene_to_annos` (that ground truth in
+the eval annos format), `write_split` (such scenes as a dataset on disk)
+and `synthetic_cloud` (a ~100k-point frame with a real sweep's pillar
+occupancy)."""
 
 from __future__ import annotations
+
+import pickle
+from pathlib import Path
 
 import numpy as np
 
@@ -115,3 +120,37 @@ def synthetic_cloud(max_points: int, n: int, seed: int = 0) -> np.ndarray:
     pts[:n, 2] = np.where(r.rand(n) < 0.7, r.uniform(-2.0, -1.5, n), r.uniform(-1.5, 4.0, n))
     pts[:n, 3] = r.uniform(0, 1, n)
     return pts
+
+
+def scene_to_annos(sample: dict, cfg: Config) -> dict:
+    """Ground truth of a synthetic scene in the eval annos format."""
+    names = np.array([cfg.detect_class[c - 1] for c in sample["gt_classes"]], dtype="<U10")
+    boxes = sample["gt_boxes"]
+    return {
+        "name": names,
+        "location": boxes[:, :3],
+        "dimensions": boxes[:, 3:6],
+        "rotation_y": boxes[:, 6],
+        "num_points": np.full(len(names), 100, np.int64),
+        "score": np.zeros(len(names)),
+    }
+
+
+def write_split(cfg: Config, root: str | Path, n: int, seed: int, **scene_kw) -> Path:
+    """`n` scenes of `sample_scene` written as a split that
+    `DetectionDataset` reads: `velodyne/<id>.bin` (float32, C features)
+    and `data_info.pkl` (velodyne_path, annos from `scene_to_annos`).
+    Returns the pickle's path."""
+    root = Path(root)
+    (root / "velodyne").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    infos = []
+    for i in range(n):
+        scene = sample_scene(cfg, rng, **scene_kw)
+        rel = f"velodyne/{i:06d}.bin"
+        scene["points"].astype(np.float32).tofile(root / rel)
+        infos.append({"image_idx": i, "pointcloud_num_features": cfg.num_point_features, "velodyne_path": rel,
+                      "annos": scene_to_annos(scene, cfg)})
+    with open(root / "data_info.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    return root / "data_info.pkl"

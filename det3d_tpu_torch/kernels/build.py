@@ -6,6 +6,11 @@ headers, so a build takes seconds). The hash covers the source and the
 flags, so an edited source never loads a stale library. Nothing here runs
 at import time: the first kernel launch builds its library, and
 `build_all()` builds every library at once, one `nvcc` process per source.
+
+The same cache builds the one host library of the port, the native point
+cloud loader: `runtime/pointcloud_loader.cc` (shared with the JAX package,
+which builds it into `runtime/`; the port never writes there) compiles
+with the host's C++ compiler into `_build/libpointcloud_loader-<hash>.so`.
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
+# host C++ libraries: name -> source
+HOST_SOURCES = {"pointcloud_loader": Path(__file__).resolve().parents[2] / "runtime" / "pointcloud_loader.cc"}
+_HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 # Hopper only: `sm_90a` keeps wgmma/setmaxnreg available to later kernels.
 _COMMON_FLAGS = (
@@ -59,21 +67,37 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: $CXX, then `g++` on PATH."""
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if found is None:
+        raise RuntimeError("no C++ compiler found: set CXX or put g++ on PATH")
+    return found
+
+
+def _recipe(name: str) -> tuple[Path, tuple[str, ...]]:
+    """(source, flags) of one library."""
+    if name in HOST_SOURCES:
+        return HOST_SOURCES[name], _HOST_FLAGS
+    return CSRC / f"{name}.cu", _COMMON_FLAGS + EXTRA_FLAGS[name]
+
+
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = " ".join(_COMMON_FLAGS + EXTRA_FLAGS[name]).encode()
-    digest = hashlib.sha256(src + b"\0" + flags).hexdigest()[:16]
+    source, flags = _recipe(name)
+    digest = hashlib.sha256(source.read_bytes() + b"\0" + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
-    """Start `nvcc` for one library unless it is built; None if it is."""
+    """Start the compiler for one library unless it is built; None if it is."""
     out = _library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *_COMMON_FLAGS, *EXTRA_FLAGS[name], "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    source, flags = _recipe(name)
+    compiler = cxx_path() if name in HOST_SOURCES else nvcc_path()
+    cmd = [compiler, *flags, "-o", str(tmp), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
 
@@ -81,7 +105,7 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
 def _finish(name: str, out: Path, tmp: Path, proc: subprocess.Popen) -> str:
     log = proc.communicate()[0]
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"building {name} failed (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
     (out.with_suffix(".log")).write_text(log)
     return log
@@ -104,7 +128,7 @@ def build_all(names=tuple(EXTRA_FLAGS)) -> dict[str, str]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if needed and load it (once per process)."""
+    """Build library `name` if needed and load it (once per process)."""
     job = _start(name)
     if job is not None:
         _finish(name, *job)

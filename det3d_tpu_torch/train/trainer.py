@@ -25,6 +25,7 @@ from det3d_tpu_torch.kernels.fence_cuda import s2b_fence
 from det3d_tpu_torch.losses import detection_loss
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame
 from det3d_tpu_torch.pipeline import Detector
+from det3d_tpu_torch.postprocess import Detections
 from det3d_tpu_torch.targets import TargetAssignment, make_target_assigner
 from det3d_tpu_torch.train.metrics import binary_counts
 
@@ -153,6 +154,14 @@ class Trainer:
             metrics = binary_counts(tgt.labels, preds["cls_preds"])
         self.apply_gradients(state)
         return state, {k: v.detach() for k, v in loss_dict.items()}, metrics
+
+    # -- eval forward (for the in-training eval loop) -----------------------
+    def eval_step(self, points, num_points) -> Detections:
+        """Inference of one padded frame (max_points, C) on the trainer's
+        model: the JAX Trainer.eval_step (trainer.py:250-267). The model
+        takes its mode from `train=`, never from `module.training`, so an
+        eval between two steps leaves the next step as it was."""
+        return self.detector.infer(torch.as_tensor(points, device=self.device), int(num_points))
 
 
 def host_batch(cfg: Config, samples: list[dict]) -> TrainBatch:

@@ -81,11 +81,12 @@ def golden_detectors(which: str):
     return jdet, variables, torch_detector(jdet.cfg, variables, approx_topk=approx)
 
 
-def jax_train_step(jcfg, samples) -> dict:
-    """JAX's f32 `Trainer.train_step` on `samples`, with the gradients that
-    reach its optimizer captured in front of it: the config, the samples,
-    the loss terms, the metric counts, and the weights before and after and
-    the gradients as the port's `state_dict` (numpy)."""
+def jax_train_step(jcfg, samples, state=None) -> dict:
+    """JAX's f32 `Trainer.train_step` on `samples` from `state` (a fresh
+    `init_state(PRNGKey(0))` by default), with the gradients that reach its
+    optimizer captured in front of it: the config, the samples, the loss
+    terms, the metric counts, and the weights before and after and the
+    gradients as the port's `state_dict` (numpy)."""
     import jax.numpy as jnp
     import optax
 
@@ -95,7 +96,10 @@ def jax_train_step(jcfg, samples) -> dict:
     trainer = JaxTrainer(jcfg)
     capture = optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p), lambda u, s, p=None: (u, u))
     trainer.optimizer = optax.chain(capture, trainer.optimizer)
-    state = trainer.init_state(jax.random.PRNGKey(0))
+    if state is None:
+        state = trainer.init_state(jax.random.PRNGKey(0))
+    else:
+        state = state._replace(opt_state=(capture.init(state.params), state.opt_state))
     new_state, loss, counts = jax.jit(trainer.train_step)(state, jax_host_batch(jcfg, samples))
     before = numpy_variables({"params": state.params, "batch_stats": state.batch_stats})
     after = numpy_variables({"params": new_state.params, "batch_stats": new_state.batch_stats})

@@ -127,7 +127,7 @@ def test_weight_bridge_equals_reference_converter(small):
         np.testing.assert_array_equal(loaded[key].numpy(), want[key], err_msg=key)
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "det3d_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "det3d_tpu")
 
 
 def _port_files():
@@ -140,7 +140,12 @@ def test_package_imports_no_jax_fresh_process():
         "det3d_tpu_torch.data.synthetic, det3d_tpu_torch.kernels.scatter_cuda, "
         "det3d_tpu_torch.kernels.nms_cuda, det3d_tpu_torch.kernels.matcher_cuda, "
         "det3d_tpu_torch.kernels.fence_cuda, det3d_tpu_torch.targets, det3d_tpu_torch.losses, "
-        "det3d_tpu_torch.train.trainer, det3d_tpu_torch.train.metrics, chip_smoke\n"
+        "det3d_tpu_torch.train.trainer, det3d_tpu_torch.train.metrics, det3d_tpu_torch.train.checkpoint, "
+        "det3d_tpu_torch.utils.npmath, det3d_tpu_torch.utils.timing, det3d_tpu_torch.data.augment, "
+        "det3d_tpu_torch.data.dataset, det3d_tpu_torch.data.prefetcher, det3d_tpu_torch.data.create_info, "
+        "det3d_tpu_torch.data.native_loader, det3d_tpu_torch.ops.rotated_iou, det3d_tpu_torch.eval.ap, "
+        "det3d_tpu_torch.apps.train_app, det3d_tpu_torch.apps.infer_app, det3d_tpu_torch.cli, "
+        "det3d_tpu_torch.__main__, chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r})\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
     )
