@@ -17,7 +17,9 @@ Phases, each printed as it runs; any failure exits non-zero:
   4. the main path at full width: configs/ntusl_20cm.json (800x800 grid,
      16k pillars x 15 points, 1.44M anchors, bf16) with seeded random
      weights, ~100k-point frames through `Detector.detect`; every kernel of
-     the path must launch on every frame;
+     the path must launch on every frame; the host-card synchronisations of
+     each of three `detect`s, by the line that made each (and its caller
+     outside torch);
   5. the full path in float32 with the kernels against the same path with
      the plain versions on the card, and a small geometry on the card
      against the CPU, at the tolerances of tests/test_golden_e2e.py;
@@ -66,9 +68,27 @@ Phases, each printed as it runs; any failure exits non-zero:
      `infer_app.infer` of the checkpoint over the 8 eval frames through the
      native reader: ms/frame, the pre / net / post breakdown, the mAP
      strings, launches.
+ 13. deploy and serve at full width (ntusl_20cm, bf16): `export_detector`
+     of `init_weights(0)` (seconds, bytes); the live `Detector.infer`
+     outputs of 8 ~100k-point frames saved; a fresh `python` process
+     (`chip_smoke.py --deploy-child`) loads the artifact, captures its CUDA
+     graph and checks the 8 frames against them (bit-equal, else the
+     golden tolerances); the calls per frame of every hand-written kernel
+     inside the graph, from the profiler; ms/frame, device ms and busy
+     share of the live `detect`, the exported program op by op and its
+     graph; host-card syncs per frame; `serve_synthetic` at 10 Hz for 40
+     frames, live and exported (p50/p95/max, drops); `serve_replay` of
+     phase 12's `.bin` frames at 20 Hz in loop mode; `infer_app.infer`
+     at batch 4 against batch 1 (annos in f32, ms/frame in bf16: box for
+     box, but for ties that NMS broke the other way between two
+     overlapping candidates); `bench_rpn`.
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
-nothing of the JAX package.
+nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
+OUT` is phase 13's fresh process, not a run of its own;
+`chip_smoke.py --detect-syncs TREE` prints the host-card synchronisations
+and ms/frame of `detect` with the port of the checkout at TREE (to compare
+two commits in one call, in turns).
 """
 
 from __future__ import annotations
@@ -76,6 +96,7 @@ from __future__ import annotations
 import collections
 import json
 import multiprocessing
+import re
 import shutil
 import statistics
 import subprocess
@@ -136,6 +157,33 @@ APP_WORKERS = 2
 # infer's breakdown: one forward for the post stage's inputs, then each stage
 # 2 warm-up + 10 timed calls
 BREAKDOWN_CALLS = 12
+DEPLOY_FRAMES = 8    # frames the exported graph is held against the live detector on
+SERVE_FRAMES = 40    # frames of each serve_synthetic run, at SERVE_HZ
+SERVE_HZ = 10.0
+REPLAY_FRAMES = 16   # serve_replay of phase 12's 8 eval .bin frames, looped, at REPLAY_HZ
+REPLAY_HZ = 20.0
+INFER_BATCH = 4
+RPN_ITERS = 20
+# every hand-written kernel by the name the profiler gives it, under its row
+# of the kernels line. A scatter's or a gather's canvas layout is its
+# template argument (csrc/scatter.cu: 0 dense, 1 and 2 the s2d orders), so
+# the dense and the s2d scatter have names of their own. One call of
+# nms_keep launches both its kernels, one of the fence one of its three:
+# each row counts calls, as the wrappers' counters do
+PROFILER_KERNELS = {
+    "scatter_to_bev": (r"\bscatter_rows<[^<>,]+, (?:\(int\))?0>",),
+    "scatter_to_bev_s2d": (r"\bscatter_rows<[^<>,]+, (?:\(int\))?[12]>",),
+    "scatter_to_bev_s2d_blocked": (r"\bscatter_rows_blocked<",),
+    "scatter_to_bev_bwd": (r"\bgather_rows<[^<>,]+, (?:\(int\))?0>",),
+    "scatter_to_bev_s2d_bwd": (r"\bgather_rows<[^<>,]+, (?:\(int\))?1>",),
+    "scatter_to_bev_s2d_blocked_bwd": (r"\bgather_rows_blocked<",),
+    "nms_keep": (r"\bmask_tiles\(", r"\bsweep\("),
+    "matcher_gt_max": (r"\bgt_max_kernel<",),
+    "matcher_assign": (r"\bassign_kernel<",),
+    "fence_copy": (r"\bcopy_(?:contiguous|transpose|strided)<",),
+}
+# calls per frame of the inference path: one scatter and one NMS
+INFER_CALLS = {k: int(k in ("scatter_to_bev", "nms_keep")) for k in PROFILER_KERNELS}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -869,19 +917,72 @@ def train_stage_breakdown(trainer, state, batch, steps: int) -> dict[str, float]
 
 
 def count_syncs(fn) -> list[str]:
-    """The host-card synchronisations that one call of `fn` makes (as
-    torch's sync debug mode reports them), by the line that made them."""
+    """The host-card synchronisations that one call of `fn` makes, as
+    torch's sync debug mode reports them: each by the line that made it
+    and, where that line is torch's own, by the nearest line outside torch
+    that called it ("torch line <- caller line")."""
+    import traceback
     import warnings
 
+    torch_dir = str(Path(torch.__file__).parent)
+    short = lambda filename, lineno: f"{'/'.join(filename.split('/')[-2:])}:{lineno}"
+    found = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        where = short(filename, lineno)
+        if filename.startswith(torch_dir):
+            stack = traceback.extract_stack()
+            inner = max((i for i, f in enumerate(stack) if f.filename == filename and f.lineno == lineno), default=0)
+            caller = next((f for f in reversed(stack[:inner]) if not f.filename.startswith(torch_dir)), None)
+            if caller is not None:
+                where += f" <- {short(caller.filename, caller.lineno)}"
+        found.append(where)
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings(record=True):
+        # the first switch to "warn" in a process reports a sync of its own
+        # (at torch/cuda/__init__.py, called from here): switch once unread
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = note
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return [f"{w.filename.split('/')[-1]}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    return found
+
+
+def detect_syncs(tree: str, n_frames: int = 20) -> int:
+    """`chip_smoke.py --detect-syncs TREE`: the host-card synchronisations
+    of one `Detector.detect` (configs/ntusl_20cm.json, bf16, seeded
+    weights, 100 000-point frames) and its ms/frame (median over
+    `n_frames` frames after a warm-up call) with the port of the checkout at TREE:
+    this one, or an earlier commit unpacked into a git-ignored directory.
+    Run it on two trees in turns (old, new, new, old) to compare them in
+    one call."""
+    root = Path(tree).resolve()
+    sys.path.insert(0, str(root))
+    import det3d_tpu_torch
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.pipeline import Detector
+
+    check(Path(det3d_tpu_torch.__file__).resolve().parents[1] == root, f"imported {det3d_tpu_torch.__file__}")
+    cfg = load_config(root / "configs" / "ntusl_20cm.json", max_points=120_000)
+    det = Detector(cfg).init_weights(SEED)
+    frames = [synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + i)[:N_POINTS] for i in range(n_frames)]
+    times = host_ms_per_frame(det.detect, frames)
+    syncs = [count_syncs(lambda: det.detect(f)) for f in frames[:3]]
+    ms = statistics.median(times)
+    print(f"[{card_line()}] {root}: host-card syncs in each of 3 detects {[len(x) for x in syncs]} "
+          f"({', '.join(syncs[0])}); ms/frame median {ms:.3f} (min {min(times):.3f}, max {max(times):.3f}) "
+          f"over {len(times)} frames")
+    return 0
 
 
 def profile_device_time(fn, n: int) -> tuple[float, list[tuple[str, float]]] | None:
@@ -963,10 +1064,10 @@ def compare_train_steps(cfg32, batch) -> None:
 
 
 
-def run_apps(cfg, counters, bare_step_ms: float) -> dict:
-    """Phase 12: the train and infer applications on a dataset written to a
-    temporary directory (removed after), with every counter set to 0 just
-    before each app and read just after."""
+def run_apps(cfg, counters, bare_step_ms: float, root: Path) -> dict:
+    """Phase 12: the train and infer applications on a dataset written to
+    `root` (a temporary directory; phase 13 replays its eval frames), with
+    every counter set to 0 just before each app and read just after."""
     from det3d_tpu_torch.apps import infer_app, train_app
     from det3d_tpu_torch.data.dataset import DetectionDataset
     from det3d_tpu_torch.data.synthetic import write_split
@@ -974,7 +1075,6 @@ def run_apps(cfg, counters, bare_step_ms: float) -> dict:
     from det3d_tpu_torch.train.checkpoint import CheckpointManager
     from det3d_tpu_torch.train.trainer import Trainer, host_batch
 
-    root = Path(tempfile.mkdtemp(prefix="det3d-apps-"))
     frame_overlaps = ap._frame_overlaps
     overlaps_s: list[float] = []
 
@@ -989,8 +1089,7 @@ def run_apps(cfg, counters, bare_step_ms: float) -> dict:
         for split, seed in (("train", SEED + 10), ("eval", SEED + 11)):
             write_split(cfg, root / split, APP_FRAMES, seed, num_objects=(20, 40), ground_points=TRAIN_POINTS)
         print(f"wrote {APP_FRAMES} train and {APP_FRAMES} eval scenes in {time.perf_counter() - t0:.2f} s")
-        app_cfg = cfg.replace(batch_size=TRAIN_BATCH, num_workers=APP_WORKERS, data_root=str(root),
-                              train_info=("train/data_info.pkl",), eval_info=("eval/data_info.pkl",))
+        app_cfg = app_config(cfg, root)
         model_dir = root / "model"
         ds = DetectionDataset(app_cfg, app_cfg.train_info, training=True, seed=SEED)
         sample_ms = []
@@ -1066,7 +1165,281 @@ def run_apps(cfg, counters, bare_step_ms: float) -> dict:
         return {k: train_launches[k] + infer_launches[k] for k in counters}
     finally:
         ap._frame_overlaps = frame_overlaps
-        shutil.rmtree(root, ignore_errors=True)
+
+
+def app_config(cfg, root: Path):
+    """Phase 12's config: batch 2, two workers, the dataset under `root`."""
+    return cfg.replace(batch_size=TRAIN_BATCH, num_workers=APP_WORKERS, data_root=str(root),
+                       train_info=("train/data_info.pkl",), eval_info=("eval/data_info.pkl",))
+
+
+def host_ms_per_frame(fn, clouds) -> list[float]:
+    """Host ms of `fn(cloud)` + synchronize for each cloud, after one
+    warm-up call."""
+    fn(clouds[0])
+    torch.cuda.synchronize()
+    times = []
+    for c in clouds:
+        t0 = time.perf_counter()
+        fn(c)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def profiled_frames(fn, clouds) -> tuple[dict[str, float] | None, float | None, list[str]]:
+    """From a torch.profiler trace of `fn` over `clouds`, per frame: the
+    calls of every hand-written kernel (`PROFILER_KERNELS`; None when the
+    trace holds none of them) and the device ms (the card's kernel, memset
+    and memcpy spans summed; None without device events); and the names of
+    the hand-written kernels it saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for c in clouds:
+            fn(c)
+        torch.cuda.synchronize()
+    launches = {(k, p): 0 for k, patterns in PROFILER_KERNELS.items() for p in patterns}
+    busy, names = 0.0, set()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() / 1e3
+            for k, p in launches:
+                found = re.search(p, e.name)
+                if found:
+                    launches[k, p] += 1
+                    names.add(found.group(0))
+    calls = {}
+    for k, patterns in PROFILER_KERNELS.items():
+        counts = {launches[k, p] for p in patterns}
+        check(len(counts) == 1, f"the kernels of one {k} call launched unequal times: {counts}")
+        calls[k] = counts.pop() / len(clouds)
+    per_frame = calls if names else None
+    return per_frame, (busy / len(clouds) if busy else None), sorted(names)
+
+
+def detections_equal(got, want, what: str) -> bool:
+    """True where (boxes, scores, valid) are bit-equal; else checks the
+    golden tolerances (valid equal, boxes 1e-4, scores 1e-5), prints the
+    largest differences and returns False."""
+    if all(np.array_equal(g, w) for g, w in zip(got, want)):
+        return True
+    (gb, gs, gv), (wb, ws, wv) = got, want
+    check(np.array_equal(gv, wv), f"{what}: valid sets differ ({int(gv.sum())} vs {int(wv.sum())})")
+    db, ds = np.abs(gb - wb)[wv].max(initial=0.0), np.abs(gs - ws)[wv].max(initial=0.0)
+    print(f"{what}: not bit-equal; valid equal, boxes max diff {db:.3e}, scores max diff {ds:.3e}")
+    check(np.allclose(gb[wv], wb[wv], rtol=1e-4, atol=1e-4) and np.allclose(gs[wv], ws[wv], rtol=1e-5, atol=1e-5),
+          f"{what}: outside the golden tolerances")
+    return False
+
+
+def bev_standup(anno: dict, m: np.ndarray) -> torch.Tensor:
+    """The standup boxes that NMS compares, of the boxes `m` of `anno`
+    (the yaw's flip by pi leaves them as they are)."""
+    from det3d_tpu_torch.ops import geometry
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    unit = geometry.unit_corners(0.5, torch.device("cpu"), torch.float32)
+    corners = geometry.center_to_corner_box2d(t(anno["location"][m][:, :2]), t(anno["dimensions"][m][:, :2]),
+                                              t(anno["rotation_y"][m]), unit)
+    return geometry.corner_to_standup(corners)
+
+
+def annos_match(a: dict, b: dict, what: str, iou_threshold: float, box_tol: float = 1e-3,
+                score_tol: float = 1e-4, tie_tol: float = 1e-5) -> list:
+    """Two annos of one frame from two paths whose float32 sums differ in
+    order (cuDNN picks other algorithms at another batch): per class the
+    same count and sorted scores within `score_tol` (the JAX package's
+    check, tests/test_apps.py:417-440), and every box within `box_tol`
+    (location, dimensions) of one on the other side, except where NMS broke
+    a tie the other way: of two candidates that overlap above
+    `iou_threshold` (NMS's own IoU of their standup boxes) and whose scores
+    tie within `tie_tol`, each path keeps the one it ranks first. So every
+    box without a counterpart must have a twin on the other side, also
+    without one, that ties with it and overlaps it so. Returns those boxes
+    as (class, score, distance to the nearest box of the other side, IoU
+    with its twin)."""
+    from det3d_tpu_torch.ops.nms import iou_pixel_convention
+
+    swapped = []
+    for name in np.unique(np.concatenate([a["name"], b["name"]])):
+        ma, mb = a["name"] == name, b["name"] == name
+        check(ma.sum() == mb.sum(), f"{what}: {ma.sum()} and {mb.sum()} {name} boxes")
+        sa, sb = np.sort(a["score"][ma]), np.sort(b["score"][mb])
+        check(np.abs(sa - sb).max(initial=0.0) <= score_tol, f"{what}: {name} scores differ")
+        ra = np.concatenate([a["location"][ma], a["dimensions"][ma]], 1)
+        rb = np.concatenate([b["location"][mb], b["dimensions"][mb]], 1)
+        dist = np.abs(ra[:, None, :] - rb[None, :, :]).max(-1)
+        near_a, near_b = dist.min(1, initial=np.inf), dist.min(0, initial=np.inf)
+        ua, ub = near_a > box_tol, near_b > box_tol
+        check(ua.sum() == ub.sum(), f"{what}: {name} boxes without a counterpart: {ua.sum()} and {ub.sum()}")
+        if not ua.any():
+            continue
+        score_a, score_b = a["score"][ma][ua], b["score"][mb][ub]
+        ka, kb = len(score_a), len(score_b)
+        iou = iou_pixel_convention(torch.cat([bev_standup(a, ma)[ua], bev_standup(b, mb)[ub]]))[:ka, ka:].numpy()
+        twins = (np.abs(score_a[:, None] - score_b[None, :]) <= tie_tol) & (iou > iou_threshold)
+        check(twins.any(1).all() and twins.any(0).all(),
+              f"{what}: {name} boxes without a counterpart and without an overlapping tie: "
+              f"{score_a.tolist()} vs {score_b.tolist()}")
+        best = np.where(twins, iou, -1.0).max(1)
+        swapped += [(str(name), round(float(sc), 6), float(d), round(float(o), 3))
+                    for sc, d, o in zip(score_a, near_a[ua], best)]
+    return swapped
+
+
+def latency_line(stats) -> str:
+    lat = np.asarray(stats) * 1e3
+    return (f"p50 {np.percentile(lat, 50):.3f} ms, p95 {np.percentile(lat, 95):.3f} ms, max {lat.max():.3f} ms over "
+            f"{len(lat)} served; submitted {stats.submitted}, dropped {stats.dropped}")
+
+
+def deploy_child(artifact: str, frames_path: str, out_path: str) -> int:
+    """Phase 13's fresh process: load the artifact (no model code), capture
+    its graph, hold its detections against the live ones the parent saved,
+    time it against the program run op by op, serve it."""
+    from det3d_tpu_torch.apps import serve_app
+    from det3d_tpu_torch.deploy.runtime import ExportedDetector
+    from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
+
+    card = card_line()
+    counters = {"scatter": scatter_cuda.counter, "nms": nms_cuda.counter}
+    t0 = time.perf_counter()
+    runner = ExportedDetector(artifact)
+    load_s = time.perf_counter() - t0
+    captured = {k: c.launches for k, c in counters.items()}  # two warm-up calls and the capture
+    loaded = sorted(m for m in sys.modules if m.startswith(("det3d_tpu_torch.models", "det3d_tpu_torch.pipeline")))
+    check(not loaded, f"the runtime imported {loaded}")
+    check(runner.graph is not None, "no CUDA graph was captured")
+    live = np.load(frames_path)
+    clouds = [live["points"][i][: live["counts"][i]] for i in range(len(live["counts"]))]
+    equal = [detections_equal([t.cpu().numpy() for t in runner.infer(live["points"][i], live["counts"][i])],
+                              [live[k][i] for k in ("boxes", "scores", "valid")], f"graph frame {i}")
+             for i in range(len(clouds))]
+    detections = [len(runner.detect(c)["name"]) for c in clouds]
+    print(f"[{card}] graph replay vs live Detector.infer over {len(clouds)} frames: bit-equal {equal}; "
+          f"detections per frame {detections}; loaded and captured in {load_s:.2f} s, imported no model code")
+    check(sum(detections) > 0, "the graph found nothing")
+
+    result = {"load_s": load_s, "bit_equal": all(equal), "captured": captured}
+    for name, fn_runner in (("graph", runner), ("eager", None)):
+        if fn_runner is None:
+            fn_runner = ExportedDetector(artifact, cuda_graph=False)
+        for c in counters.values():
+            c.launches = 0
+        times = host_ms_per_frame(fn_runner.detect, clouds)
+        launches = {k: c.launches for k, c in counters.items()}
+        per_frame, device, names = profiled_frames(fn_runner.detect, clouds)
+        syncs = count_syncs(lambda: fn_runner.detect(clouds[0]))
+        ms = statistics.median(times)
+        busy = "not measured" if device is None else f"{device:.3f} ms ({100 * device / ms:.1f} % busy)"
+        print(f"[{card}] exported, {name}: ms/frame median {ms:.3f} (min {min(times):.3f}, max {max(times):.3f}); "
+              f"device {busy}; calls per frame of each kernel (profiler) {per_frame}, by the names {names}; "
+              f"wrapper launches {launches}; host-card syncs per detect {len(syncs)} ({', '.join(syncs)})")
+        check(per_frame is None or per_frame == INFER_CALLS, f"{name}: kernel calls per frame {per_frame}")
+        result[name] = dict(ms=ms, times=times, device_ms=device, per_frame=per_frame, launches=launches,
+                            syncs=len(syncs))
+    check(result["graph"]["launches"] == {"scatter": 0, "nms": 0}, "a replay ran an op's Python")
+    check(result["eager"]["launches"] == {"scatter": len(clouds) + 1, "nms": len(clouds) + 1},
+          f"the program op by op launched {result['eager']['launches']}")
+    if result["graph"]["per_frame"] is None:  # the trace shows no kernel inside the graph: not measured
+        print(f"[{card}] the profiler shows no kernel inside the graph: kernel calls per replay not measured; "
+              f"the capture's calls (two warm-up calls and the capture) {captured}")
+        check(captured == {"scatter": 3, "nms": 3}, f"launches while capturing {captured}")
+
+    stats = serve_app.serve_synthetic(runner.cfg, frames=SERVE_FRAMES, hz=SERVE_HZ,
+                                      server=serve_app.PointCloudServer(runner.cfg, infer_fn=runner.infer))
+    print(f"[{card}] serve_synthetic, exported graph, {SERVE_HZ} Hz: {latency_line(stats)}")
+    check(stats.submitted == SERVE_FRAMES and len(stats) + stats.dropped == SERVE_FRAMES, "serve counts")
+    result["serve"] = dict(latencies=list(stats), submitted=stats.submitted, dropped=stats.dropped)
+    Path(out_path).write_text(json.dumps(result))
+    return 0
+
+
+def run_deploy(cfg, det, root: Path, card: str) -> dict:
+    """Phase 13: export, the graph in a fresh process against the live
+    detector, serve live and exported, replay, infer at batch 4, bench-rpn."""
+    from det3d_tpu_torch.apps import infer_app, serve_app
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.deploy.export import export_detector
+    from det3d_tpu_torch.deploy.rpn_bench import bench_rpn
+    from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
+
+    counters = {"scatter": scatter_cuda.counter, "nms": nms_cuda.counter}
+    t0 = time.perf_counter()
+    art = export_detector(cfg, out_dir=root / "artifact")
+    export_s = time.perf_counter() - t0
+    art_bytes = {p.name: p.stat().st_size for p in art.iterdir()}
+    print(f"[{card}] export of init_weights(0): {export_s:.2f} s, {art_bytes} bytes")
+
+    clouds = [synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + 100 + i)[:N_POINTS] for i in range(DEPLOY_FRAMES)]
+    pads = [det.pad_points(c) for c in clouds]
+    outs = [[t.cpu().numpy() for t in det.infer(torch.from_numpy(p).cuda(), int(n))] for p, n in pads]
+    np.savez(root / "live.npz", points=np.stack([p for p, _ in pads]), counts=np.array([n for _, n in pads]),
+             **{k: np.stack([o[i] for o in outs]) for i, k in enumerate(("boxes", "scores", "valid"))})
+    for c in counters.values():
+        c.launches = 0
+    live_times = host_ms_per_frame(det.detect, clouds)
+    live_launches = {k: c.launches for k, c in counters.items()}
+    live_per_frame, live_device, _ = profiled_frames(det.detect, clouds)
+    live_syncs = count_syncs(lambda: det.detect(clouds[0]))
+    live_ms = statistics.median(live_times)
+    busy = "not measured" if live_device is None else f"{live_device:.3f} ms ({100 * live_device / live_ms:.1f} % busy)"
+    print(f"[{card}] live detect: ms/frame median {live_ms:.3f} (min {min(live_times):.3f}, max {max(live_times):.3f}); "
+          f"device {busy}; calls per frame of each kernel (profiler) {live_per_frame}; launches {live_launches}; "
+          f"host-card syncs per detect {len(live_syncs)} ({', '.join(live_syncs)})")
+    check(live_launches == {"scatter": DEPLOY_FRAMES + 1, "nms": DEPLOY_FRAMES + 1}, f"live launches {live_launches}")
+    check(live_per_frame is None or live_per_frame == INFER_CALLS, f"live kernel calls per frame {live_per_frame}")
+
+    out = root / "child.json"
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--deploy-child", str(art),
+                            str(root / "live.npz"), str(out)], timeout=600)
+    check(child.returncode == 0, f"the fresh process failed (exit {child.returncode})")
+    result = json.loads(out.read_text())
+
+    for c in counters.values():
+        c.launches = 0
+    stats = serve_app.serve_synthetic(cfg, frames=SERVE_FRAMES, hz=SERVE_HZ,
+                                      server=serve_app.PointCloudServer(cfg, detector=det))
+    serve_launches = {k: c.launches for k, c in counters.items()}
+    print(f"[{card}] serve_synthetic, live detector, {SERVE_HZ} Hz: {latency_line(stats)}; launches {serve_launches}")
+    check(stats.submitted == SERVE_FRAMES and len(stats) + stats.dropped == SERVE_FRAMES, "live serve counts")
+    check(serve_launches == {k: len(stats) + 1 for k in counters}, f"live serve launches {serve_launches}")
+    result["serve_live"] = dict(latencies=list(stats), submitted=stats.submitted, dropped=stats.dropped)
+
+    replay = serve_app.serve_replay(cfg, str(root / "eval" / "velodyne"), hz=REPLAY_HZ, frames=REPLAY_FRAMES, loop=True,
+                                    server=serve_app.PointCloudServer(cfg, detector=det))
+    print(f"[{card}] serve_replay of phase 12's eval .bin frames, loop, {REPLAY_HZ} Hz: {latency_line(replay)}")
+    check(replay.submitted == REPLAY_FRAMES and len(replay) + replay.dropped == REPLAY_FRAMES, "replay counts")
+
+    app_cfg = app_config(cfg, root)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        for batch in (1, INFER_BATCH):
+            for c in counters.values():
+                c.launches = 0
+            r = infer_app.infer(app_cfg.replace(compute_dtype=dtype), num_frames=APP_FRAMES, range_thresholds=(80.0,),
+                                batch=batch)
+            r["launches"] = {k: c.launches for k, c in counters.items()}
+            runs[dtype, batch] = r
+            print(f"[{card}] infer_app {dtype} batch {batch}: {r['avg_ms']:.3f} ms/frame over {r['timed_frames']} "
+                  f"timed frames; launches {r['launches']}")
+    chunks = -(-APP_FRAMES // INFER_BATCH)
+    check(runs["bfloat16", INFER_BATCH]["launches"] == {"scatter": chunks, "nms": chunks},
+          f"batch {INFER_BATCH}: one scatter and one NMS call per chunk")
+    pairs = list(zip(runs["float32", INFER_BATCH]["dt_annos"], runs["float32", 1]["dt_annos"]))
+    thr = det.postprocess.params.nms_iou_threshold
+    unmatched = [annos_match(a, b, f"f32 frame {i}, batch {INFER_BATCH} vs 1", thr) for i, (a, b) in enumerate(pairs)]
+    print(f"[{card}] infer_app f32, batch {INFER_BATCH} vs batch 1: per class counts equal, sorted scores within 1e-4, "
+          f"boxes within 1e-3 but for ties that NMS broke the other way, each with a twin on the other side that "
+          f"overlaps it above the NMS threshold {thr} and ties with it within 1e-5 (class, score, distance to the "
+          f"nearest box, IoU with the twin) per frame {unmatched} of {[len(a['name']) for a, _ in pairs]} boxes")
+
+    rpn = bench_rpn(cfg, iters=RPN_ITERS)
+    print(f"[{card}] bench_rpn (device ms per call, torch.profiler over {RPN_ITERS} calls): {rpn}")
+    return dict(result, export_s=export_s, art_bytes=art_bytes, live_ms=live_ms, live_device_ms=live_device,
+                live_syncs=len(live_syncs), rpn=rpn, infer={f"{d} batch {b}": r["avg_ms"] for (d, b), r in runs.items()})
 
 
 def small_config():
@@ -1082,9 +1455,13 @@ def small_config():
 
 
 def main() -> int:
+    if len(sys.argv) == 5 and sys.argv[1] == "--deploy-child":
+        return deploy_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--detect-syncs":
+        return detect_syncs(sys.argv[2])
 
     from det3d_tpu_torch.config import load_config
     from det3d_tpu_torch.data.synthetic import sample_scene, synthetic_cloud
@@ -1132,6 +1509,9 @@ def main() -> int:
     print(f"launches on the main path: {launches}")
     for name, n in launches.items():
         check(n == run["n"], f"{name} kernel launched {n} times over {run['n']} frames")
+    syncs = [count_syncs(lambda: det.detect(frames[i])) for i in (1, 2, 3)]
+    print(f"host-card synchronisations in each of 3 detects: {[len(x) for x in syncs]}; in the first: "
+          f"{', '.join(f'{k} x{v}' for k, v in sorted(collections.Counter(syncs[0]).items()))}")
     print("stage breakdown, median ms (synchronized after each stage):")
     for name, ms in stage_breakdown(det, frames[1:]).items():
         print(f"  {name:36s} {ms:.3f}")
@@ -1308,10 +1688,19 @@ def main() -> int:
         del trainer, state
     compare_train_steps(cfg32.replace(pack_w=True), batch)
 
-    phase("12. apps at full width (train_app, checkpoint, infer_app; ntusl_20cm, bf16)")
-    t_apps = time.time()
-    app_launches = run_apps(cfg, train_counters(layouts=True), step_ms)
-    print(f"phase 12 took {time.time() - t_apps:.1f} s")
+    apps_root = Path(tempfile.mkdtemp(prefix="det3d-apps-"))
+    try:
+        phase("12. apps at full width (train_app, checkpoint, infer_app; ntusl_20cm, bf16)")
+        t_apps = time.time()
+        app_launches = run_apps(cfg, train_counters(layouts=True), step_ms, apps_root)
+        print(f"phase 12 took {time.time() - t_apps:.1f} s")
+
+        phase("13. deploy and serve at full width (ntusl_20cm, bf16)")
+        t_deploy = time.time()
+        deploy = run_deploy(cfg, det, apps_root, card)
+        print(f"[{card}] phase 13 took {time.time() - t_deploy:.1f} s")
+    finally:
+        shutil.rmtree(apps_root, ignore_errors=True)
 
     kernels = [
         {
@@ -1376,8 +1765,11 @@ def main() -> int:
                 "matcher_gt_max": "matcher_gt_max", "matcher_assign": "matcher_assign", "fence_copy": "fence",
                 "scatter_to_bev_s2d": "s2d_fwd", "scatter_to_bev_s2d_bwd": "s2d_bwd",
                 "scatter_to_bev_s2d_blocked": "blocked_fwd", "scatter_to_bev_s2d_blocked_bwd": "blocked_bwd"}
-    for k in kernels:  # launches over phase 12 (both apps), beside the main path's
+    graph = deploy["graph"]["per_frame"]  # None where the profiler saw no kernel inside the graph
+    print(f"[{card}] calls per frame of each kernel inside the graph (profiler): {graph}")
+    for k in kernels:  # launches over phase 12 (both apps); calls per frame inside phase 13's graph
         k["app_launches"] = app_launches[app_keys[k["name"]]]
+        k["graph_launches_per_frame"] = None if graph is None else graph[k["name"]]
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

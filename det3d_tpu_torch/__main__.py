@@ -1,4 +1,5 @@
-"""`python -m det3d_tpu_torch {train, infer, eval, create-info}` (see cli.py)."""
+"""`python -m det3d_tpu_torch {train, infer, eval, export, serve, bench-rpn, import-weights,
+export-weights, create-info}` (see cli.py)."""
 
 from det3d_tpu_torch.cli import main
 

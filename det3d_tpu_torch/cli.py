@@ -1,16 +1,22 @@
 """Command-line entry points of the port:
 
     python -m det3d_tpu_torch train  --config configs/ntusl_20cm.json [--synthetic]
-    python -m det3d_tpu_torch infer  --config ... [--checkpoint DIR_OR_PTH] [--breakdown]
+    python -m det3d_tpu_torch infer  --config ... [--checkpoint DIR_OR_PTH] [--breakdown] [--batch N]
+    python -m det3d_tpu_torch infer  --config ... --exported DIR
     python -m det3d_tpu_torch eval   --config ... --dt dt.pkl --gt gt.pkl
+    python -m det3d_tpu_torch export --config ... [--checkpoint DIR_OR_PTH] --out DIR
+    python -m det3d_tpu_torch serve  --config ... [--checkpoint ... | --exported DIR] [--replay DIR [--loop]]
+    python -m det3d_tpu_torch bench-rpn --config ...
+    python -m det3d_tpu_torch import-weights --config ... --torch-ckpt FILE.pth --out DIR [--no-optimizer]
+    python -m det3d_tpu_torch export-weights --config ... --checkpoint DIR --out FILE.pth
     python -m det3d_tpu_torch create-info --root DATA_ROOT [--waymo]
 
-Counterpart of the JAX package's cli.py for these four commands, with its
-flags where they apply, plus `--device` (default `cuda`; `--device cpu`
-runs on the CPU, and there a bf16 config computes in float32, with a
-notice, as the JAX CLI does on its CPU backend). Not offered yet: export,
-serve, view, bench-rpn, tune (ROADMAP); import-weights and export-weights
-fall away, because the port's checkpoint is the reference `.pth`.
+Counterpart of the JAX package's cli.py for these commands, with its flags
+where they apply, plus `--device` (default `cuda`, an error without a card;
+`--device cpu` runs on the CPU, and there a bf16 config computes in
+float32, with a notice, as the JAX CLI does on its CPU backend; `export`
+keeps the configured dtype, as the JAX CLI does). Not offered yet: view and
+tune (ROADMAP), and `--spatial` (several devices).
 """
 
 from __future__ import annotations
@@ -49,12 +55,46 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--out", default=None)
     p.add_argument("--approx-topk", action="store_true",
                    help="bucketed approximate pre-NMS top-k instead of the exact default")
+    p.add_argument("--batch", type=int, default=1,
+                   help="frames per network call (one NMS call per chunk; the last chunk padded)")
+    p.add_argument("--exported", default=None, help="run an exported artifact directory instead")
 
     p = sub.add_parser("eval", help="official mAP from pickled annos (reference eval/)")
     add_common(p)
     p.add_argument("--dt", required=True)
     p.add_argument("--gt", required=True)
     p.add_argument("--range", type=float, default=80.0)
+
+    p = sub.add_parser("export", help="export the detector as one torch.export program (reference train.py:348)")
+    add_common(p)
+    p.add_argument("--checkpoint", default=None, help="model directory (its latest.pth) or a .pth file")
+    p.add_argument("--out", required=True)
+
+    p = sub.add_parser("serve", help="streaming serving loop (reference ros_node.py)")
+    add_common(p)
+    p.add_argument("--checkpoint", default=None, help="model directory (its latest.pth) or a .pth file")
+    p.add_argument("--exported", default=None, help="serve an exported artifact directory (one CUDA graph a frame)")
+    p.add_argument("--frames", type=int, default=100)
+    p.add_argument("--hz", type=float, default=10.0)
+    p.add_argument("--replay", default=None, metavar="DIR",
+                   help="replay the raw .bin point clouds of DIR at --hz instead of the synthetic sensor")
+    p.add_argument("--loop", action="store_true", help="with --replay: cycle the directory until --frames")
+
+    p = sub.add_parser("bench-rpn", help="RPN microbenchmark, dense and packed (reference rpn_builder.py)")
+    add_common(p)
+    p.add_argument("--iters", type=int, default=100)
+
+    p = sub.add_parser("import-weights",
+                       help="check a reference .pth against the model and write it as a model directory")
+    add_common(p)
+    p.add_argument("--torch-ckpt", required=True, help="reference .pth file")
+    p.add_argument("--out", required=True, help="model directory to write")
+    p.add_argument("--no-optimizer", action="store_true", help="drop Adam's moments (resume with a fresh optimizer)")
+
+    p = sub.add_parser("export-weights", help="write a model directory's latest checkpoint as one reference .pth")
+    add_common(p)
+    p.add_argument("--checkpoint", required=True, help="model directory (or a .pth file)")
+    p.add_argument("--out", required=True, help=".pth file to write")
 
     p = sub.add_parser("create-info", help="dataset indexer (reference create_info.py)")
     p.add_argument("--root", required=True)
@@ -71,10 +111,13 @@ def main(argv: list[str] | None = None) -> None:
         return
 
     from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.utils.device import resolve_device
 
     overrides = {} if args.max_points is None else {"max_points": args.max_points}
     cfg = load_config(args.config, **overrides)
-    if args.cmd in ("train", "infer") and args.device == "cpu" and cfg.compute_dtype in ("bfloat16", "bf16"):
+    device = resolve_device(args.device)  # no card and no --device cpu: an error, before any work
+    if (args.cmd in ("train", "infer", "serve", "bench-rpn") and device.type == "cpu"
+            and cfg.compute_dtype in ("bfloat16", "bf16")):
         # the CPU parity runs compare float32 with float32, as the JAX CLI's
         # CPU backend does (it has no bf16 dot)
         print(f"{args.cmd} on cpu: promoting compute_dtype bfloat16 -> float32")
@@ -89,12 +132,39 @@ def main(argv: list[str] | None = None) -> None:
 
         train(cfg, max_steps=args.steps, display_step=args.display_step, save_step=args.save_step,
               eval_step=args.eval_step, eval_frames=args.eval_frames, synthetic=args.synthetic,
-              model_dir=args.model_dir, seed=args.seed, device=args.device)
+              model_dir=args.model_dir, seed=args.seed, device=device)
     elif args.cmd == "infer":
         from det3d_tpu_torch.apps.infer_app import infer
 
         infer(cfg, checkpoint=args.checkpoint, synthetic=args.synthetic, num_frames=args.frames,
-              breakdown=args.breakdown, out_path=args.out, approx_topk=args.approx_topk, device=args.device)
+              breakdown=args.breakdown, out_path=args.out, approx_topk=args.approx_topk, batch=args.batch,
+              exported=args.exported, device=device)
+    elif args.cmd == "export":
+        from det3d_tpu_torch.deploy.export import export_detector
+
+        export_detector(cfg, checkpoint=args.checkpoint, out_dir=args.out, device=device)
+    elif args.cmd == "serve":
+        from det3d_tpu_torch.apps import serve_app
+
+        kw = dict(checkpoint=args.checkpoint, exported=args.exported, hz=args.hz, frames=args.frames, device=device)
+        if args.replay:
+            serve_app.serve_replay(cfg, args.replay, loop=args.loop, **kw)
+        else:
+            serve_app.serve_synthetic(cfg, **kw)
+    elif args.cmd == "bench-rpn":
+        from det3d_tpu_torch.deploy.rpn_bench import bench_rpn
+
+        bench_rpn(cfg, iters=args.iters, device=device)
+    elif args.cmd == "import-weights":
+        from det3d_tpu_torch.deploy.torch_interop import import_torch_checkpoint
+
+        step = import_torch_checkpoint(args.torch_ckpt, cfg, args.out, import_optimizer=not args.no_optimizer)
+        print(f"imported step {step}: {args.torch_ckpt} -> {args.out} (restore with --checkpoint)")
+    elif args.cmd == "export-weights":
+        from det3d_tpu_torch.deploy.torch_interop import export_torch_checkpoint
+
+        step = export_torch_checkpoint(args.checkpoint, cfg, args.out)
+        print(f"exported step {step}: {args.checkpoint} -> {args.out} (reference-layout .pth)")
     else:
         import pickle
 
@@ -104,7 +174,7 @@ def main(argv: list[str] | None = None) -> None:
             dt_annos = pickle.load(f)
         with open(args.gt, "rb") as f:
             gt_annos = pickle.load(f)
-        _, s = get_official_eval_result(gt_annos, dt_annos, list(cfg.detect_class), args.range, device=args.device)
+        _, s = get_official_eval_result(gt_annos, dt_annos, list(cfg.detect_class), args.range, device=device)
         print(s)
 
 

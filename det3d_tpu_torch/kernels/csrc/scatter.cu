@@ -33,8 +33,9 @@
 //      reads coalesce and each row lands as whole 16-byte stores. Rows
 //      outside the grid (x < 0 marks an empty pillar slot) are skipped;
 //      canvas cells are unique, so no two threads write one address. The
-//      dense and both s2d orders share the kernel: only the destination
-//      row differs (`canvas_row`). The blocked kernel writes a row to its
+//      dense and both s2d orders share the kernel's code, only the
+//      destination row differs (`canvas_row`); the layout is a template
+//      argument, so each is its own kernel with its own name in a profile. The blocked kernel writes a row to its
 //      own block and, near a block edge, to the neighbour's halo (at most
 //      one neighbour a side, since both halos are at most rb rows).
 // The forward copies move bytes, not values: f32 and bf16 share them, and
@@ -73,17 +74,17 @@ __device__ __forceinline__ int64_t canvas_row(int layout, int64_t b, int x, int 
   return cell * 4 + (x & 1) * 2 + (y & 1);
 }
 
-template <typename Vec>
+template <typename Vec, int kLayout>
 __global__ void __launch_bounds__(kThreads)
 scatter_rows(const Vec* __restrict__ feats,      // (B*V, vecs_per_row)
              const int32_t* __restrict__ coors,  // (B*V, 3)
-             Vec* __restrict__ canvas,           // rows of vecs_per_row, in `layout`
-             int64_t total_vecs, int vecs_per_row, int V, int nx, int ny, int layout) {
+             Vec* __restrict__ canvas,           // rows of vecs_per_row, in `kLayout`
+             int64_t total_vecs, int vecs_per_row, int V, int nx, int ny) {
   int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (t >= total_vecs) return;
   int64_t row = t / vecs_per_row;  // pillar index over B*V
   int piece = (int)(t - row * vecs_per_row);
-  int64_t dst = canvas_row(layout, row / V, coors[row * 3 + 0], coors[row * 3 + 1], nx, ny);
+  int64_t dst = canvas_row(kLayout, row / V, coors[row * 3 + 0], coors[row * 3 + 1], nx, ny);
   if (dst < 0) return;
   canvas[dst * vecs_per_row + piece] = feats[t];
 }
@@ -118,12 +119,12 @@ scatter_rows_blocked(const Vec* __restrict__ feats, const int32_t* __restrict__ 
   if (off >= rb - ht && j0 < nblk - 1) put(j0 + 1, off - rb + ht);
 }
 
-template <typename Vec>
+template <typename Vec, int kLayout>
 __global__ void __launch_bounds__(kThreads)
 gather_rows(const char* __restrict__ grad,       // (B, nx', ny', C') with channel stride 1
             const int32_t* __restrict__ coors,   // (B*V, 3)
             Vec* __restrict__ dfeats,            // (B*V, vecs_per_row)
-            int64_t total_vecs, int vecs_per_row, int V, int nx, int ny, int layout,
+            int64_t total_vecs, int vecs_per_row, int V, int nx, int ny,
             int64_t sb, int64_t sx, int64_t sy, int64_t row_bytes) {  // strides in bytes
   int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (t >= total_vecs) return;
@@ -135,7 +136,7 @@ gather_rows(const char* __restrict__ grad,       // (B, nx', ny', C') with chann
   if (x >= 0 && x < nx && y >= 0 && y < ny) {
     // the dense canvas (B, nx, ny, C), or the logical s2d canvas
     // (B, nx/2, ny/2, 4C) in either memory order: its strides say which
-    const char* src = layout == kDense
+    const char* src = kLayout == kDense
         ? grad + (row / V) * sb + x * sx + y * sy
         : grad + (row / V) * sb + (x >> 1) * sx + (y >> 1) * sy + ((x & 1) * 2 + (y & 1)) * row_bytes;
     out = reinterpret_cast<const Vec*>(src)[piece];
@@ -190,15 +191,14 @@ gather_rows_blocked(const char* __restrict__ grad,      // (B, nblk, rtot, ny2, 
 
 inline unsigned blocks_for(int64_t total) { return (unsigned)((total + kThreads - 1) / kThreads); }
 
-template <typename Vec>
+template <typename Vec, int kLayout>
 cudaError_t launch(const void* feats, const int32_t* coors, void* canvas, int B, int V, int row_bytes,
-                   int nx, int ny, int layout, cudaStream_t stream) {
+                   int nx, int ny, cudaStream_t stream) {
   int vecs_per_row = row_bytes / (int)sizeof(Vec);
   int64_t total = (int64_t)B * V * vecs_per_row;
   if (total == 0) return cudaSuccess;
-  scatter_rows<Vec><<<blocks_for(total), kThreads, 0, stream>>>(
-      static_cast<const Vec*>(feats), coors, static_cast<Vec*>(canvas), total, vecs_per_row, V, nx, ny,
-      layout);
+  scatter_rows<Vec, kLayout><<<blocks_for(total), kThreads, 0, stream>>>(
+      static_cast<const Vec*>(feats), coors, static_cast<Vec*>(canvas), total, vecs_per_row, V, nx, ny);
   return cudaGetLastError();
 }
 
@@ -214,15 +214,15 @@ cudaError_t launch_blocked(const void* feats, const int32_t* coors, void* canvas
   return cudaGetLastError();
 }
 
-template <typename Vec>
+template <typename Vec, int kLayout>
 cudaError_t launch_bwd(const void* grad, const int32_t* coors, void* dfeats, int B, int V, int row_bytes,
-                       int nx, int ny, int layout, int64_t sb, int64_t sx, int64_t sy, cudaStream_t stream) {
+                       int nx, int ny, int64_t sb, int64_t sx, int64_t sy, cudaStream_t stream) {
   int vecs_per_row = row_bytes / (int)sizeof(Vec);
   int64_t total = (int64_t)B * V * vecs_per_row;
   if (total == 0) return cudaSuccess;
-  gather_rows<Vec><<<blocks_for(total), kThreads, 0, stream>>>(
+  gather_rows<Vec, kLayout><<<blocks_for(total), kThreads, 0, stream>>>(
       static_cast<const char*>(grad), coors, static_cast<Vec*>(dfeats), total, vecs_per_row, V, nx, ny,
-      layout, sb, sx, sy, row_bytes);
+      sb, sx, sy, row_bytes);
   return cudaGetLastError();
 }
 
@@ -247,22 +247,24 @@ inline int piece_bytes(int row_bytes, uintptr_t addresses) {
   return 2;
 }
 
+template <int kLayout>
 int scatter_impl(const void* feats, const void* coors, void* canvas, size_t canvas_bytes, int B, int V,
-                 int C, int elem_bytes, int nx, int ny, int layout, void* stream_ptr) {
+                 int C, int elem_bytes, int nx, int ny, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaMemsetAsync(canvas, 0, canvas_bytes, stream);
   if (err != cudaSuccess) return (int)err;
   const int32_t* c = static_cast<const int32_t*>(coors);
   int row_bytes = C * elem_bytes;
   switch (piece_bytes(row_bytes, reinterpret_cast<uintptr_t>(feats) | reinterpret_cast<uintptr_t>(canvas))) {
-    case 16: return (int)launch<uint4>(feats, c, canvas, B, V, row_bytes, nx, ny, layout, stream);
-    case 4: return (int)launch<uint32_t>(feats, c, canvas, B, V, row_bytes, nx, ny, layout, stream);
-    default: return (int)launch<uint16_t>(feats, c, canvas, B, V, row_bytes, nx, ny, layout, stream);
+    case 16: return (int)launch<uint4, kLayout>(feats, c, canvas, B, V, row_bytes, nx, ny, stream);
+    case 4: return (int)launch<uint32_t, kLayout>(feats, c, canvas, B, V, row_bytes, nx, ny, stream);
+    default: return (int)launch<uint16_t, kLayout>(feats, c, canvas, B, V, row_bytes, nx, ny, stream);
   }
 }
 
+template <int kLayout>
 int gather_impl(const void* grad, const void* coors, void* dfeats, int B, int V, int C, int elem_bytes,
-                int nx, int ny, int layout, int64_t sb, int64_t sx, int64_t sy, void* stream_ptr) {
+                int nx, int ny, int64_t sb, int64_t sx, int64_t sy, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int32_t* c = static_cast<const int32_t*>(coors);
   int row_bytes = C * elem_bytes;
@@ -272,9 +274,9 @@ int gather_impl(const void* grad, const void* coors, void* dfeats, int B, int V,
   uintptr_t addresses = reinterpret_cast<uintptr_t>(grad) | reinterpret_cast<uintptr_t>(dfeats) |
                         (uintptr_t)sb | (uintptr_t)sx | (uintptr_t)sy;
   switch (piece_bytes(row_bytes, addresses)) {
-    case 16: return (int)launch_bwd<uint4>(grad, c, dfeats, B, V, row_bytes, nx, ny, layout, sb, sx, sy, stream);
-    case 4: return (int)launch_bwd<uint32_t>(grad, c, dfeats, B, V, row_bytes, nx, ny, layout, sb, sx, sy, stream);
-    default: return (int)launch_bwd<uint16_t>(grad, c, dfeats, B, V, row_bytes, nx, ny, layout, sb, sx, sy, stream);
+    case 16: return (int)launch_bwd<uint4, kLayout>(grad, c, dfeats, B, V, row_bytes, nx, ny, sb, sx, sy, stream);
+    case 4: return (int)launch_bwd<uint32_t, kLayout>(grad, c, dfeats, B, V, row_bytes, nx, ny, sb, sx, sy, stream);
+    default: return (int)launch_bwd<uint16_t, kLayout>(grad, c, dfeats, B, V, row_bytes, nx, ny, sb, sx, sy, stream);
   }
 }
 
@@ -289,7 +291,7 @@ int gather_impl(const void* grad, const void* coors, void* dfeats, int B, int V,
 extern "C" int det3d_scatter_to_bev(const void* feats, const void* coors, void* canvas, int B, int V, int C,
                                     int elem_bytes, int nx, int ny, void* stream_ptr) {
   size_t canvas_bytes = (size_t)B * nx * ny * C * elem_bytes;
-  return scatter_impl(feats, coors, canvas, canvas_bytes, B, V, C, elem_bytes, nx, ny, kDense, stream_ptr);
+  return scatter_impl<kDense>(feats, coors, canvas, canvas_bytes, B, V, C, elem_bytes, nx, ny, stream_ptr);
 }
 
 // The s2d canvas, contiguous: (B, nx/2, ny/2, 4C), or for `w_major`
@@ -298,8 +300,8 @@ extern "C" int det3d_scatter_to_bev_s2d(const void* feats, const void* coors, vo
                                         int C, int elem_bytes, int nx, int ny, int w_major,
                                         void* stream_ptr) {
   size_t canvas_bytes = (size_t)B * nx * ny * C * elem_bytes;
-  return scatter_impl(feats, coors, canvas, canvas_bytes, B, V, C, elem_bytes, nx, ny,
-                      w_major ? kS2dW : kS2dH, stream_ptr);
+  return w_major ? scatter_impl<kS2dW>(feats, coors, canvas, canvas_bytes, B, V, C, elem_bytes, nx, ny, stream_ptr)
+                 : scatter_impl<kS2dH>(feats, coors, canvas, canvas_bytes, B, V, C, elem_bytes, nx, ny, stream_ptr);
 }
 
 // The blocked s2d canvas (B, nblk, rb + ht + hb, ny/2, 4C), contiguous,
@@ -328,7 +330,7 @@ extern "C" int det3d_scatter_to_bev_s2d_blocked(const void* feats, const void* c
 extern "C" int det3d_scatter_to_bev_bwd(const void* grad, const void* coors, void* dfeats, int B, int V,
                                         int C, int elem_bytes, int nx, int ny, int64_t sb, int64_t sx,
                                         int64_t sy, void* stream_ptr) {
-  return gather_impl(grad, coors, dfeats, B, V, C, elem_bytes, nx, ny, kDense, sb, sx, sy, stream_ptr);
+  return gather_impl<kDense>(grad, coors, dfeats, B, V, C, elem_bytes, nx, ny, sb, sx, sy, stream_ptr);
 }
 
 // Backward of the s2d scatter: grad is the logical (B, nx/2, ny/2, 4C)
@@ -337,7 +339,7 @@ extern "C" int det3d_scatter_to_bev_bwd(const void* grad, const void* coors, voi
 extern "C" int det3d_scatter_to_bev_s2d_bwd(const void* grad, const void* coors, void* dfeats, int B, int V,
                                             int C, int elem_bytes, int nx, int ny, int64_t sb, int64_t sx,
                                             int64_t sy, void* stream_ptr) {
-  return gather_impl(grad, coors, dfeats, B, V, C, elem_bytes, nx, ny, kS2dH, sb, sx, sy, stream_ptr);
+  return gather_impl<kS2dH>(grad, coors, dfeats, B, V, C, elem_bytes, nx, ny, sb, sx, sy, stream_ptr);
 }
 
 // Backward of the blocked scatter: grad (B, nblk, rb + ht + hb, ny/2, 4C)

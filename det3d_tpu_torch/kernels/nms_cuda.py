@@ -7,10 +7,13 @@ reference; the caller applies the `post_max_size` rank cap
 (`ops.nms.rank_cap`). A 2-D (K, 4) input is one class.
 
 Counterpart of `nms_keep_pallas` in the JAX package (kernels/nms_pallas.py,
-`_nms_kernel`). `nms_keep` dispatches on the device of its input: a CPU
-tensor takes `nms_keep_plain` (ops/nms.greedy_keep), a CUDA tensor launches
-`csrc/nms.cu`: the suppression mask of all classes over the whole card, then
-one sweep per class, two launches back to back for one call.
+`_nms_kernel`). `nms_keep` is the PyTorch custom op `det3d::nms_keep`, so
+`torch.export` records it as one node and a CUDA graph captures its
+launches: on a CPU tensor it runs `nms_keep_plain` (ops/nms.greedy_keep), on
+a CUDA tensor it launches `csrc/nms.cu` (the suppression mask of all
+classes over the whole card, then one sweep per class, two launches back to
+back for one call) or raises; its fake gives the keep mask's shape (the
+mask scratch stays inside the op).
 """
 
 from __future__ import annotations
@@ -96,11 +99,16 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
     return keep
 
 
+_nms_op = torch.library.custom_op(
+    "det3d::nms_keep", nms_keep_plain, mutates_args=(), device_types="cpu",
+    schema="(Tensor boxes, Tensor valid, float iou_threshold) -> Tensor",
+)
+_nms_op.register_kernel("cuda")(nms_keep_cuda)
+_nms_op.register_fake(lambda boxes, valid, iou_threshold: torch.empty_like(valid))
+
+
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Greedy keep mask of pre-sorted boxes: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if boxes.device.type == "cuda":
-        return nms_keep_cuda(boxes, valid, iou_threshold)
-    if boxes.device.type == "cpu":
-        return nms_keep_plain(boxes, valid, iou_threshold)
-    raise ValueError(f"unsupported device {boxes.device}")
+    tensors, the plain version for CPU tensors (the op `det3d::nms_keep`)."""
+    _check(boxes, valid)
+    return _nms_op(boxes, valid, float(iou_threshold))

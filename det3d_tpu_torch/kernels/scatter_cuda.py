@@ -20,12 +20,17 @@ outside the grid. Cells are unique, so no two rows collide. Three canvases:
     Counterpart of `scatter_to_bev_s2d_blocked` (`_canvas_s2d_blocked_kernel`,
     VJP `_scatter_s2d_blocked_bwd`).
 
-Each is differentiable in the features: its backward gathers each kept
-row's cotangent from the canvas (zero for dropped rows), summed over the
-halo copies for the blocked canvas. Forward and backward dispatch on the
-device of their input: CPU tensors take the plain versions (`*_plain`),
-CUDA tensors launch `csrc/scatter.cu`; there is no fallback from one to the
-other. Each kernel has its own launch counter.
+Each is a PyTorch custom op (`det3d::scatter_to_bev`,
+`det3d::scatter_to_bev_s2d`, `det3d::scatter_to_bev_s2d_blocked`, over the
+same `ctypes` launches), so `torch.export` records it as one node and a
+CUDA graph captures its launches. Each is differentiable in the features:
+its backward, an op too (`det3d::*_bwd`), gathers each kept row's cotangent
+from the canvas (zero for dropped rows), summed over the halo copies for
+the blocked canvas. Every op has a CPU implementation, the plain version
+(`*_plain`), a CUDA implementation, which launches `csrc/scatter.cu` or
+raises, and a fake one that gives the output's shape, dtype and strides;
+there is no fallback from one device to the other. Each kernel has its own
+launch counter.
 """
 
 from __future__ import annotations
@@ -182,33 +187,40 @@ def scatter_to_bev_bwd_cuda(grad_canvas: torch.Tensor, coors: torch.Tensor) -> t
     return dfeats
 
 
-def _on_device(cuda_fn, plain_fn, t: torch.Tensor):
-    if t.device.type == "cuda":
-        return cuda_fn
-    if t.device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"unsupported device {t.device}")
+def _op(name: str, schema: str, cpu, cuda, fake):
+    """Register the op `det3d::<name>(<schema>)`: `cpu` on the CPU, `cuda`
+    on the card, `fake` for tracing."""
+    op = torch.library.custom_op(f"det3d::{name}", cpu, mutates_args=(), device_types="cpu", schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
 
 
-class _ScatterToBev(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, pillar_features, coors, grid_xy):
-        ctx.save_for_backward(coors)
-        fwd = _on_device(scatter_to_bev_cuda, scatter_to_bev_plain, pillar_features)
-        return fwd(pillar_features, coors, grid_xy)
+def _save_coors(ctx, inputs, output):
+    ctx.save_for_backward(inputs[1])
 
-    @staticmethod
-    def backward(ctx, grad_canvas):
-        (coors,) = ctx.saved_tensors
-        bwd = _on_device(scatter_to_bev_bwd_cuda, scatter_to_bev_bwd_plain, grad_canvas)
-        return bwd(grad_canvas, coors), None, None
+
+_scatter_op = _op(
+    "scatter_to_bev", "(Tensor feats, Tensor coors, int nx, int ny) -> Tensor",
+    lambda f, c, nx, ny: scatter_to_bev_plain(f, c, (nx, ny)),
+    lambda f, c, nx, ny: scatter_to_bev_cuda(f, c, (nx, ny)),
+    lambda f, c, nx, ny: f.new_empty((f.shape[0], nx, ny, f.shape[2])),
+)
+_scatter_bwd_op = _op(
+    "scatter_to_bev_bwd", "(Tensor grad, Tensor coors) -> Tensor",
+    scatter_to_bev_bwd_plain, scatter_to_bev_bwd_cuda,
+    lambda g, c: g.new_empty((g.shape[0], c.shape[1], g.shape[3])),
+)
+_scatter_op.register_autograd(lambda ctx, g: (_scatter_bwd_op(g, ctx.saved_tensors[0]), None, None, None),
+                              setup_context=_save_coors)
 
 
 def scatter_to_bev(pillar_features: torch.Tensor, coors: torch.Tensor, grid_xy) -> torch.Tensor:
     """(B, V, C) features + (B, V, 3) int32 coords → (B, nx, ny, C) canvas,
     differentiable in the features: the CUDA kernels for CUDA tensors, the
-    plain versions for CPU tensors."""
-    return _ScatterToBev.apply(pillar_features, coors, tuple(grid_xy))
+    plain versions for CPU tensors (the op `det3d::scatter_to_bev`)."""
+    _check(pillar_features, coors, grid_xy)
+    return _scatter_op(pillar_features, coors, int(grid_xy[0]), int(grid_xy[1]))
 
 
 # --- the space-to-depth canvases -------------------------------------------
@@ -406,41 +418,63 @@ def scatter_to_bev_s2d_blocked_bwd_cuda(grad_canvas: torch.Tensor, coors: torch.
     return dfeats
 
 
-class _ScatterToBevS2d(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, pillar_features, coors, grid_xy, w_major):
-        ctx.save_for_backward(coors)
-        fwd = _on_device(scatter_to_bev_s2d_cuda, scatter_to_bev_s2d_plain, pillar_features)
-        return fwd(pillar_features, coors, grid_xy, w_major)
-
-    @staticmethod
-    def backward(ctx, grad_canvas):
-        (coors,) = ctx.saved_tensors
-        bwd = _on_device(scatter_to_bev_s2d_bwd_cuda, scatter_to_bev_s2d_bwd_plain, grad_canvas)
-        return bwd(grad_canvas, coors), None, None, None
+def _s2d_fake(f, c, nx, ny, w_major):
+    b, _, ch = f.shape
+    if w_major:
+        return f.new_empty((b, ny // 2, nx // 2, 4 * ch)).transpose(1, 2)
+    return f.new_empty((b, nx // 2, ny // 2, 4 * ch))
 
 
-class _ScatterToBevS2dBlocked(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, pillar_features, coors, grid_xy, nblk, halo):
-        ctx.save_for_backward(coors)
-        ctx.halo = halo
-        fwd = _on_device(scatter_to_bev_s2d_blocked_cuda, scatter_to_bev_s2d_blocked_plain, pillar_features)
-        return fwd(pillar_features, coors, grid_xy, nblk, halo)
+_s2d_op = _op(
+    "scatter_to_bev_s2d", "(Tensor feats, Tensor coors, int nx, int ny, bool w_major) -> Tensor",
+    lambda f, c, nx, ny, w_major: scatter_to_bev_s2d_plain(f, c, (nx, ny), w_major),
+    lambda f, c, nx, ny, w_major: scatter_to_bev_s2d_cuda(f, c, (nx, ny), w_major),
+    _s2d_fake,
+)
+_s2d_bwd_op = _op(
+    "scatter_to_bev_s2d_bwd", "(Tensor grad, Tensor coors) -> Tensor",
+    scatter_to_bev_s2d_bwd_plain, scatter_to_bev_s2d_bwd_cuda,
+    lambda g, c: g.new_empty((g.shape[0], c.shape[1], g.shape[3] // 4)),
+)
+_s2d_op.register_autograd(lambda ctx, g: (_s2d_bwd_op(g, ctx.saved_tensors[0]), None, None, None, None),
+                          setup_context=_save_coors)
 
-    @staticmethod
-    def backward(ctx, grad_canvas):
-        (coors,) = ctx.saved_tensors
-        bwd = _on_device(scatter_to_bev_s2d_blocked_bwd_cuda, scatter_to_bev_s2d_blocked_bwd_plain, grad_canvas)
-        return bwd(grad_canvas, coors, ctx.halo), None, None, None, None
+
+def _blocked_fake(f, c, nx, ny, nblk, ht, hb):
+    _, rtot = blocked_rows((nx, ny), nblk, (ht, hb))
+    return f.new_empty((f.shape[0], nblk, rtot, ny // 2, 4 * f.shape[2]))
+
+
+def _save_blocked(ctx, inputs, output):
+    ctx.save_for_backward(inputs[1])
+    ctx.halo = (inputs[5], inputs[6])
+
+
+_blocked_op = _op(
+    "scatter_to_bev_s2d_blocked",
+    "(Tensor feats, Tensor coors, int nx, int ny, int nblk, int ht, int hb) -> Tensor",
+    lambda f, c, nx, ny, nblk, ht, hb: scatter_to_bev_s2d_blocked_plain(f, c, (nx, ny), nblk, (ht, hb)),
+    lambda f, c, nx, ny, nblk, ht, hb: scatter_to_bev_s2d_blocked_cuda(f, c, (nx, ny), nblk, (ht, hb)),
+    _blocked_fake,
+)
+_blocked_bwd_op = _op(
+    "scatter_to_bev_s2d_blocked_bwd", "(Tensor grad, Tensor coors, int ht, int hb) -> Tensor",
+    lambda g, c, ht, hb: scatter_to_bev_s2d_blocked_bwd_plain(g, c, (ht, hb)),
+    lambda g, c, ht, hb: scatter_to_bev_s2d_blocked_bwd_cuda(g, c, (ht, hb)),
+    lambda g, c, ht, hb: g.new_empty((g.shape[0], c.shape[1], g.shape[4] // 4)),
+)
+_blocked_op.register_autograd(
+    lambda ctx, g: (_blocked_bwd_op(g, ctx.saved_tensors[0], *ctx.halo),) + (None,) * 6,
+    setup_context=_save_blocked)
 
 
 def scatter_to_bev_s2d(pillar_features: torch.Tensor, coors: torch.Tensor, grid_xy,
                        w_major: bool = False) -> torch.Tensor:
     """(B, V, C) features + (B, V, 3) int32 coords → (B, nx/2, ny/2, 4C) s2d
     canvas, differentiable in the features: the CUDA kernels for CUDA
-    tensors, the plain versions for CPU tensors."""
-    return _ScatterToBevS2d.apply(pillar_features, coors, tuple(grid_xy), bool(w_major))
+    tensors, the plain versions for CPU tensors (`det3d::scatter_to_bev_s2d`)."""
+    _check_s2d(pillar_features, coors, grid_xy)
+    return _s2d_op(pillar_features, coors, int(grid_xy[0]), int(grid_xy[1]), bool(w_major))
 
 
 def scatter_to_bev_s2d_blocked(pillar_features: torch.Tensor, coors: torch.Tensor, grid_xy,
@@ -448,5 +482,9 @@ def scatter_to_bev_s2d_blocked(pillar_features: torch.Tensor, coors: torch.Tenso
     """(B, V, C) features + (B, V, 3) int32 coords → (B, nblk, rb + ht + hb,
     ny/2, 4C) blocked s2d canvas, differentiable in the features (the
     backward sums each pillar's halo copies): the CUDA kernels for CUDA
-    tensors, the plain versions for CPU tensors."""
-    return _ScatterToBevS2dBlocked.apply(pillar_features, coors, tuple(grid_xy), int(nblk), tuple(halo))
+    tensors, the plain versions for CPU tensors
+    (`det3d::scatter_to_bev_s2d_blocked`)."""
+    _check_s2d(pillar_features, coors, grid_xy)
+    blocked_rows(grid_xy, nblk, halo)
+    return _blocked_op(pillar_features, coors, int(grid_xy[0]), int(grid_xy[1]), int(nblk), int(halo[0]),
+                       int(halo[1]))

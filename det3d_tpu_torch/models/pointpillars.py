@@ -424,13 +424,16 @@ _PACK_INDEX_ON_DEVICE: dict = {}
 def pack_kernel(w: torch.Tensor, kind: str) -> torch.Tensor:
     """A dense OIHW kernel → its packed OIHW kernel of `kind` ('entry',
     'res', 'down', 'pointwise'): one gather, differentiable. The index maps
-    are made once per device."""
+    are made once per device; while `torch.export` traces, they are made
+    for the program (its constants) and not kept, since what the trace
+    makes holds no data."""
     cout, cin, k, _ = w.shape
     key = (kind, cout, cin, k, w.device)
     maps = _PACK_INDEX_ON_DEVICE.get(key)
     if maps is None:
-        maps = _PACK_INDEX_ON_DEVICE[key] = tuple(torch.from_numpy(a).to(w.device)
-                                                  for a in _pack_index(kind, cout, cin, k))
+        maps = tuple(torch.from_numpy(a).to(w.device) for a in _pack_index(kind, cout, cin, k))
+        if not torch.compiler.is_exporting():
+            _PACK_INDEX_ON_DEVICE[key] = maps
     return _PackKernel.apply(w, *maps)
 
 

@@ -38,16 +38,24 @@ def rotation_2d(points: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     return torch.einsum("npi,nij->npj", points, rot)
 
 
-def corners_nd(dims: torch.Tensor, origin: float = 0.5) -> torch.Tensor:
-    """(N, 2) box dims → (N, 4, 2) relative corner offsets, clockwise."""
-    norm = torch.tensor(_CORNERS2D, dtype=dims.dtype, device=dims.device) - origin
-    return dims[..., None, :] * norm
+def unit_corners(origin: float, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The (4, 2) unit corners less `origin` on `device`, for the caller to
+    make once and hold (`PostProcessor` keeps them as a buffer): a tensor
+    made from a Python list copies to the card and waits for it, which
+    would stall every frame."""
+    return torch.tensor(_CORNERS2D, dtype=dtype, device=device) - origin
 
 
-def center_to_corner_box2d(centers, dims, angles=None, origin: float = 0.5) -> torch.Tensor:
-    """(N,2) centers + (N,2) dims (+ yaw) → (N,4,2) corners
-    (reference: framework/box_np_ops.py:81-99)."""
-    corners = corners_nd(dims, origin=origin)
+def corners_nd(dims: torch.Tensor, unit: torch.Tensor) -> torch.Tensor:
+    """(N, 2) box dims → (N, 4, 2) relative corner offsets, clockwise;
+    `unit` is `unit_corners(origin, dims.device, dims.dtype)`."""
+    return dims[..., None, :] * unit
+
+
+def center_to_corner_box2d(centers, dims, angles, unit: torch.Tensor) -> torch.Tensor:
+    """(N,2) centers + (N,2) dims (+ yaw, or None) → (N,4,2) corners
+    (reference: framework/box_np_ops.py:81-99); `unit` as in `corners_nd`."""
+    corners = corners_nd(dims, unit)
     if angles is not None:
         corners = rotation_2d(corners, angles)
     return corners + centers[..., None, :]

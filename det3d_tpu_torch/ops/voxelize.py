@@ -24,7 +24,6 @@ their point cap. The kept pillar set is identical.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -62,11 +61,11 @@ class VoxelizedFrame(NamedTuple):
     voxel_num: torch.Tensor          # () int32
 
 
-@functools.cache
-def _grid_tensors(spec: VoxelizerSpec, device: torch.device):
-    """The grid's voxel size, offset and size as tensors on `device`, made
-    once: a tensor made from a Python list copies to the card and waits for
-    it, which would stall every frame."""
+def grid_tensors(spec: VoxelizerSpec, device: torch.device):
+    """The grid's voxel size, offset and size as tensors on `device`, for
+    the caller to make once and hold (`DetectorModule` keeps them as
+    buffers): a tensor made from a Python list copies to the card and waits
+    for it, which would stall every frame."""
     return (
         torch.tensor(spec.voxel_size, dtype=torch.float32, device=device),
         torch.tensor(spec.offset, dtype=torch.float32, device=device),
@@ -74,16 +73,18 @@ def _grid_tensors(spec: VoxelizerSpec, device: torch.device):
     )
 
 
-def point_cell_coords(points: torch.Tensor, spec: VoxelizerSpec):
+def point_cell_coords(points: torch.Tensor, grid):
     """Per-point integer cell coordinate and in-grid flag (floor-divide
-    binning of reference voxel_generator.py:89-92)."""
-    voxel_size, offset, grid = _grid_tensors(spec, points.device)
+    binning of reference voxel_generator.py:89-92); `grid` is
+    `grid_tensors(spec, points.device)`."""
+    voxel_size, offset, size = grid
     coor = torch.floor((points[:, :3] - offset) / voxel_size).to(torch.int32)
-    inside = ((coor >= 0) & (coor < grid)).all(dim=-1)
+    inside = ((coor >= 0) & (coor < size)).all(dim=-1)
     return coor, inside
 
 
-def voxelize(points: torch.Tensor, num_points: torch.Tensor | int, spec: VoxelizerSpec) -> VoxelizedFrame:
+def voxelize(points: torch.Tensor, num_points: torch.Tensor | int, spec: VoxelizerSpec,
+             grid) -> VoxelizedFrame:
     """Bin a padded point cloud into dense pillar buffers.
 
     Args:
@@ -91,6 +92,8 @@ def voxelize(points: torch.Tensor, num_points: torch.Tensor | int, spec: Voxeliz
         padding. `max_points` must be at least `spec.max_voxels`.
       num_points: the true point count (int or 0-dim tensor).
       spec: static voxelization parameters.
+      grid: the grid's (voxel size, offset, size) tensors on the points'
+        device, `grid_tensors(spec, points.device)`.
     """
     n, c = points.shape
     if n < spec.max_voxels:
@@ -100,7 +103,7 @@ def voxelize(points: torch.Tensor, num_points: torch.Tensor | int, spec: Voxeliz
     num_cells = nx * ny * nz
     mv, mp = spec.max_voxels, spec.max_num_points
 
-    coor, inside = point_cell_coords(points, spec)
+    coor, inside = point_cell_coords(points, grid)
     pos = torch.arange(n, dtype=torch.int64, device=dev)
     valid = inside & (pos < num_points)
 

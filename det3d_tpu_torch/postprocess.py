@@ -8,8 +8,9 @@ framework/inference.py:26-138), with the same two stages:
     score threshold, take the top k, decode those k boxes, flip their yaw by
     the direction classifier and test the centre limit;
   * `finalize_stage`: NMS for all classes at once (`kernels.nms_cuda`, one
-    kernel launch per frame on the card), the `post_max_size` rank cap, the
-    range filter, and compaction into (post_max, …) blocks in score order.
+    kernel call per frame on the card), the `post_max_size` rank cap, the
+    range filter, and compaction into (post_max, …) blocks in score order;
+    `finalize_frames` does the same for several frames with one NMS call.
 
 NMS hyper-parameters are the reference's hard-coded values
 (framework/inference.py:13-19).
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from det3d_tpu_torch.anchors import AnchorSet
 from det3d_tpu_torch.config import Config
@@ -108,14 +110,14 @@ def _bucketed_topk(g: torch.Tensor, k: int):
     return top, rem // w2 * fy + 2 * (rem % w2) + p
 
 
-def _decode_candidates(top_logits, box_k, dir_labels, anchors_k, center_limit) -> Candidates:
+def _decode_candidates(top_logits, box_k, dir_labels, anchors_k, center_limit, unit_corners) -> Candidates:
     """Post top-k: decode → direction flip → standup boxes + range test."""
     valid = top_logits > -math.inf
     # sigmoid only on the k winners; invalid slots report -1.0
     top_scores = torch.where(valid, torch.sigmoid(top_logits.float()), -1.0)
 
     boxes = geometry.box_decode(box_k, anchors_k)                       # (k, 7)
-    corners = geometry.center_to_corner_box2d(boxes[:, :2], boxes[:, 3:5], boxes[:, 6])
+    corners = geometry.center_to_corner_box2d(boxes[:, :2], boxes[:, 3:5], boxes[:, 6], unit=unit_corners)
     standup = geometry.corner_to_standup(corners)                       # (k, 4)
 
     # +π where the direction classifier disagrees with sign(yaw)
@@ -131,29 +133,47 @@ def _decode_candidates(top_logits, box_k, dir_labels, anchors_k, center_limit) -
     return Candidates(boxes, top_scores, standup, valid, min_mask & max_mask)
 
 
-class PostProcessor:
+class PostProcessor(nn.Module):
     """`decode_stage(preds, anchors_mask)` and `finalize_stage(candidates)`
-    over the static anchor set, on one device. preds are single-frame.
+    over the static anchor set, on one device. preds are single-frame;
+    `finalize_frames` takes several frames' candidates through one NMS call.
+
+    Its device constants (the centre limit, each class's anchors, the logit
+    threshold, the unit corners of the standup boxes) are buffers, made
+    once, so no frame copies a constant to the card, and an exported
+    program holds them as buffers; none is persistent, so no state_dict
+    carries them.
 
     `nms_keep` is the keep-mask function, `kernels.nms_cuda.nms_keep` by
     default (the CUDA kernel on the card); a caller may set the plain
     version in its place to compare the two end to end."""
 
     def __init__(self, cfg: Config, anchor_set: AnchorSet, params: PostProcessParams | None, device):
+        super().__init__()
         self.params = params or PostProcessParams()
-        self.device = torch.device(device)
-        self.center_limit = torch.tensor(cfg.center_limit, dtype=torch.float32, device=self.device)
+        device = torch.device(device)
         self.channels = [anchor_set.class_channels[s.name] for s in cfg.class_specs]
-        self.class_anchors = [
-            torch.from_numpy(np.array(anchor_set.anchors_by_class[s.name])).to(self.device)
-            for s in cfg.class_specs
-        ]
         self.fx, self.fy = (int(s) for s in cfg.feature_map_size[:2])
         p = self.params
-        self.logit_thr = torch.tensor(
-            float(np.log(p.score_threshold / (1.0 - p.score_threshold))), dtype=torch.float32
-        )
+        constants = {
+            "center_limit": torch.tensor(cfg.center_limit, dtype=torch.float32),
+            "logit_thr": torch.tensor(float(np.log(p.score_threshold / (1.0 - p.score_threshold))),
+                                      dtype=torch.float32),
+            "unit_corners": geometry.unit_corners(0.5, torch.device("cpu"), torch.float32),
+        }
+        for i, s in enumerate(cfg.class_specs):
+            constants[f"anchors_{i}"] = torch.from_numpy(np.array(anchor_set.anchors_by_class[s.name]))
+        for name, t in constants.items():
+            self.register_buffer(name, t.to(device), persistent=False)
         self.nms_keep = nms_keep
+
+    @property
+    def device(self) -> torch.device:
+        return self.center_limit.device
+
+    @property
+    def class_anchors(self) -> list[torch.Tensor]:
+        return [getattr(self, f"anchors_{i}") for i in range(len(self.channels))]
 
     def decode_stage(self, preds: dict[str, torch.Tensor], anchors_mask: torch.Tensor) -> list[Candidates]:
         """preds: cls (1, nch, fx, fy), box (7, nch, fx, fy), dir (2, nch,
@@ -163,9 +183,9 @@ class PostProcessor:
         p = self.params
         hw = self.fx * self.fy
         logits = preds["cls_preds"][0]
-        thr = self.logit_thr.to(logits.device)
         gated = torch.where(
-            anchors_mask & (logits.float() >= thr), logits, torch.full((), -math.inf, dtype=logits.dtype, device=logits.device)
+            anchors_mask & (logits.float() >= self.logit_thr), logits,
+            torch.full((), -math.inf, dtype=logits.dtype, device=logits.device),
         )
         box_all, dir_all = preds["box_preds"], preds["dir_preds"]
 
@@ -185,26 +205,38 @@ class PostProcessor:
             chg = ch + c0
             box_k = box_all[:, chg, xx, yy].float().T                   # (k, 7)
             dir_k = dir_all[:, chg, xx, yy]                              # (2, k)
-            out.append(
-                _decode_candidates(top_logits, box_k, dir_k[1] > dir_k[0], anchors[idx], self.center_limit)
-            )
+            out.append(_decode_candidates(top_logits, box_k, dir_k[1] > dir_k[0], anchors[idx],
+                                          self.center_limit, self.unit_corners))
         return out
 
     def finalize_stage(self, candidates: list[Candidates]) -> Detections:
-        """NMS for every class in one call, then rank cap, range filter and
-        compaction. Classes with fewer than the largest k candidates are
-        padded with invalid rows, which neither keep nor suppress."""
-        p = self.params
-        kmax = max(c.valid.shape[0] for c in candidates)
-        standup = torch.zeros((len(candidates), kmax, 4), dtype=torch.float32, device=self.device)
-        valid = torch.zeros((len(candidates), kmax), dtype=torch.bool, device=self.device)
-        for ci, c in enumerate(candidates):
-            k = c.valid.shape[0]
-            standup[ci, :k] = c.standup
-            valid[ci, :k] = c.valid
-        keep_all = rank_cap(self.nms_keep(standup, valid, p.nms_iou_threshold), p.nms_post_max_size)
+        """One frame's NMS for every class in one call, then rank cap, range
+        filter and compaction (`finalize_frames` of that one frame)."""
+        return Detections(*(t[0] for t in self.finalize_frames([candidates])))
 
-        post = p.nms_post_max_size
+    def finalize_frames(self, frames: list[list[Candidates]]) -> Detections:
+        """NMS for every class of every frame in one call over (B·ncls,
+        kmax, 4), then per frame the rank cap, range filter and compaction
+        → Detections with a leading frame axis. Classes with fewer than the
+        largest k candidates are padded with invalid rows, which neither
+        keep nor suppress."""
+        p = self.params
+        ncls = len(frames[0])
+        kmax = max(c.valid.shape[0] for c in frames[0])
+        standup = torch.zeros((len(frames) * ncls, kmax, 4), dtype=torch.float32, device=self.device)
+        valid = torch.zeros((len(frames) * ncls, kmax), dtype=torch.bool, device=self.device)
+        for fi, candidates in enumerate(frames):
+            for ci, c in enumerate(candidates):
+                k = c.valid.shape[0]
+                standup[fi * ncls + ci, :k] = c.standup
+                valid[fi * ncls + ci, :k] = c.valid
+        keep_all = rank_cap(self.nms_keep(standup, valid, p.nms_iou_threshold), p.nms_post_max_size)
+        per_frame = [self._compact(c, keep_all[fi * ncls:(fi + 1) * ncls]) for fi, c in enumerate(frames)]
+        return Detections(*(torch.stack(parts) for parts in zip(*per_frame)))
+
+    def _compact(self, candidates: list[Candidates], keep_all: torch.Tensor) -> Detections:
+        """One frame's kept rows, in score order, into (post_max, …) blocks."""
+        post = self.params.nms_post_max_size
         boxes_l, scores_l, valid_l = [], [], []
         for ci, c in enumerate(candidates):
             keep = keep_all[ci, : c.valid.shape[0]] & c.range_ok

@@ -33,8 +33,10 @@ from det3d_tpu_torch.train.trainer import ADAM_B1, ADAM_B2, ADAM_EPS, TrainState
 LATEST = "latest.pth"
 
 
-def checkpoint_dict(state: TrainState, model: torch.nn.Module) -> dict:
-    """The `.pth` contents of `state` and `model`'s weights (CPU copies)."""
+def checkpoint_dict(state: TrainState, model: torch.nn.Module, step: int | None = None) -> dict:
+    """The `.pth` contents of `state` and `model`'s weights (CPU copies);
+    `step` is the file's step where it differs from Adam's (a checkpoint
+    whose optimizer starts afresh)."""
     params = list(model.parameters())
     adam = {}
     if state.step > 0:
@@ -44,7 +46,7 @@ def checkpoint_dict(state: TrainState, model: torch.nn.Module) -> dict:
             for i, (m, v) in enumerate(zip(state.mu, state.nu))
         }
     return {
-        "step": int(state.step),
+        "step": int(state.step if step is None else step),
         "model_state_dict": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
         "optimizer_state_dict": {
             "state": adam,
@@ -69,13 +71,19 @@ def read_checkpoint(path: str | Path, map_location=None) -> tuple[dict, int, dic
 
 def restore(path: str | Path, model: torch.nn.Module, default_lr: float) -> TrainState:
     """Load a `.pth` into `model` (strictly) and return its optimizer state
-    on the model's device: Adam's moments (float32) and step, and the lr of
-    its param group (`default_lr` where the file has none). An empty
-    optimizer state gives a fresh Adam at step 0. torch keeps one Adam step
-    per parameter and the port one for all: counts that differ, or moments
-    for some parameters only, cannot be represented and raise."""
-    device = next(model.parameters()).device
-    sd, _, opt_sd = read_checkpoint(path, map_location=device)
+    on the model's device (`load_into`)."""
+    sd, _, opt_sd = read_checkpoint(path, map_location=next(model.parameters()).device)
+    return load_into(model, sd, opt_sd, default_lr)
+
+
+def load_into(model: torch.nn.Module, sd: dict, opt_sd: dict | None, default_lr: float) -> TrainState:
+    """Load a model state_dict into `model` (strictly) and return the
+    optimizer state of `opt_sd` on the model's device: Adam's moments
+    (float32) and step, and the lr of its param group (`default_lr` where
+    it has none). An empty or absent optimizer state gives a fresh Adam at
+    step 0. torch keeps one Adam step per parameter and the port one for
+    all: counts that differ, or moments for some parameters only, cannot be
+    represented and raise."""
     model.load_state_dict(sd, strict=True)
     params = list(model.parameters())
     mu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
@@ -126,13 +134,14 @@ class CheckpointManager:
     def has_latest(self) -> bool:
         return self.latest_path.exists()
 
-    def save(self, state: TrainState, model: torch.nn.Module) -> None:
+    def save(self, state: TrainState, model: torch.nn.Module, step: int | None = None) -> None:
         """Write `latest.pth` and `<step>.pth` (reference train.py:117-127),
-        each to a temporary name first and then renamed over its target."""
+        each to a temporary name first and then renamed over its target;
+        `step` as in `checkpoint_dict`."""
         if self._readonly:
             raise RuntimeError("CheckpointManager opened readonly; cannot save")
-        contents = checkpoint_dict(state, model)
-        for name in (LATEST, f"{int(state.step)}.pth"):
+        contents = checkpoint_dict(state, model, step)
+        for name in (LATEST, f"{int(contents['step'])}.pth"):
             tmp = self.model_dir / f".tmp.{name}.{uuid.uuid4().hex[:8]}"
             try:
                 torch.save(contents, str(tmp))

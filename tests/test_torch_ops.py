@@ -140,7 +140,8 @@ class TestGeometry:
     def test_center_to_corner_and_standup(self, seed):
         b = _random_boxes(300, seed)
         args = (b[:, :2], b[:, 3:5], b[:, 6])
-        got = tgeom.center_to_corner_box2d(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args))
+        unit = tgeom.unit_corners(0.5, torch.device("cpu"), torch.float32)
+        got = tgeom.center_to_corner_box2d(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args), unit)
         want = jgeom.center_to_corner_box2d(*(jnp.asarray(a) for a in args))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **self.TOL)
         np.testing.assert_allclose(
@@ -154,8 +155,9 @@ class TestGeometry:
         got = tgeom.rotation_2d(torch.from_numpy(pts), torch.from_numpy(ang)).numpy()
         np.testing.assert_allclose(got, np.asarray(jgeom.rotation_2d(pts, ang)), **self.TOL)
         dims = r.uniform(0.5, 5, (50, 2)).astype(np.float32)
+        unit = tgeom.unit_corners(0.5, torch.device("cpu"), torch.float32)
         np.testing.assert_array_equal(
-            tgeom.corners_nd(torch.from_numpy(dims)).numpy(), np.asarray(jgeom.corners_nd(jnp.asarray(dims)))
+            tgeom.corners_nd(torch.from_numpy(dims), unit).numpy(), np.asarray(jgeom.corners_nd(jnp.asarray(dims)))
         )
 
     @pytest.mark.parametrize("seed", [0, 1])
@@ -199,7 +201,7 @@ class TestVoxelize:
         jspec = jvox.VoxelizerSpec(**VOX_SPEC, max_voxels=max_voxels, max_num_points=max_num_points)
         tspec = tvox.VoxelizerSpec(**VOX_SPEC, max_voxels=max_voxels, max_num_points=max_num_points)
         want = jvox.voxelize(jnp.asarray(pts), np.int32(n), jspec)
-        got = tvox.voxelize(torch.from_numpy(pts), n, tspec)
+        got = tvox.voxelize(torch.from_numpy(pts), n, tspec, tvox.grid_tensors(tspec, torch.device("cpu")))
         for name in ("voxels", "coors", "num_points_per_voxel", "voxel_num"):
             g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
             assert g.dtype == w.dtype, name
@@ -216,7 +218,7 @@ class TestVoxelize:
     def test_rejects_too_few_rows(self):
         spec = tvox.VoxelizerSpec(**VOX_SPEC, max_voxels=300, max_num_points=4)
         with pytest.raises(ValueError):
-            tvox.voxelize(torch.zeros((256, 4)), 10, spec)
+            tvox.voxelize(torch.zeros((256, 4)), 10, spec, tvox.grid_tensors(spec, torch.device("cpu")))
 
 
 def _mask_case(seed, n_valid=60):
