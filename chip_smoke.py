@@ -82,6 +82,28 @@ Phases, each printed as it runs; any failure exits non-zero:
      at batch 4 against batch 1 (annos in f32, ms/frame in bf16: box for
      box, but for ties that NMS broke the other way between two
      overlapping candidates); `bench_rpn`.
+ 14. the JAX package's model options at full width (ntusl_20cm, bf16
+     unless stated): (a) its default inference network, pack_w +
+     fuse_in_stats + split_head, 20 frames beside phase 10's unfused packed
+     network (ms/frame, device ms and busy share, peak memory, stage
+     breakdown, launches: the s2d scatter once a frame, NMS once, the dense
+     scatter never), in f32 the kernel path against the plain path and the
+     fused + split predictions against the unfused ones (1e-4), the same
+     with block0_blocked, and its export replayed as a CUDA graph in a
+     fresh process against the live detector; (b) `head: "multi"`, 8
+     frames and 6 train steps at batch 2 (falling finite losses, the train
+     kernels once a step), its checkpoint restored bit-equal, one f32 step
+     with the kernels against one with the plain versions; (c) the
+     device-augmented train step (`Trainer(device_global_augment=True)`):
+     10 steps beside phase 7's, host-card syncs per step equal to phase
+     7's, `train_app.train(device_augment=True)` over phase 12's dataset
+     with two workers (ms/step, the wait for batches) beside phase 12's
+     run, and the host chain's ms per sample with and without the global
+     transforms; (d) configs/ntusl_10cm.json at full width (1600x1600,
+     20k pillars x 10 points, 5.76M anchors): 8 frames of the dense
+     network, its kernels against their plain versions and bounds at the
+     10 cm shapes, 3 train steps at batch 2; and ntusl_20cm at batch 4, 5
+     steps. Every number beside the card's name and power limit.
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
@@ -164,6 +186,16 @@ REPLAY_FRAMES = 16   # serve_replay of phase 12's 8 eval .bin frames, looped, at
 REPLAY_HZ = 20.0
 INFER_BATCH = 4
 RPN_ITERS = 20
+OPTION_FRAMES = 20   # phase 14(a): frames of the JAX default inference network
+BLOCKED_FRAMES = 8   # ... and of its block0_blocked variant
+MULTI_FRAMES = 8     # phase 14(b): head "multi", inference frames and train steps
+MULTI_STEPS = 6
+AUG_STEPS = 10       # phase 14(c): device-augmented train steps
+R1_FRAMES = 8        # phase 14(d): ntusl_10cm inference frames, train steps at batch 2
+R1_STEPS = 3
+BATCH4 = 4           # ... and ntusl_20cm train steps at batch 4
+BATCH4_STEPS = 5
+FUSED_VS_UNFUSED_TOL = 1e-4  # tests/test_torch_model.py's rtol/atol for the network's outputs
 # every hand-written kernel by the name the profiler gives it, under its row
 # of the kernels line. A scatter's or a gather's canvas layout is its
 # template argument (csrc/scatter.cu: 0 dense, 1 and 2 the s2d orders), so
@@ -191,8 +223,18 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def phase(name: str) -> None:
-    print(f"\n=== {name} ===", flush=True)
+_PHASE = {"name": None, "t0": 0.0, "card": "card not read yet"}  # the phase that runs, for its wall seconds
+
+
+def phase(name: str | None) -> None:
+    """End the running phase with its wall seconds and start `name` (None:
+    no other)."""
+    if _PHASE["name"] is not None:
+        print(f"[{_PHASE['card']}] phase {_PHASE['name'].split('.')[0]} took {time.time() - _PHASE['t0']:.1f} s",
+              flush=True)
+    _PHASE.update(name=name, t0=time.time())
+    if name is not None:
+        print(f"\n=== {name} ===", flush=True)
 
 
 def card_line() -> str:
@@ -392,6 +434,8 @@ def assert_detections_close(a, b, what: str) -> None:
 def stage_breakdown(det, frames) -> dict[str, float]:
     """Median ms of each stage of `Detector.detect` over `frames`, host clock
     with a synchronize after every stage (so the stages do not overlap)."""
+    from det3d_tpu_torch.postprocess import frame_preds
+
     model, post = det.model, det.postprocess
     spans: dict[str, list[float]] = {}
     for pts_np in frames:
@@ -411,11 +455,11 @@ def stage_breakdown(det, frames) -> dict[str, float]:
         layout = model.layout(1, False)
         canvas = model.canvas(feats, frame.coors[None], layout)
         mark("BEV scatter (kernel)")
-        x = model.rpn(canvas, *layout)
+        x = model.rpn(canvas, *layout, *model.neck(False))
         mark("RPN")
         preds = model.heads(x)
         mark("head")
-        cands = post.decode_stage({k: v[0] for k, v in preds.items()}, anchors_mask)
+        cands = post.decode_stage(frame_preds(preds, 0), anchors_mask)
         mark("decode (gate, top-k, decode)")
         post.finalize_stage(cands)
         mark("finalize (NMS kernel, compaction)")
@@ -444,12 +488,12 @@ def device_time(det, frames) -> tuple[float, list[tuple[str, float]]] | None:
     return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
 
 
-def train_scenes(cfg, seed: int):
-    """Two seeded ~100k-point scenes with 20-40 gt boxes each."""
+def train_scenes(cfg, seed: int, n: int = TRAIN_BATCH):
+    """`n` seeded ~100k-point scenes with 20-40 gt boxes each."""
     from det3d_tpu_torch.data.synthetic import sample_scene
 
     rng = np.random.RandomState(seed)
-    return [sample_scene(cfg, rng, (20, 40), ground_points=TRAIN_POINTS) for _ in range(TRAIN_BATCH)]
+    return [sample_scene(cfg, rng, (20, 40), ground_points=TRAIN_POINTS) for _ in range(n)]
 
 
 MATCHER_CASES = ("real frames", "no valid gt", "every anchor masked", "a class's anchors masked",
@@ -840,11 +884,12 @@ def run_frames(det, frames, counters) -> dict:
                 detections=detections)
 
 
-def run_steps(trainer, state, batch, steps: int, counters) -> dict:
+def run_steps(trainer, state, batch, steps: int, counters, warmup: int = TRAIN_WARMUP, falling: bool = True) -> dict:
     """`Trainer.train_step` over `steps` steps of one batch after warm-up
     steps, counters set to 0 just before and read just after: ms/step, peak
-    memory, launches, the loss by step."""
-    for _ in range(TRAIN_WARMUP):
+    memory, launches, the loss by step (finite; with `falling`, lower at the
+    last step than at the first)."""
+    for _ in range(warmup):
         trainer.train_step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -859,7 +904,7 @@ def run_steps(trainer, state, batch, steps: int, counters) -> dict:
         history.append({k: float(v) for k, v in loss.items()})
     for h in history:
         check(all(np.isfinite(v) for v in h.values()), f"non-finite loss term in {h}")
-    check(history[-1]["loss"] < history[0]["loss"], "the loss did not fall on the repeated batch")
+    check(not falling or history[-1]["loss"] < history[0]["loss"], "the loss did not fall on the repeated batch")
     return dict(ms=statistics.median(times), min=min(times), max=max(times), n=steps,
                 peak=torch.cuda.max_memory_allocated(), launches={k: c.launches for k, c in counters.items()},
                 history=history, metrics=metrics)
@@ -1064,10 +1109,12 @@ def compare_train_steps(cfg32, batch) -> None:
 
 
 
-def run_apps(cfg, counters, bare_step_ms: float, root: Path) -> dict:
+def run_apps(cfg, counters, bare_step_ms: float, root: Path) -> tuple[dict, dict]:
     """Phase 12: the train and infer applications on a dataset written to
-    `root` (a temporary directory; phase 13 replays its eval frames), with
-    every counter set to 0 just before each app and read just after."""
+    `root` (a temporary directory; phases 13 and 14 read it), with every
+    counter set to 0 just before each app and read just after → (launches
+    over both apps, the train app's waits for batches, ms/step by window
+    and the host's ms per sample)."""
     from det3d_tpu_torch.apps import infer_app, train_app
     from det3d_tpu_torch.data.dataset import DetectionDataset
     from det3d_tpu_torch.data.synthetic import write_split
@@ -1111,7 +1158,7 @@ def run_apps(cfg, counters, bare_step_ms: float, root: Path) -> dict:
         ap._frame_overlaps = frame_overlaps
         check(not multiprocessing.active_children(), "the prefetcher's workers outlived the train loop")
         check(summary["steps"] == APP_STEPS, f"train_app ran {summary['steps']} steps")
-        waits = summary["batch_wait_s"]
+        waits, summary_ms = summary["batch_wait_s"], summary["ms_per_step"]
         print(f"train_app: {APP_STEPS} steps in {train_s:.2f} s; ms/step by display window of 2 steps "
               f"{[round(v, 3) for v in summary['ms_per_step']]} (the first window holds the workers' start and the "
               f"first batches; the last follows the eval) against phase 7's bare train_step {bare_step_ms:.3f}")
@@ -1162,7 +1209,8 @@ def run_apps(cfg, counters, bare_step_ms: float, root: Path) -> dict:
         for a in out["dt_annos"]:
             for key in ("location", "dimensions", "rotation_y", "score"):
                 check(bool(np.isfinite(a[key]).all()), f"non-finite {key} in infer's annos")
-        return {k: train_launches[k] + infer_launches[k] for k in counters}
+        launches = {k: train_launches[k] + infer_launches[k] for k in counters}
+        return launches, dict(waits=waits, ms_per_step=summary_ms, sample_ms=sample_ms)
     finally:
         ap._frame_overlaps = frame_overlaps
 
@@ -1304,10 +1352,15 @@ def deploy_child(artifact: str, frames_path: str, out_path: str) -> int:
     from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
 
     card = card_line()
-    counters = {"scatter": scatter_cuda.counter, "nms": nms_cuda.counter}
     t0 = time.perf_counter()
     runner = ExportedDetector(artifact)
     load_s = time.perf_counter() - t0
+    # the artifact's scatter: the s2d one for a packed config (phase 14), else the dense one
+    packed = runner.cfg.pack_w
+    check(not runner.cfg.block0_blocked, "the fresh process replays the dense or the packed network")
+    scatter_row = "scatter_to_bev_s2d" if packed else "scatter_to_bev"
+    counters = {"scatter": scatter_cuda.s2d_counter if packed else scatter_cuda.counter, "nms": nms_cuda.counter}
+    infer_calls = {k: int(k in (scatter_row, "nms_keep")) for k in PROFILER_KERNELS}
     captured = {k: c.launches for k, c in counters.items()}  # two warm-up calls and the capture
     loaded = sorted(m for m in sys.modules if m.startswith(("det3d_tpu_torch.models", "det3d_tpu_torch.pipeline")))
     check(not loaded, f"the runtime imported {loaded}")
@@ -1337,7 +1390,7 @@ def deploy_child(artifact: str, frames_path: str, out_path: str) -> int:
         print(f"[{card}] exported, {name}: ms/frame median {ms:.3f} (min {min(times):.3f}, max {max(times):.3f}); "
               f"device {busy}; calls per frame of each kernel (profiler) {per_frame}, by the names {names}; "
               f"wrapper launches {launches}; host-card syncs per detect {len(syncs)} ({', '.join(syncs)})")
-        check(per_frame is None or per_frame == INFER_CALLS, f"{name}: kernel calls per frame {per_frame}")
+        check(per_frame is None or per_frame == infer_calls, f"{name}: kernel calls per frame {per_frame}")
         result[name] = dict(ms=ms, times=times, device_ms=device, per_frame=per_frame, launches=launches,
                             syncs=len(syncs))
     check(result["graph"]["launches"] == {"scatter": 0, "nms": 0}, "a replay ran an op's Python")
@@ -1357,27 +1410,41 @@ def deploy_child(artifact: str, frames_path: str, out_path: str) -> int:
     return 0
 
 
-def run_deploy(cfg, det, root: Path, card: str) -> dict:
-    """Phase 13: export, the graph in a fresh process against the live
-    detector, serve live and exported, replay, infer at batch 4, bench-rpn."""
-    from det3d_tpu_torch.apps import infer_app, serve_app
+def export_and_replay(cfg, det, root: Path, card: str, name: str) -> tuple[dict, list]:
+    """Export `cfg`'s detector with `init_weights(0)` into `root / name`,
+    save the live `det`'s outputs of DEPLOY_FRAMES clouds, and hold the
+    artifact's CUDA graph against them in a fresh process (`deploy_child`)
+    → (its result with the export's seconds and bytes, the clouds)."""
     from det3d_tpu_torch.data.synthetic import synthetic_cloud
     from det3d_tpu_torch.deploy.export import export_detector
-    from det3d_tpu_torch.deploy.rpn_bench import bench_rpn
-    from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
 
-    counters = {"scatter": scatter_cuda.counter, "nms": nms_cuda.counter}
     t0 = time.perf_counter()
-    art = export_detector(cfg, out_dir=root / "artifact")
+    art = export_detector(cfg, out_dir=root / name)
     export_s = time.perf_counter() - t0
     art_bytes = {p.name: p.stat().st_size for p in art.iterdir()}
-    print(f"[{card}] export of init_weights(0): {export_s:.2f} s, {art_bytes} bytes")
+    print(f"[{card}] export of init_weights(0) ({name}): {export_s:.2f} s, {art_bytes} bytes")
 
     clouds = [synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + 100 + i)[:N_POINTS] for i in range(DEPLOY_FRAMES)]
     pads = [det.pad_points(c) for c in clouds]
     outs = [[t.cpu().numpy() for t in det.infer(torch.from_numpy(p).cuda(), int(n))] for p, n in pads]
-    np.savez(root / "live.npz", points=np.stack([p for p, _ in pads]), counts=np.array([n for _, n in pads]),
+    np.savez(root / f"{name}.npz", points=np.stack([p for p, _ in pads]), counts=np.array([n for _, n in pads]),
              **{k: np.stack([o[i] for o in outs]) for i, k in enumerate(("boxes", "scores", "valid"))})
+    out = root / f"{name}.json"
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--deploy-child", str(art),
+                            str(root / f"{name}.npz"), str(out)], timeout=600)
+    check(child.returncode == 0, f"the fresh process failed (exit {child.returncode})")
+    return dict(json.loads(out.read_text()), export_s=export_s, art_bytes=art_bytes), clouds
+
+
+def run_deploy(cfg, det, root: Path, card: str) -> dict:
+    """Phase 13: export, the graph in a fresh process against the live
+    detector, serve live and exported, replay, infer at batch 4, bench-rpn."""
+    from det3d_tpu_torch.apps import infer_app, serve_app
+    from det3d_tpu_torch.deploy.rpn_bench import bench_rpn
+    from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
+
+    counters = {"scatter": scatter_cuda.counter, "nms": nms_cuda.counter}
+    result, clouds = export_and_replay(cfg, det, root, card, "artifact")
     for c in counters.values():
         c.launches = 0
     live_times = host_ms_per_frame(det.detect, clouds)
@@ -1391,12 +1458,6 @@ def run_deploy(cfg, det, root: Path, card: str) -> dict:
           f"host-card syncs per detect {len(live_syncs)} ({', '.join(live_syncs)})")
     check(live_launches == {"scatter": DEPLOY_FRAMES + 1, "nms": DEPLOY_FRAMES + 1}, f"live launches {live_launches}")
     check(live_per_frame is None or live_per_frame == INFER_CALLS, f"live kernel calls per frame {live_per_frame}")
-
-    out = root / "child.json"
-    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--deploy-child", str(art),
-                            str(root / "live.npz"), str(out)], timeout=600)
-    check(child.returncode == 0, f"the fresh process failed (exit {child.returncode})")
-    result = json.loads(out.read_text())
 
     for c in counters.values():
         c.launches = 0
@@ -1438,8 +1499,254 @@ def run_deploy(cfg, det, root: Path, card: str) -> dict:
 
     rpn = bench_rpn(cfg, iters=RPN_ITERS)
     print(f"[{card}] bench_rpn (device ms per call, torch.profiler over {RPN_ITERS} calls): {rpn}")
-    return dict(result, export_s=export_s, art_bytes=art_bytes, live_ms=live_ms, live_device_ms=live_device,
+    return dict(result, live_ms=live_ms, live_device_ms=live_device,
                 live_syncs=len(live_syncs), rpn=rpn, infer={f"{d} batch {b}": r["avg_ms"] for (d, b), r in runs.items()})
+
+
+def merge_parity(x) -> torch.Tensor:
+    """A split head's column-parity pair → one map (column 2·y2 + p); a
+    map stays as it is."""
+    if not isinstance(x, tuple):
+        return x
+    return torch.stack(x, dim=-1).flatten(-2)
+
+
+def print_run(card: str, name: str, run: dict, what: str = "frame") -> None:
+    print(f"[{card}] {name}: ms/{what} median {run['ms']:.3f} (min {run['min']:.3f}, max {run['max']:.3f}) over "
+          f"{run['n']} {what}s; peak memory allocated {run['peak']} bytes; launches {run['launches']}")
+
+
+def expected_launches(counters, **n) -> dict:
+    want = {k: 0 for k in counters}
+    want.update(n)
+    return want
+
+
+def train_path_launches(counters, n: int, scatter: str = "scatter") -> dict:
+    """Launches of `n` train steps: the matcher's two passes, the scatter of
+    the layout and its backward, the fence, once a step each."""
+    return expected_launches(counters, matcher_gt_max=n, matcher_assign=n, fence=n,
+                             **{f"{scatter}_fwd": n, f"{scatter}_bwd": n})
+
+
+def run_options(cfg, cfg32, frames, batch, card: str, base: dict, root: Path) -> dict:
+    """Phase 14: the JAX package's model options at full width; `base`
+    holds the numbers of phases 7, 10 and 12 to print beside them →
+    {path: launches} of every path it drove."""
+    from det3d_tpu_torch.apps import train_app
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.data.dataset import DetectionDataset
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.kernels import nms_cuda
+    from det3d_tpu_torch.models.pointpillars import Layout, MultiHead, Neck
+    from det3d_tpu_torch.pipeline import Detector
+    from det3d_tpu_torch.train.checkpoint import CheckpointManager
+    from det3d_tpu_torch.train.trainer import Trainer, host_batch
+
+    counters = train_counters(layouts=True)
+    launches = {}
+
+    # (a) the JAX package's default inference network
+    t0 = time.time()
+    unfused = base["packed"]
+    for name, flags, layout, n in (
+        ("packed fused split", dict(pack_w=True), Layout(True, False, False), OPTION_FRAMES),
+        ("packed fused split + blocked", dict(pack_w=True, block0_blocked=True), Layout(True, True, False),
+         BLOCKED_FRAMES),
+    ):
+        det = Detector(cfg.replace(**flags)).init_weights(SEED)
+        check(det.model.layout(1, False) == layout and det.model.neck(False) == Neck(True, True),
+              f"{name}: layout {det.model.layout(1, False)}, neck {det.model.neck(False)}")
+        run = run_frames(det, frames[:n + 1], counters)
+        launches[name] = run["launches"]
+        print_run(card, name, run)
+        scatter = "blocked_fwd" if layout.block0_blocked else "s2d_fwd"
+        want = expected_launches(counters, nms=n, **{scatter: n})
+        check(run["launches"] == want, f"{name}: launches {run['launches']}, expected {want}")
+        traced = device_time(det, frames[1:6])
+        device = "not measured" if traced is None else f"{traced[0]:.3f} ms ({100 * traced[0] / run['ms']:.1f} % busy)"
+        print(f"[{card}] {name}: device time per frame (torch.profiler, 5 frames) {device}")
+        if not layout.block0_blocked:
+            print(f"[{card}] beside it, phase 10's unfused packed network in this run: ms/frame median "
+                  f"{unfused['ms']:.3f} (min {unfused['min']:.3f}, max {unfused['max']:.3f}), peak {unfused['peak']} "
+                  f"bytes, device {unfused.get('device', 'not measured')}")
+            print(f"[{card}] {name}: stage breakdown, median ms (synchronized after each stage):")
+            for stage, ms in stage_breakdown(det, frames[1:]).items():
+                print(f"  {stage:36s} {ms:.3f}")
+        del det
+
+    pts = torch.from_numpy(frames[2]).cuda()
+    unfused32 = Detector(cfg32.replace(pack_w=True, fuse_in_stats=False, split_head=False)).init_weights(SEED)
+    with torch.no_grad():
+        frame, _ = unfused32.preprocess(pts, N_POINTS)
+        args = (frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
+        want_preds = unfused32.model(*args)
+    del unfused32
+    for name, flags in (("packed fused split", dict(pack_w=True)),
+                        ("packed fused split + blocked", dict(pack_w=True, block0_blocked=True))):
+        det = Detector(cfg32.replace(**flags)).init_weights(SEED)
+        with torch.no_grad():
+            preds = det.model(*args)
+        check(isinstance(preds["cls_preds"], tuple), f"{name}: the head returned no parity pair")
+        worst = 0.0
+        for key, want in want_preds.items():
+            got = merge_parity(preds[key])
+            torch.testing.assert_close(got, want, rtol=FUSED_VS_UNFUSED_TOL, atol=FUSED_VS_UNFUSED_TOL)
+            worst = max(worst, (got - want).abs().max().item())
+        print(f"[{card}] f32 {name} vs the unfused packed network (phase 10): preds within rtol/atol "
+              f"{FUSED_VS_UNFUSED_TOL}, max abs diff {worst:.3e}")
+        with_kernels = det.infer(pts, N_POINTS)
+        use_plain_scatters(det.model)
+        det.postprocess.nms_keep = nms_cuda.nms_keep_plain
+        assert_detections_close(with_kernels, det.infer(pts, N_POINTS), f"ntusl_20cm f32 {name}, kernels vs plain")
+        del det
+
+    det = Detector(cfg.replace(pack_w=True)).init_weights(SEED)
+    replay, _ = export_and_replay(cfg.replace(pack_w=True), det, root, card, "artifact_packed")
+    graph = replay["graph"]
+    print(f"[{card}] exported packed fused split network: bit-equal to the live detector {replay['bit_equal']}; "
+          f"graph {graph['ms']:.3f} ms/frame (device {graph['device_ms']}), op by op {replay['eager']['ms']:.3f}; "
+          f"export {replay['export_s']:.2f} s, {replay['art_bytes']} bytes; calls per frame in the graph "
+          f"{graph['per_frame']}")
+    del det
+    print(f"[{card}] 14(a) took {time.time() - t0:.1f} s")
+
+    # (b) head "multi"
+    t0 = time.time()
+    cfg_m = cfg.replace(head="multi")
+    det = Detector(cfg_m).init_weights(SEED)
+    check(isinstance(det.model.heads, MultiHead) and det.model.neck(False) == Neck(False, False), "multi head")
+    run = run_frames(det, frames[:MULTI_FRAMES + 1], counters)
+    launches["multi head, inference"] = run["launches"]
+    print_run(card, "multi head, inference", run)
+    check(run["launches"] == expected_launches(counters, scatter_fwd=MULTI_FRAMES, nms=MULTI_FRAMES),
+          f"multi head inference launches {run['launches']}")
+    del det
+    trainer = Trainer(cfg_m)
+    state = trainer.init_state(SEED)
+    run = run_steps(trainer, state, batch, MULTI_STEPS, counters)
+    launches["multi head, train"] = run["launches"]
+    print_run(card, "multi head, train step (batch 2)", run, "step")
+    print(f"[{card}] multi head: loss by step " + " ".join(f"{h['loss']:.4f}" for h in run["history"]))
+    check(run["launches"] == train_path_launches(counters, MULTI_STEPS), f"multi head train launches {run['launches']}")
+    CheckpointManager(root / "model_multi").save(state, trainer.model)
+    fresh = Trainer(cfg_m)
+    restored = CheckpointManager(root / "model_multi").restore_latest(fresh)
+    live_sd, fresh_sd = trainer.model.state_dict(), fresh.model.state_dict()
+    check(all(torch.equal(live_sd[k], fresh_sd[k]) for k in live_sd)
+          and all(torch.equal(a, b) for a, b in zip(state.mu + state.nu, restored.mu + restored.nu)),
+          "the multi head's latest.pth restores bit-equal")
+    print(f"[{card}] multi head: latest.pth restored into a fresh Trainer bit-equal (step {restored.step})")
+    del trainer, fresh, state, restored
+    compare_train_steps(cfg32.replace(head="multi"), batch)
+    print(f"[{card}] 14(b) took {time.time() - t0:.1f} s")
+
+    # (c) the device-augmented train step
+    t0 = time.time()
+    trainer = Trainer(cfg, device_global_augment=True, aug_seed=SEED)
+    state = trainer.init_state(SEED)
+    run = run_steps(trainer, state, batch, AUG_STEPS, counters, falling=False)
+    launches["device-augmented train"] = run["launches"]
+    print_run(card, "device-augmented train step (batch 2)", run, "step")
+    print(f"[{card}] device-augmented: loss by step " + " ".join(f"{h['loss']:.4f}" for h in run["history"]))
+    print(f"[{card}] beside it, phase 7's bare step in this run: ms/step median {base['step_ms']:.3f}")
+    check(run["launches"] == train_path_launches(counters, AUG_STEPS), f"augmented train launches {run['launches']}")
+    syncs = count_syncs(lambda: trainer.train_step(state, batch))
+    print(f"[{card}] device-augmented: host-card synchronisations in one train_step {len(syncs)} "
+          f"({', '.join(syncs)}); phase 7: {base['step_syncs']}")
+    check(len(syncs) == base["step_syncs"], "the device augmentation added host-card syncs to the step")
+    dev_batch = trainer.to_device(batch)
+    augment = lambda: trainer.device_augment(dev_batch.points, dev_batch.gt_boxes, dev_batch.gt_valid,  # noqa: E731
+                                             trainer.augment_params(0, TRAIN_BATCH))
+    print(f"[{card}] device augmentation alone (draws, transforms, range filter, wrap) of the batch of "
+          f"{TRAIN_BATCH}: host ms per call {host_ms(augment, iters=10):.3f}, device ms per call "
+          f"{cuda_ms(augment, iters=10):.4f}")
+    print(f"[{card}] device-augmented: stage breakdown, median ms over 5 steps (synchronized after each stage):")
+    for stage, ms in train_stage_breakdown(trainer, state, batch, 5).items():
+        print(f"  {stage:36s} {ms:.3f}")
+    del trainer, state, dev_batch
+
+    app_cfg = app_config(cfg, root)
+    for flag in (False, True):
+        ds = DetectionDataset(app_cfg, app_cfg.train_info, training=True, seed=SEED, device_global_augment=flag)
+        sample_ms = []
+        for i in range(6):
+            t1 = time.perf_counter()
+            ds[i]
+            sample_ms.append((time.perf_counter() - t1) * 1e3)
+        print(f"[{card}] host chain in this process, one sample, {'without' if flag else 'with'} the global "
+              f"transforms: {[round(v, 1) for v in sample_ms]} ms (median {statistics.median(sample_ms):.1f})")
+    for c in counters.values():
+        c.launches = 0
+    summary = train_app.train(app_cfg, max_steps=APP_STEPS, display_step=2, save_step=3, eval_step=10 ** 9,
+                              model_dir=str(root / "model_augmented"), device_augment=True)
+    launches["train_app --device-augment"] = {k: c.launches for k, c in counters.items()}
+    check(not multiprocessing.active_children(), "the prefetcher's workers outlived the train loop")
+    check(launches["train_app --device-augment"] == train_path_launches(counters, APP_STEPS),
+          f"train_app --device-augment launches {launches['train_app --device-augment']}")
+    waits, app = summary["batch_wait_s"], base["app"]
+    print(f"[{card}] train_app --device-augment ({APP_WORKERS} workers, {APP_STEPS} steps, saves at 3 and 6, no "
+          f"eval): ms/step by window of 2 {[round(v, 3) for v in summary['ms_per_step']]}; waited for batches "
+          f"{[round(w * 1e3, 3) for w in waits]} ms (after the first: mean {1e3 * statistics.mean(waits[1:]):.3f})")
+    print(f"[{card}] beside it, phase 12's train_app without it: ms/step by window {[round(v, 3) for v in app['ms_per_step']]}; "
+          f"waited {[round(w * 1e3, 3) for w in app['waits']]} ms (after the first: mean "
+          f"{1e3 * statistics.mean(app['waits'][1:]):.3f})")
+    del summary
+    print(f"[{card}] 14(c) took {time.time() - t0:.1f} s")
+
+    # (d) the 10 cm configuration and batch 4
+    t0 = time.time()
+    cfg10 = load_config("configs/ntusl_10cm.json", max_points=120_000)
+    grid10 = (cfg10.grid_size[0], cfg10.grid_size[1])
+    det = Detector(cfg10).init_weights(SEED)
+    check(grid10 == (1600, 1600) and (cfg10.max_voxels, cfg10.max_num_points) == (20_000, 10)
+          and det.anchor_set.num_anchors == 5_760_000 and cfg10.compute_dtype == "bfloat16"
+          and det.model.layout(1, False) == Layout(False, False, False), "ntusl_10cm: the dense network at full width")
+    print(f"[{card}] ntusl_10cm: grid {cfg10.grid_size}, {cfg10.max_voxels} pillars x {cfg10.max_num_points} points, "
+          f"{det.anchor_set.num_anchors} anchors, bf16, dense (its block0_blocked key is inert)")
+    frames10 = [synthetic_cloud(cfg10.max_points, N_POINTS, seed=SEED + 200 + i) for i in range(R1_FRAMES + 1)]
+    run = run_frames(det, frames10, counters)
+    launches["10 cm inference"] = run["launches"]
+    print_run(card, "ntusl_10cm inference", run)
+    check(run["launches"] == expected_launches(counters, scatter_fwd=R1_FRAMES, nms=R1_FRAMES),
+          f"10 cm inference launches {run['launches']}")
+    traced = device_time(det, frames10[1:4])
+    print(f"[{card}] ntusl_10cm: device time per frame (torch.profiler, 3 frames) "
+          + ("not measured" if traced is None else f"{traced[0]:.3f} ms ({100 * traced[0] / run['ms']:.1f} % busy)"))
+    print(f"[{card}] ntusl_10cm kernels vs their plain versions and bounds at the 10 cm shapes:")
+    kernels10 = {"scatter": check_scatter(grid10, cfg10.max_voxels, 64)}
+    candidates = det.infer_candidates(torch.from_numpy(frames10[0]).cuda(), N_POINTS)
+    kernels10["nms"] = check_nms(candidates, det.postprocess.params.nms_iou_threshold)
+    del det, candidates
+    trainer = Trainer(cfg10)
+    state = trainer.init_state(SEED)
+    batch10 = host_batch(cfg10, train_scenes(cfg10, SEED))
+    dev_batch = trainer.to_device(batch10)
+    kernels10["matcher"] = check_matcher(trainer, dev_batch)
+    kernels10["scatter_bwd"] = check_scatter_bwd(grid10, cfg10.max_voxels, 64)
+    with torch.no_grad():
+        vox, _ = trainer.prepare(dev_batch)
+        preds = trainer.model(vox.voxels, vox.num_points_per_voxel, vox.coors)
+    kernels10["fence"] = check_fence(preds)
+    del vox, preds, dev_batch
+    run = run_steps(trainer, state, batch10, R1_STEPS, counters, warmup=1)
+    launches["10 cm train"] = run["launches"]
+    print_run(card, "ntusl_10cm train step (batch 2)", run, "step")
+    print(f"[{card}] ntusl_10cm: loss by step " + " ".join(f"{h['loss']:.4f}" for h in run["history"]))
+    check(run["launches"] == train_path_launches(counters, R1_STEPS), f"10 cm train launches {run['launches']}")
+    del trainer, state
+
+    trainer = Trainer(cfg.replace(batch_size=BATCH4))
+    state = trainer.init_state(SEED)
+    batch4 = host_batch(cfg, train_scenes(cfg, SEED + 20, BATCH4))
+    run = run_steps(trainer, state, batch4, BATCH4_STEPS, counters, warmup=1)
+    launches["20 cm train, batch 4"] = run["launches"]
+    print_run(card, f"ntusl_20cm train step (batch {BATCH4})", run, "step")
+    print(f"[{card}] batch {BATCH4}: loss by step " + " ".join(f"{h['loss']:.4f}" for h in run["history"]))
+    check(run["launches"] == train_path_launches(counters, BATCH4_STEPS), f"batch 4 launches {run['launches']}")
+    del trainer, state
+    print(f"[{card}] 14(d) took {time.time() - t0:.1f} s")
+    return dict(launches=launches, kernels10=kernels10)
 
 
 def small_config():
@@ -1470,7 +1777,7 @@ def main() -> int:
 
     t_start = time.time()
     phase("1. environment")
-    card = card_line()
+    card = _PHASE["card"] = card_line()
     print("nvidia-smi:", card)
     print("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
     torch.backends.cudnn.allow_tf32 = False
@@ -1580,6 +1887,7 @@ def main() -> int:
     expected["nms"] = 0
     check(train_launches == expected, f"train-path launches {train_launches}, expected {expected}")
     syncs = count_syncs(lambda: trainer.train_step(state, batch))
+    step_syncs = len(syncs)
     print(f"host-card synchronisations in one train_step: {len(syncs)} "
           f"({', '.join(f'{k} x{v}' for k, v in sorted(collections.Counter(syncs).items()))})")
     print("stage breakdown, median ms over 5 steps (synchronized after each stage):")
@@ -1608,8 +1916,9 @@ def main() -> int:
     phase("10. packed inference at full width (ntusl_20cm + pack_w, bf16)")
     counters = train_counters(layouts=True)
     frame_runs = {}
-    for name, flags, layout in (("packed", dict(pack_w=True), Layout(True, False, False)),
-                                ("packed + blocked", dict(pack_w=True, block0_blocked=True),
+    unfused = dict(fuse_in_stats=False, split_head=False)  # the fused, split network is phase 14's
+    for name, flags, layout in (("packed", dict(pack_w=True, **unfused), Layout(True, False, False)),
+                                ("packed + blocked", dict(pack_w=True, block0_blocked=True, **unfused),
                                  Layout(True, True, False))):
         det_l = Detector(cfg.replace(**flags)).init_weights(SEED)
         check(det_l.model.layout(1, False) == layout, f"{name}: layout {det_l.model.layout(1, False)}")
@@ -1628,6 +1937,7 @@ def main() -> int:
         if traced is not None:
             print(f"{name}: device time per frame (torch.profiler, 5 frames): {traced[0]:.3f} ms = "
                   f"{100 * traced[0] / run['ms']:.1f}% of the median frame")
+            run["device"] = f"{traced[0]:.3f} ms ({100 * traced[0] / run['ms']:.1f} % busy)"
         del det_l
     pts = torch.from_numpy(frames[2]).cuda()
     dense32 = Detector(cfg32).init_weights(SEED)
@@ -1636,7 +1946,8 @@ def main() -> int:
         args = (frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
         dense_cls = dense32.model(*args)["cls_preds"]
     del dense32
-    for name, flags in (("packed", dict(pack_w=True)), ("packed + blocked", dict(pack_w=True, block0_blocked=True))):
+    for name, flags in (("packed", dict(pack_w=True, **unfused)),
+                        ("packed + blocked", dict(pack_w=True, block0_blocked=True, **unfused))):
         det_l = Detector(cfg32.replace(**flags)).init_weights(SEED)
         with torch.no_grad():
             cls = det_l.model(*args)["cls_preds"]
@@ -1691,14 +2002,15 @@ def main() -> int:
     apps_root = Path(tempfile.mkdtemp(prefix="det3d-apps-"))
     try:
         phase("12. apps at full width (train_app, checkpoint, infer_app; ntusl_20cm, bf16)")
-        t_apps = time.time()
-        app_launches = run_apps(cfg, train_counters(layouts=True), step_ms, apps_root)
-        print(f"phase 12 took {time.time() - t_apps:.1f} s")
+        app_launches, app_stats = run_apps(cfg, train_counters(layouts=True), step_ms, apps_root)
 
         phase("13. deploy and serve at full width (ntusl_20cm, bf16)")
-        t_deploy = time.time()
         deploy = run_deploy(cfg, det, apps_root, card)
-        print(f"[{card}] phase 13 took {time.time() - t_deploy:.1f} s")
+
+        phase("14. model options at full width (ntusl_20cm unless stated, bf16 unless stated)")
+        del det
+        options = run_options(cfg, cfg32, frames, batch, card, dict(
+            packed=frame_runs["packed"], step_ms=step_ms, step_syncs=step_syncs, app=app_stats), apps_root)
     finally:
         shutil.rmtree(apps_root, ignore_errors=True)
 
@@ -1767,9 +2079,11 @@ def main() -> int:
                 "scatter_to_bev_s2d_blocked": "blocked_fwd", "scatter_to_bev_s2d_blocked_bwd": "blocked_bwd"}
     graph = deploy["graph"]["per_frame"]  # None where the profiler saw no kernel inside the graph
     print(f"[{card}] calls per frame of each kernel inside the graph (profiler): {graph}")
-    for k in kernels:  # launches over phase 12 (both apps); calls per frame inside phase 13's graph
+    for k in kernels:  # launches over phase 12 (both apps); calls per frame inside phase 13's graph; phase 14's paths
         k["app_launches"] = app_launches[app_keys[k["name"]]]
         k["graph_launches_per_frame"] = None if graph is None else graph[k["name"]]
+        k["option_launches"] = {path: n[app_keys[k["name"]]] for path, n in options["launches"].items()}
+    phase(None)
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from det3d_tpu_torch.config import Config
-from det3d_tpu_torch.postprocess import Detections, PostProcessParams, to_annos
+from det3d_tpu_torch.postprocess import Detections, PostProcessParams, frame_preds, to_annos
 from det3d_tpu_torch.utils.timing import StageTimers, block_until_ready, time_fn
 
 
@@ -185,7 +185,7 @@ def _stage_breakdown(det, pts: np.ndarray, n, timers: StageTimers) -> None:
     points = torch.from_numpy(pts).to(det.device)
     frame, mask = det.preprocess(points, int(n))
     net_args = (frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
-    preds = {k: v[0] for k, v in det.model(*net_args).items()}
+    preds = frame_preds(det.model(*net_args), 0)  # a split head's column-parity pairs stay pairs
     post = lambda p, m: det.postprocess.finalize_stage(det.postprocess.decode_stage(p, m))  # noqa: E731
     for name, fn, args in (("pre", det.preprocess, (points, int(n))), ("net", det.model, net_args),
                            ("post", post, (preds, mask))):

@@ -12,8 +12,11 @@ Data sources, with the JAX app's seeds, so that a seed gives its batches:
   * real: info pickles through `DetectionDataset` and `BatchPrefetcher`
     (`cfg.num_workers` spawned workers; reference DataLoader workers);
   * `synthetic=True`: scenes from `data/synthetic.sample_scene`.
-Not ported: spatial sharding, on-device augmentation and several devices
-(ROADMAP items 13 and 15).
+`device_augment=True` (`train --device-augment`) moves the global
+transforms of the augmentation into the step, on the device
+(`Trainer(device_global_augment=True)`); the dataset's workers then do only
+the per-object noise. Not ported: spatial sharding and several devices
+(ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from det3d_tpu_torch.train.metrics import RunningMetrics
 from det3d_tpu_torch.train.trainer import Trainer, host_batch
 
 
-def _batch_iterator(cfg: Config, synthetic: bool, seed: int = 0):
+def _batch_iterator(cfg: Config, synthetic: bool, seed: int = 0, device_augment: bool = False):
     """Host TrainBatches forever (the reference's dataloader loop,
     train.py:92-99, restarts at each epoch's end). Closing the generator
     stops the prefetcher's workers."""
@@ -43,7 +46,7 @@ def _batch_iterator(cfg: Config, synthetic: bool, seed: int = 0):
         from det3d_tpu_torch.data.dataset import DetectionDataset
         from det3d_tpu_torch.data.prefetcher import BatchPrefetcher
 
-        ds = DetectionDataset(cfg, cfg.train_info, training=True, seed=seed)
+        ds = DetectionDataset(cfg, cfg.train_info, training=True, seed=seed, device_global_augment=device_augment)
         with BatchPrefetcher(ds, cfg, cfg.num_workers, seed=seed) as pf:
             yield from pf.epochs()
 
@@ -102,11 +105,13 @@ def train(
     synthetic: bool = False,
     model_dir: str | None = None,
     seed: int = 0,
+    device_augment: bool = False,
     device=None,
 ) -> dict:
     """Train on `device` ("cuda" unless the caller names another) from
     seeded weights, or resume from `model_dir`'s `latest.pth` with the
-    config's lr (reference train.py:69-76). Returns what the loop saw:
+    config's lr (reference train.py:69-76); `device_augment`: the global
+    augmentation inside the step, on the device. Returns what the loop saw:
     the steps run, ms/step of each display window, the seconds each step
     waited for its batch, each save's and each eval's wall seconds, the eval
     strings, and the trainer and its state."""
@@ -114,7 +119,7 @@ def train(
     model_dir.mkdir(parents=True, exist_ok=True)
     log_path = model_dir / "log.txt"
 
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(cfg, device, device_global_augment=device_augment, aug_seed=seed)
     ckpt = CheckpointManager(model_dir)
     state = trainer.init_state(seed)
     restored = ckpt.restore_latest(trainer)
@@ -123,7 +128,7 @@ def train(
         print(f"resumed from step {state.step} (lr={cfg.learning_rate})")
 
     metrics = RunningMetrics()
-    batches = _batch_iterator(cfg, synthetic, seed)
+    batches = _batch_iterator(cfg, synthetic, seed, device_augment)
     eval_set = None
     summary = {"steps": 0, "ms_per_step": [], "batch_wait_s": [], "save_s": [], "eval_s": [], "eval_strs": []}
 

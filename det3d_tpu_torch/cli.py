@@ -15,8 +15,13 @@ Counterpart of the JAX package's cli.py for these commands, with its flags
 where they apply, plus `--device` (default `cuda`, an error without a card;
 `--device cpu` runs on the CPU, and there a bf16 config computes in
 float32, with a notice, as the JAX CLI does on its CPU backend; `export`
-keeps the configured dtype, as the JAX CLI does). Not offered yet: view and
-tune (ROADMAP), and `--spatial` (several devices).
+keeps the configured dtype, as the JAX CLI does). `train --device-augment`
+runs the global augmentation on the device, inside the step. A config's
+`head: "multi"`, and `pack_w` with its `fuse_in_stats` and `split_head`,
+run through every command; `import-weights` / `export-weights` refuse a
+multi-head config (the reference `.pth` layout has the shared head only).
+Not offered yet: view and tune (ROADMAP), and `--spatial` (several
+devices).
 """
 
 from __future__ import annotations
@@ -46,6 +51,9 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--lr", type=float, default=None,
                    help="override the config's learning_rate (also on resume, as the reference, train.py:76)")
+    p.add_argument("--device-augment", action="store_true",
+                   help="run the global augmentation transforms (flip/rotate/scale/translate) on the device inside "
+                   "the step; the host data loader keeps only the per-object noise")
 
     p = sub.add_parser("infer", help="offline eval + timing (reference train.py:187)")
     add_common(p)
@@ -132,7 +140,7 @@ def main(argv: list[str] | None = None) -> None:
 
         train(cfg, max_steps=args.steps, display_step=args.display_step, save_step=args.save_step,
               eval_step=args.eval_step, eval_frames=args.eval_frames, synthetic=args.synthetic,
-              model_dir=args.model_dir, seed=args.seed, device=device)
+              model_dir=args.model_dir, seed=args.seed, device_augment=args.device_augment, device=device)
     elif args.cmd == "infer":
         from det3d_tpu_torch.apps.infer_app import infer
 

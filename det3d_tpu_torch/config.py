@@ -33,8 +33,15 @@ builds the dense network, and its `block0_blocked_train` /
 config says `"pack_w": true` or a caller writes `cfg.replace(pack_w=True)`.
 Parameters and `state_dict` keys do not depend on the layout.
 
-`fuse_in_stats` and `split_head` (inference fusions without a kernel) are
-not ported: those JSON keys are ignored like any other unknown key.
+Two more keys act on the packed inference network only, with the JAX
+package's defaults (True) and rules (models/pointpillars.PointPillars.forward):
+  * `fuse_in_stats`: the upsample branches' InstanceNorm statistics from
+    Gram matrices of their coarse inputs, with IN + ReLU applied in the
+    branch's epilogue, each branch emitted per column parity;
+  * `split_head`: with the shared head, the neck returns one 320-channel
+    map per column parity and the head and the decode take the pair.
+Neither acts in training or on the dense network, so the port's default
+network, and every `state_dict`, is the same whatever they say.
 """
 
 from __future__ import annotations
@@ -128,11 +135,13 @@ class Config:
     max_gt_boxes: int = 64           # static per-class gt budget for targets
     compute_dtype: str = "bfloat16"  # conv/matmul compute dtype ("float32" for parity runs)
 
-    # ---- layout levers (see the module docstring; all off by default) ----
+    # ---- layout levers (see the module docstring) ----
     pack_w: bool = False                # w-parity packed network on the s2d canvas
     block0_blocked: bool = False        # inference: blocked-halo block0 (needs pack_w)
     block0_blocked_train: bool = False  # training, batch <= 2: the same
     late_blocked_train: bool = False    # training, batch <= 2: blocks 1-2 row-blocked (needs pack_w)
+    fuse_in_stats: bool = True          # packed inference: Gram-statistic branch IN + ReLU epilogues
+    split_head: bool = True             # packed inference, shared head: per-column-parity neck and preds
 
     # ---- derived (reference: framework/voxel_generator.py:7-15) ----
     detection_range: tuple[float, ...] = ()
@@ -262,6 +271,8 @@ def load_config(path: str | Path | dict, **overrides: Any) -> Config:
         block0_blocked=bool(get("block0_blocked", False)),
         block0_blocked_train=bool(get("block0_blocked_train", False)),
         late_blocked_train=bool(get("late_blocked_train", False)),
+        fuse_in_stats=bool(get("fuse_in_stats", True)),
+        split_head=bool(get("split_head", True)),
     )
     cfg = _with_derived(cfg)
     # The feature map is ALWAYS the voxel grid at half resolution: the RPN's

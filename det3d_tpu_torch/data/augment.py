@@ -6,8 +6,14 @@ noise with collision rejection, global flip / rotation / anisotropic
 scaling / translation, with the same `RandomState` draws in the same
 order, so that a seed gives the same sample. The 100-candidate collision
 search is vectorised over tries and boxes; only the accept/update loop over
-gt boxes stays in Python. The global transforms on the device (ROADMAP item
-15) are not ported.
+gt boxes stays in Python.
+
+The global transforms also run on the device, inside the train step
+(`Trainer(device_global_augment=True)`): `sample_global_augment_params`
+draws them with a `torch.Generator` and `apply_global_augment` applies
+them with the host chain's order and math (the JAX package's on-device
+pair, data/augment.py:300-396). Those two import torch when called, so
+that this module imports none and spawned prefetcher workers stay light.
 """
 
 from __future__ import annotations
@@ -292,21 +298,96 @@ def global_translate(gt_boxes, points, rng, std=(0.25, 0.25, 0.25)):
     return gt_boxes, points
 
 
+# ---------------------------------------------------------------------------
+# global transforms on the device (torch)
+# ---------------------------------------------------------------------------
+
 # Bounds of the global transforms: scales shrink a radius by at most
 # GLOBAL_SCALE_MIN, and a translation on the device is clipped to
-# ±GLOBAL_TRANSLATE_BOUND (8 sigma of the 0.25 std). The dataset's radius
-# pre-filter for on-device global augmentation (ROADMAP item 15) rests on
-# them, as in the JAX package.
+# ±GLOBAL_TRANSLATE_BOUND (8 sigma of the 0.25 std, so the clip changes the
+# distribution by nothing measurable). The dataset's radius pre-filter for
+# on-device global augmentation rests on them: the clip makes it exact.
 GLOBAL_SCALE_MIN = 0.9
 GLOBAL_TRANSLATE_BOUND = 2.0
 
 
-def augment_sample(points, gt_boxes, gt_valid_mask=None, rng=None):
+def sample_global_augment_params(generator, batch: int, device) -> dict:
+    """Global-augmentation parameters for `batch` samples, drawn on `device`
+    with `generator` (a `torch.Generator` of that device), each a tensor
+    with a leading batch axis; nothing is read back to the host. The
+    distributions of the host chain and the reference
+    (framework/augmentation.py:9-89): flip with p = 0.5; pitch ±4°, roll ±2°,
+    yaw ±30°; scale x, y ~ U(0.9, 1.1), z ~ U(0.95, 1.05); translate
+    N(0, 0.25) per axis, clipped to ±GLOBAL_TRANSLATE_BOUND."""
+    import torch
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand((batch, *shape), generator=generator, device=device)
+
+    deg = np.pi / 180.0
+    return {
+        "flip": torch.rand((batch,), generator=generator, device=device) < 0.5,
+        "pitch": uniform(-4 * deg, 4 * deg),
+        "roll": uniform(-2 * deg, 2 * deg),
+        "yaw": uniform(-30 * deg, 30 * deg),
+        "scale": torch.cat([uniform(0.9, 1.1, 2), uniform(0.95, 1.05, 1)], dim=1),
+        "translate": torch.clamp(0.25 * torch.randn((batch, 3), generator=generator, device=device),
+                                 -GLOBAL_TRANSLATE_BOUND, GLOBAL_TRANSLATE_BOUND),
+    }
+
+
+def apply_global_augment(points, gt_boxes, params: dict):
+    """The global transforms on the device (the JAX package's
+    `apply_global_augment`): flip over y → pitch, roll, yaw rotations →
+    anisotropic scale with the dims' re-fit and yaw = atan(tan(yaw)·sy/sx)
+    → translate, the host chain's order and math. One sample: `points`
+    (P, >= 3) (padded rows transform too, harmlessly: the voxelizer reads
+    the true count), `gt_boxes` (G, 7) and `params` of one sample (0-dim
+    tensors, scale and translate (3,)); or a batch of them with a leading
+    batch axis everywhere, as `sample_global_augment_params` draws them,
+    in one set of launches. The points and the box centres go through
+    each step as one point set. → (points, gt_boxes)."""
+    import torch
+
+    from det3d_tpu_torch.ops.geometry import rotation_points_single_angle
+
+    n = points.shape[-2]
+    xyz = torch.cat([points[..., :3], gt_boxes[..., :3]], dim=-2)      # the points, then the centres
+    dims, yaw = gt_boxes[..., 3:6], gt_boxes[..., 6]
+
+    sign = torch.where(params["flip"], -1.0, 1.0).to(points.dtype)[..., None]
+    xyz = xyz * torch.cat([torch.ones_like(sign), sign, torch.ones_like(sign)], dim=-1)[..., None, :]
+    yaw = yaw * sign
+
+    for key, axis in (("pitch", 1), ("roll", 0), ("yaw", 2)):
+        xyz = rotation_points_single_angle(xyz, params[key], axis=axis)
+    yaw = yaw + params["yaw"][..., None]
+
+    scale = params["scale"].to(points.dtype)[..., None, :]
+    xyz = xyz * scale
+    sx, sy, sz = scale[..., 0], scale[..., 1], scale[..., 2]
+    dx = dims[..., 0] * torch.sqrt((sx * torch.cos(yaw)) ** 2 + (sy * torch.sin(yaw)) ** 2)
+    dy = dims[..., 1] * torch.sqrt((sx * torch.sin(yaw)) ** 2 + (sy * torch.cos(yaw)) ** 2)
+    dz = dims[..., 2] * sz
+    yaw = torch.atan(torch.tan(yaw) * (sy / sx))
+
+    xyz = xyz + params["translate"].to(points.dtype)[..., None, :]
+    points = torch.cat([xyz[..., :n, :], points[..., 3:]], dim=-1)
+    gt_boxes = torch.cat([xyz[..., n:, :], torch.stack([dx, dy, dz, yaw], dim=-1)], dim=-1)
+    return points, gt_boxes
+
+
+def augment_sample(points, gt_boxes, gt_valid_mask=None, rng=None, *, global_transforms: bool = True):
     """Full training augmentation chain, reference order
     (framework/dataset.py:122-133): per-object noise → flip → rotation →
-    scaling → translation. Mutates and returns (gt_boxes, points)."""
+    scaling → translation. Mutates and returns (gt_boxes, points).
+    `global_transforms=False` keeps only the per-object noise (its collision
+    search is sequential and stays on the host), for a trainer that applies
+    the global transforms on the device."""
     rng = rng or np.random.RandomState()
     noise_per_object(gt_boxes, points, gt_valid_mask, rng=rng)
+    if not global_transforms:
+        return gt_boxes, points
     gt_boxes, points = random_flip(gt_boxes, points, rng)
     gt_boxes, points = global_rotation(gt_boxes, points, rng)
     gt_boxes, points = global_scaling(gt_boxes, points, rng)

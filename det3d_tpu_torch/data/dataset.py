@@ -65,13 +65,14 @@ class DetectionDataset:
 
     def __init__(self, cfg: Config, info_paths, training: bool = True, augment: bool = True,
                  seed: int | None = None, device_global_augment: bool = False):
-        if device_global_augment:
-            raise NotImplementedError(
-                "device_global_augment (the global transforms on the device) is not ported yet: ROADMAP item 15")
         self.cfg = cfg
         self.data_root = Path(cfg.data_root)
         self.training = training
         self.augment = augment and training
+        # the trainer applies the global transforms on the device
+        # (Trainer(device_global_augment=True)): the host chain keeps only
+        # the per-object noise, so nothing is augmented twice
+        self.device_global_augment = device_global_augment
         self.rng = np.random.RandomState(seed)
         self.infos: list[dict] = []
         for p in info_paths:
@@ -119,15 +120,29 @@ class DetectionDataset:
             axis=1,
         ).astype(np.float32)
 
+        on_device = self.augment and self.device_global_augment
         if self.augment:
-            gt_boxes, points = agm.augment_sample(points, gt_boxes, rng=self.rng)
+            gt_boxes, points = agm.augment_sample(points, gt_boxes, rng=self.rng, global_transforms=not on_device)
 
-        # range filter + yaw wrap (reference dataset.py:136-143)
         dr = np.asarray(self.cfg.detection_range)
-        keep = _filter_gt_outside_range_np(gt_boxes, dr[[0, 1, 3, 4]])
-        gt_boxes = gt_boxes[keep]
-        gt_classes = gt_classes[keep]
-        gt_boxes[:, 6] = limit_period_np(gt_boxes[:, 6], 0.5, 2 * np.pi)
+        if on_device:
+            # the reference filters after the transforms, and they run on the
+            # device, so the trainer applies the exact range filter and the
+            # yaw wrap there. Here only boxes that no transform can bring back
+            # into range go, so that they take none of the max_gt_boxes slots:
+            # flips and rotations keep a corner's radius, the scale shrinks it
+            # by at most GLOBAL_SCALE_MIN and the clipped translation moves it
+            # by at most GLOBAL_TRANSLATE_BOUND
+            rmax = float(np.hypot(np.abs(dr[[0, 3]]).max(), np.abs(dr[[1, 4]]).max()))
+            corners = agm.box2d_corners_np(gt_boxes[:, [0, 1, 3, 4, 6]].astype(np.float64))
+            rmin = np.hypot(corners[..., 0], corners[..., 1]).min(axis=1)
+            keep = rmin <= (rmax + agm.GLOBAL_TRANSLATE_BOUND) / agm.GLOBAL_SCALE_MIN
+            gt_boxes, gt_classes = gt_boxes[keep], gt_classes[keep]
+        else:
+            # range filter + yaw wrap (reference dataset.py:136-143)
+            keep = _filter_gt_outside_range_np(gt_boxes, dr[[0, 1, 3, 4]])
+            gt_boxes, gt_classes = gt_boxes[keep], gt_classes[keep]
+            gt_boxes[:, 6] = limit_period_np(gt_boxes[:, 6], 0.5, 2 * np.pi)
         # the rows in the order `self.rng.shuffle(points)` leaves them (the
         # same draws), gathered at once instead of swapped one by one
         points = points[self.rng.permutation(len(points))]

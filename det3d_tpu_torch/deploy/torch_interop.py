@@ -21,13 +21,24 @@ from det3d_tpu_torch.models.pointpillars import PointPillars
 from det3d_tpu_torch.train.checkpoint import CheckpointManager, checkpoint_dict, load_into, read_checkpoint
 
 
+def _reference_layout(cfg: Config) -> None:
+    """The reference `.pth` layout has the shared head only (the JAX
+    package's torch_interop maps `heads.conv_{cls,box,dir}` and nothing
+    else), so a multi-head model has no file there to cross to."""
+    if cfg.head != "shared":
+        raise ValueError(f"head {cfg.head!r}: the reference .pth layout has only the shared head "
+                         "(heads.conv_cls/conv_box/conv_dir); a multi-head model's own checkpoints "
+                         "(latest.pth of its model directory) restore with --checkpoint")
+
+
 def import_torch_checkpoint(ckpt_path: str | Path, cfg: Config, model_dir: str | Path,
                             import_optimizer: bool = True) -> int:
     """Check the reference `.pth` at `ckpt_path` against `cfg`'s model and
     write it into `model_dir` → its step. `import_optimizer=False` drops
     Adam's moments: the run resumes with a fresh optimizer, and the files
     keep the `.pth`'s step. Raises ValueError on a key, shape or Adam
-    layout that is not this model's."""
+    layout that is not this model's, and for a multi-head config."""
+    _reference_layout(cfg)
     sd, step, opt_sd = read_checkpoint(ckpt_path, map_location="cpu")
     model = PointPillars(cfg)
     try:
@@ -44,9 +55,10 @@ def import_torch_checkpoint(ckpt_path: str | Path, cfg: Config, model_dir: str |
 def export_torch_checkpoint(model_dir: str | Path, cfg: Config, out_path: str | Path) -> int:
     """Write `model_dir`'s `latest.pth` (or a `.pth` file) as one
     reference-layout `.pth` at `out_path`, checked against `cfg`'s model
-    on the way → its step."""
+    on the way → its step. Raises ValueError for a multi-head config."""
     import torch
 
+    _reference_layout(cfg)
     path = Path(model_dir)
     if path.is_dir():
         path = CheckpointManager(path, readonly=True).latest_path

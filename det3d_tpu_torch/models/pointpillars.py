@@ -35,10 +35,21 @@ batch-over-row-blocks on the blocked-halo canvas of
 the weights at each call: the modules, parameters and `state_dict` keys are
 the dense network's whatever the layout, so one checkpoint serves all of
 them.
+
+The packed inference network also takes the JAX package's two inference
+options (`PointPillars.neck`): `fuse_in_stats`, each upsample branch's
+InstanceNorm statistics from the Gram matrix of its coarse input
+(`gram_moments`) and IN + ReLU applied in the branch's epilogue, the branch
+emitted per column parity; and `split_head` (`RPN(split_out=True)`), one
+320-channel neck map per column parity, which the shared head turns into a
+pair of predictions with fy/2 columns each (column 2·y2 + p of the full
+map) and the decode consumes as a pair. `head: "multi"` selects `MultiHead`,
+one reduce + prediction head per class, in the same preds contract.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -303,6 +314,82 @@ def instance_norm_blocked(x: torch.Tensor, nblk: int, top: int, bot: int, valid_
                           packed: bool = True) -> torch.Tensor:
     """`InstanceNormBlockedFn` on a blocked map (B·nblk, C, R, W)."""
     return InstanceNormBlockedFn.apply(x, nblk, top, bot, valid_rows, packed)
+
+
+# --- Gram-statistic InstanceNorm of an upsample branch ------------------------
+
+
+@contextlib.contextmanager
+def _ieee_f32_matmul():
+    """float32 matmuls in full float32 (no TF32) inside the block, whatever
+    the process has chosen: the variance below is a difference of two large
+    sums, which TF32's 10-bit mantissa would lose."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gram_moments(x: torch.Tensor, kf: torch.Tensor, n_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """InstanceNorm statistics of an upsample branch's output computed from
+    its coarse input alone (the JAX package's `_gram_moments`,
+    models/pointpillars.py:338-362): the branch is a 1x1 map per phase,
+    out_ph = x @ kf[:, ph, :], so per output channel o
+        s1_o = Σ_ph (Σ_hw x) · kf[:, ph, o],
+        s2_o = Σ_ph kf[:, ph, o]ᵀ (Σ_hw x xᵀ) kf[:, ph, o].
+    x: NCHW (B, C, H, W) in channels_last memory, any dtype; kf: float32
+    (C, P, O); n_out: the output's elements per channel. The sums and the
+    (C, C) Gram matrix are float32 → (mean, rsqrt(var + 1e-3)), (B, O)."""
+    with _ieee_f32_matmul():
+        b, c = x.shape[:2]
+        xm = x.float().permute(0, 2, 3, 1).reshape(b, -1, c)           # (B, H·W, C), a view
+        sx = xm.sum(dim=1)                                             # (B, C)
+        gram = torch.bmm(xm.transpose(1, 2), xm)                       # (B, C, C)
+        s1 = torch.einsum("bc,cpo->bo", sx, kf)
+        gk = torch.einsum("bcd,dpo->bcpo", gram, kf)
+        s2 = torch.einsum("cpo,bcpo->bo", kf, gk)
+    mean = s1 / n_out
+    var = torch.clamp(s2 / n_out - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + 1e-3)
+
+
+def _in_relu_epilogue(y: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor, phases: int) -> torch.Tensor:
+    """relu(y·scale + shift) in y's dtype with scale = inv and shift =
+    −mean·inv tiled over `phases` channel groups (the JAX epilogue, :403-407)."""
+    scale, shift = inv.repeat(1, phases), (-mean * inv).repeat(1, phases)
+    return torch.relu(y * _bc(scale, y) + _bc(shift, y))
+
+
+def fused_deconv_split(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A strided upsample branch with `fuse_in_stats` (the JAX package's
+    `DeconvUpsample(fuse_in_relu=True, split_parity=True)`): the transposed
+    convolution (kernel = stride = s), its InstanceNorm + ReLU from the
+    Gram statistics of x, and the output's even and odd columns as a pair,
+    each (B, O, H·s, W·s/2) — the packed layout's two parities, cut before
+    any relayout. `weight` is the ConvTranspose2d kernel (C, O, s, s),
+    whose taps (p, q) are the JAX kernel's phases in order."""
+    c, o, s, _ = weight.shape
+    mean, inv = gram_moments(x, weight.permute(0, 2, 3, 1).reshape(c, s * s, o), x.shape[2] * x.shape[3] * s * s)
+    y = _in_relu_epilogue(F.conv_transpose2d(x, weight.to(x.dtype), None, s), mean, inv, 1)
+    return y[..., 0::2], y[..., 1::2]
+
+
+def fused_pointwise_split(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stride-1 branch with `fuse_in_stats` on a packed map (the JAX
+    package's `PackedPointwise(fuse_in_relu=True, split_parity=True)`): the
+    block-diagonal 1x1, IN + ReLU from Gram statistics in which the two
+    parity blocks are the phases (so the statistics merge the parities, as
+    the packed InstanceNorm does), and the two parities' channel halves as a
+    pair. `weight`: the ConvTranspose2d kernel (C, O, 1, 1)."""
+    w = weight[:, :, 0, 0]
+    zero = torch.zeros_like(w)
+    kf = torch.stack([torch.cat([w, zero]), torch.cat([zero, w])], dim=1)   # (2C, 2, O)
+    mean, inv = gram_moments(x, kf, x.shape[2] * x.shape[3] * 2)
+    y = _in_relu_epilogue(packed_pointwise(x, weight), mean, inv, 2)
+    o = w.shape[1]
+    return y[:, :o], y[:, o:]
 
 
 class Conv2d(nn.Conv2d):
@@ -616,13 +703,16 @@ class RPN(nn.Module):
     package's (1, 0) padding: the last row and column of padding are never
     read.
 
-    `forward(x, pack_w, block0_blocked, late_blocked)` runs the JAX
-    package's RPN with those flags on the same modules and parameters:
-    `pack_w` takes the s2d canvas (B, 4C, nx/2, ny/2), block0 and the
-    upsample branches packed; `block0_blocked` takes the blocked canvas
-    (B, nblk, R, ny/2, 4C) instead; `late_blocked` runs blocks 2-3 (the JAX
-    package's blocks 1-2) batch-over-row-blocks where `late_blocking`
-    finds blocks. `fuse_in_stats` and `split_out` are not ported."""
+    `forward(x, pack_w, block0_blocked, late_blocked, fuse_in_stats,
+    split_out)` runs the JAX package's RPN with those flags on the same
+    modules and parameters: `pack_w` takes the s2d canvas (B, 4C, nx/2,
+    ny/2), block0 and the upsample branches packed; `block0_blocked` takes
+    the blocked canvas (B, nblk, R, ny/2, 4C) instead; `late_blocked` runs
+    blocks 2-3 (the JAX package's blocks 1-2) batch-over-row-blocks where
+    `late_blocking` finds blocks; with packing, `fuse_in_stats` runs the
+    branches' IN + ReLU from Gram statistics (`fused_deconv_split`,
+    `fused_pointwise_split`) and `split_out` returns one (B, 320, H, W/2)
+    map per column parity instead of the merged (B, 320, H, W) map."""
 
     def __init__(
         self,
@@ -658,16 +748,17 @@ class RPN(nn.Module):
         self.out_channels = sum(num_upsample_filters)
 
     def forward(self, x: torch.Tensor, pack_w: bool = False, block0_blocked: bool = False,
-                late_blocked: bool = False) -> torch.Tensor:
+                late_blocked: bool = False, fuse_in_stats: bool = False, split_out: bool = False):
         if not pack_w:
             ups = []
             for b in range(1, self.num_blocks + 1):
                 x = getattr(self, f"block{b}")(x)
                 ups.append(getattr(self, f"deconv{b}")(x))
             return torch.cat(ups, dim=1)
-        return self._forward_packed(x, block0_blocked, late_blocked)
+        return self._forward_packed(x, block0_blocked, late_blocked, fuse_in_stats, split_out)
 
-    def _forward_packed(self, x: torch.Tensor, block0_blocked: bool, late_blocked: bool) -> torch.Tensor:
+    def _forward_packed(self, x: torch.Tensor, block0_blocked: bool, late_blocked: bool,
+                        fuse_in_stats: bool, split_out: bool):
         """The JAX package's `RPN.__call__` with pack_w (models/pointpillars.py:947-1043)."""
         ups = []
         for b in range(1, self.num_blocks + 1):
@@ -688,17 +779,25 @@ class RPN(nn.Module):
                 for unit in block[3:]:
                     x = unit.forward_packed(x) if b == 1 else unit(x)
             up = getattr(self, f"deconv{b}")[0]
-            if self.upsample_strides[b - 1] > 1:
-                u = pack_columns(up(x))
-            else:
-                u = packed_pointwise(x, up.weight)
-            ups.append(torch.relu(_instance_norm(u, True)))
+            strided = self.upsample_strides[b - 1] > 1
+            if fuse_in_stats:
+                # IN + ReLU from Gram statistics, the branch cut per parity
+                ups.append((fused_deconv_split if strided else fused_pointwise_split)(x, up.weight))
+                continue
+            u = pack_columns(up(x)) if strided else packed_pointwise(x, up.weight)
+            u = torch.relu(_instance_norm(u, True))
+            bw = self.num_upsample_filters[b - 1]
+            ups.append((u[:, :bw], u[:, bw:]))
+        per_parity = [[u[p] for u in ups] for p in (0, 1)]
+        if split_out:
+            # one 320-channel map per column parity; the head takes the pair
+            return tuple(torch.cat(parts, dim=1) for parts in per_parity)
         # parity-outer concat: out[:, :, h, 2·w2 + p] must be the 320
         # channels of dense column 2·w2 + p, so the branches' parity-p halves
         # are concatenated p-major and unpacked (the concat moves the data;
-        # the unpack is a view)
-        halves = [u[:, p * bw:(p + 1) * bw] for p in (0, 1) for u, bw in zip(ups, self.num_upsample_filters)]
-        return unpack_columns(torch.cat(halves, dim=1))
+        # the unpack is a view of channels_last memory)
+        cat = torch.cat(per_parity[0] + per_parity[1], dim=1)
+        return unpack_columns(cat.contiguous(memory_format=torch.channels_last))
 
     def _blocked_block0(self, x5: torch.Tensor) -> torch.Tensor:
         """All of block0 on the blocked-halo canvas (B, nblk, R, ny/2, 4C),
@@ -741,11 +840,31 @@ class RPN(nn.Module):
         return unblock_rows(x, bsz)
 
 
+def head_preds(x: torch.Tensor, convs, a: int, code: int) -> dict[str, torch.Tensor]:
+    """The cls, box and dir 1x1 convolutions `convs` (a, a·code and a·2
+    output channels in the reference's [anchor][k] order) as one conv over
+    their concatenated weights → the spatial channel-major preds contract:
+    cls (N, 1, a, H, W), box (N, code, a, H, W), dir (N, 2, a, H, W)."""
+    w = torch.cat([c.weight for c in convs]).to(x.dtype)
+    bias = torch.cat([c.bias for c in convs]).to(x.dtype)
+    y = F.conv2d(x, w, bias)                                      # (N, a·(1+code+2), H, W)
+    n, _, h, wd = y.shape
+
+    def split(part: torch.Tensor, k: int) -> torch.Tensor:
+        # (N, a·k, H, W) [anchor][k] → (N, k, a, H, W)
+        return part.reshape(n, a, k, h, wd).transpose(1, 2)
+
+    cls, box, dire = torch.split(y, [a, a * code, a * 2], dim=1)
+    return {"cls_preds": split(cls, 1), "box_preds": split(box, code), "dir_preds": split(dire, 2)}
+
+
 class SharedHead(nn.Module):
     """1x1 convs conv_cls / conv_box / conv_dir over the RPN features
     (reference :299-343), run as one conv over their concatenated weights.
     Output channels are in the reference's [anchor][k] order; the result is
-    returned in the spatial channel-major preds contract."""
+    returned in the spatial channel-major preds contract. Given the split
+    neck's pair of column-parity maps, each pred is a pair of the same with
+    fy/2 columns (the JAX `SharedHead`'s parity path, :1131-1143)."""
 
     def __init__(self, in_channels: int, num_anchor_per_loc: int, box_code_size: int):
         super().__init__()
@@ -756,20 +875,44 @@ class SharedHead(nn.Module):
         self.conv_box = nn.Conv2d(in_channels, a * box_code_size, 1)
         self.conv_dir = nn.Conv2d(in_channels, a * 2, 1)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        a, code = self.num_anchor_per_loc, self.box_code_size
+    def forward(self, x) -> dict:
         convs = (self.conv_cls, self.conv_box, self.conv_dir)
-        w = torch.cat([c.weight for c in convs]).to(x.dtype)
-        bias = torch.cat([c.bias for c in convs]).to(x.dtype)
-        y = F.conv2d(x, w, bias)                                  # (N, a·10, H, W)
-        n, _, h, wd = y.shape
+        if isinstance(x, tuple):
+            pair = [head_preds(xp, convs, self.num_anchor_per_loc, self.box_code_size) for xp in x]
+            return {k: (pair[0][k], pair[1][k]) for k in pair[0]}
+        return head_preds(x, convs, self.num_anchor_per_loc, self.box_code_size)
 
-        def split(part: torch.Tensor, k: int) -> torch.Tensor:
-            # (N, a·k, H, W) [anchor][k] → (N, k, a, H, W)
-            return part.reshape(n, a, k, h, wd).transpose(1, 2)
 
-        cls, box, dire = torch.split(y, [a, a * code, a * 2], dim=1)
-        return {"cls_preds": split(cls, 1), "box_preds": split(box, code), "dir_preds": split(dire, 2)}
+class MultiHead(nn.Module):
+    """One head per class over the shared RPN features (the JAX package's
+    `MultiHead`, models/pointpillars.py:1166-1215; reference head variants,
+    networks/pointpillars8_shared.py:184-296): for class c with a anchors
+    per location, `head{c}_reduce` (1x1, 320 → 64, bias) + ReLU, then the
+    class's cls, box and dir 1x1 convolutions (`head{c}_cls`, `_box`,
+    `_dir`, [anchor][k] columns). The classes' preds concatenate along the
+    anchor-channel axis, the [class][size][rot] order of the anchors, into
+    the shared head's contract, so losses and decode take either head."""
+
+    REDUCE = 64
+
+    def __init__(self, in_channels: int, anchors_per_class, box_code_size: int):
+        super().__init__()
+        self.anchors_per_class = tuple(anchors_per_class)
+        self.box_code_size = box_code_size
+        for c, a in enumerate(self.anchors_per_class):
+            self.add_module(f"head{c}_reduce", nn.Conv2d(in_channels, self.REDUCE, 1))
+            self.add_module(f"head{c}_cls", nn.Conv2d(self.REDUCE, a, 1))
+            self.add_module(f"head{c}_box", nn.Conv2d(self.REDUCE, a * box_code_size, 1))
+            self.add_module(f"head{c}_dir", nn.Conv2d(self.REDUCE, a * 2, 1))
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        per_class = []
+        for c, a in enumerate(self.anchors_per_class):
+            reduce = getattr(self, f"head{c}_reduce")
+            feat = torch.relu(F.conv2d(x, reduce.weight.to(x.dtype), reduce.bias.to(x.dtype)))
+            convs = [getattr(self, f"head{c}_{k}") for k in ("cls", "box", "dir")]
+            per_class.append(head_preds(feat, convs, a, self.box_code_size))
+        return {k: torch.cat([p[k] for p in per_class], dim=2) for k in per_class[0]}
 
 
 class Layout(NamedTuple):
@@ -780,8 +923,16 @@ class Layout(NamedTuple):
     late_blocked: bool
 
 
+class Neck(NamedTuple):
+    """The packed inference options of one forward (`PointPillars.neck`)."""
+
+    fuse_in_stats: bool
+    split_out: bool
+
+
 class PointPillars(nn.Module):
-    """PFN → scatter → RPN → SharedHead (reference :346-382).
+    """PFN → scatter → RPN → SharedHead, or MultiHead with `head: "multi"`
+    (reference :346-382).
 
     The scatters make the RPN's input: `scatter` the dense canvas,
     `scatter_s2d` the s2d canvas and `scatter_s2d_blocked` the blocked one,
@@ -791,14 +942,18 @@ class PointPillars(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.head != "shared":
-            raise NotImplementedError(f"head {cfg.head!r}: only the shared head is ported")
+        if cfg.head not in ("shared", "multi"):
+            raise ValueError(f"head {cfg.head!r}: 'shared' or 'multi'")
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         self.grid_xy = (cfg.grid_size[0], cfg.grid_size[1])
         self.pillar_point_net = PFN(cfg.voxel_size, cfg.detection_offset, self.dtype)
         self.rpn = RPN()
-        self.heads = SharedHead(self.rpn.out_channels, cfg.num_anchors_per_loc, cfg.box_code_size)
+        if cfg.head == "multi":
+            self.heads = MultiHead(self.rpn.out_channels, [s.num_anchors_per_loc for s in cfg.class_specs],
+                                   cfg.box_code_size)
+        else:
+            self.heads = SharedHead(self.rpn.out_channels, cfg.num_anchors_per_loc, cfg.box_code_size)
         self.scatter = scatter_to_bev
         self.scatter_s2d = scatter_to_bev_s2d
         self.scatter_s2d_blocked = scatter_to_bev_s2d_blocked
@@ -816,6 +971,14 @@ class PointPillars(nn.Module):
         late = train and batch <= 2 and cfg.late_blocked_train
         return Layout(pack, pack and blocked and block0_blocking(self.grid_xy)[0] > 1, pack and late)
 
+    def neck(self, train: bool) -> Neck:
+        """The JAX model's inference options (models/pointpillars.py:1310-1328):
+        both act only on the packed network and never in training;
+        `split_out` also needs the shared head."""
+        infer_packed = self.layout(1, train).pack_w and not train
+        return Neck(infer_packed and self.cfg.fuse_in_stats,
+                    infer_packed and self.cfg.head == "shared" and self.cfg.split_head)
+
     def canvas(self, pillar_features: torch.Tensor, coors: torch.Tensor, layout: Layout) -> torch.Tensor:
         """The RPN's input for `layout`: the dense or s2d canvas as an NCHW
         view of channels_last memory, or the blocked canvas as it is."""
@@ -832,15 +995,16 @@ class PointPillars(nn.Module):
         layout = self.layout(voxels.shape[0], train)
         pillar_features = self.pillar_point_net(voxels, num_points, coors, train)
         x = self.canvas(pillar_features, coors, layout)
-        return self.heads(self.rpn(x, *layout))
+        return self.heads(self.rpn(x, *layout, *self.neck(train)))
 
 
 @torch.no_grad()
 def init_weights(model: PointPillars, seed: int) -> PointPillars:
     """Random weights from a seeded `torch.Generator`, made on the CPU so a
     seed gives the same weights on every device: LeCun-normal kernels
-    (std 1/sqrt(fan_in), the JAX package's initializer), zero biases, and
-    identity batch-norm statistics."""
+    (std 1/sqrt(fan_in), the JAX package's initializer; the shared and the
+    multi head's 1x1 convolutions alike), zero biases, and identity
+    batch-norm statistics."""
     gen = torch.Generator().manual_seed(seed)
     for module in model.modules():
         if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):

@@ -1,7 +1,8 @@
-"""Box geometry used by decoding and target assignment (PyTorch).
+"""Box geometry used by decoding, target assignment and the on-device
+global augmentation (PyTorch).
 
-Counterpart of the decode and encode surface of the JAX package's
-`ops/geometry.py` (reference: framework/box_np_ops.py). Box convention:
+Counterpart of the decode, encode and augmentation surface of the JAX
+package's `ops/geometry.py` (reference: framework/box_np_ops.py). Box convention:
 ``[x, y, z, l, w, h, yaw]`` with z the bottom of the box; decode shifts to
 and from the z-center internally (reference: framework/box_np_ops.py:406-423).
 The float32 operations keep the JAX functions' order, so the target
@@ -36,6 +37,66 @@ def rotation_2d(points: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
         dim=-2,
     )  # (N, 2, 2)
     return torch.einsum("npi,nij->npj", points, rot)
+
+
+def rotation_3d_in_axis(points: torch.Tensor, angles: torch.Tensor, axis: int = 2) -> torch.Tensor:
+    """Rotate 3D point sets (..., P, 3) by `angles` (...) about one axis
+    (reference: framework/box_torch_ops.py:243-271 semantics)."""
+    s, c = torch.sin(angles), torch.cos(angles)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    if axis == 1:
+        rot = [c, zero, -s, zero, one, zero, s, zero, c]
+    elif axis in (2, -1):
+        rot = [c, s, zero, -s, c, zero, zero, zero, one]
+    elif axis == 0:
+        rot = [one, zero, zero, zero, c, s, zero, -s, c]
+    else:
+        raise ValueError(f"axis must be 0/1/2, got {axis}")
+    rot = torch.stack(rot, dim=-1).reshape(angles.shape + (3, 3))
+    return torch.einsum("...pi,...ij->...pj", points, rot)
+
+
+def rotation_points_single_angle(points: torch.Tensor, angle: torch.Tensor, axis: int = 2) -> torch.Tensor:
+    """Rotate a point set (N, 3) by one angle (a 0-dim tensor) about `axis`,
+    with the reference's augmentation convention (framework/box_np_ops.py:
+    629-648): its axis-0 and axis-1 matrices are the transposes of
+    `rotation_3d_in_axis`'s, as in the JAX package. Batched: point sets
+    (..., N, 3) and their angles (...) take one matmul."""
+    s, c = torch.sin(angle), torch.cos(angle)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    if axis == 1:  # pitch
+        rot = [c, zero, s, zero, one, zero, -s, zero, c]
+    elif axis in (2, -1):  # yaw
+        rot = [c, s, zero, -s, c, zero, zero, zero, one]
+    elif axis == 0:  # roll
+        rot = [one, zero, zero, zero, c, -s, zero, s, c]
+    else:
+        raise ValueError(f"axis must be 0/1/2, got {axis}")
+    return points @ torch.stack(rot, dim=-1).reshape(angle.shape + (3, 3)).to(points.dtype)
+
+
+def points_in_convex_polygon(points: torch.Tensor, polygon: torch.Tensor) -> torch.Tensor:
+    """points (N, 2) against clockwise convex polygons (K, P, 2) → (N, K)
+    bool: inside iff every directed edge's cross product is negative
+    (reference framework/box_np_ops.py:21-54)."""
+    vec = polygon - torch.roll(polygon, 1, dims=1)                     # (K, P, 2)
+    px = points[:, None, None, 0]
+    py = points[:, None, None, 1]
+    cross = vec[None, :, :, 1] * (polygon[None, :, :, 0] - px) - vec[None, :, :, 0] * (polygon[None, :, :, 1] - py)
+    return (cross < 0).all(dim=-1)
+
+
+def filter_gt_box_outside_range(gt_boxes: torch.Tensor, limit_range: torch.Tensor,
+                                unit: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: a BEV corner of the gt box lies inside `limit_range`
+    (4,) = [xmin, ymin, xmax, ymax] (reference framework/box_np_ops.py:6-16).
+    `unit` is `unit_corners(0.5, …)`; the range's rectangle takes the
+    origin-0 corners, which are `unit + 0.5`, exactly."""
+    corners = center_to_corner_box2d(gt_boxes[:, :2], gt_boxes[:, 3:5], gt_boxes[:, 6], unit)  # (N, 4, 2)
+    center = limit_range[:2]
+    bbox = center_to_corner_box2d(center[None], (limit_range[2:] - center)[None], None, unit + 0.5)
+    inside = points_in_convex_polygon(corners.reshape(-1, 2), bbox)    # (N·4, 1)
+    return inside.reshape(-1, 4).any(dim=1)
 
 
 def unit_corners(origin: float, device: torch.device, dtype: torch.dtype) -> torch.Tensor:

@@ -26,7 +26,7 @@ from det3d_tpu_torch.config import Config
 from det3d_tpu_torch.models.pointpillars import PointPillars, init_weights
 from det3d_tpu_torch.ops.anchor_mask import compute_anchors_mask, compute_anchors_mask_separable
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame, VoxelizerSpec, grid_tensors, voxelize
-from det3d_tpu_torch.postprocess import Detections, PostProcessor, PostProcessParams, to_annos
+from det3d_tpu_torch.postprocess import Detections, PostProcessor, PostProcessParams, frame_preds, to_annos
 from det3d_tpu_torch.utils.device import resolve_device
 from det3d_tpu_torch.utils.npmath import pad_cloud
 
@@ -80,7 +80,7 @@ class DetectorModule(nn.Module):
         """Everything before NMS: voxelize → model → decode."""
         frame, anchors_mask = self.preprocess(points, num_points)
         preds = self.model(frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
-        return self.postprocess.decode_stage({k: v[0] for k, v in preds.items()}, anchors_mask)
+        return self.postprocess.decode_stage(frame_preds(preds, 0), anchors_mask)
 
     def forward(self, points: torch.Tensor, num_points) -> tuple[torch.Tensor, ...]:
         return tuple(self.postprocess.finalize_stage(self.candidates(points, num_points)))
@@ -93,7 +93,7 @@ class DetectorModule(nn.Module):
         frames = [self.preprocess(points[i], num_points[i]) for i in range(points.shape[0])]
         preds = self.model(*(torch.stack([getattr(f, k) for f, _ in frames])
                              for k in ("voxels", "num_points_per_voxel", "coors")))
-        candidates = [self.postprocess.decode_stage({k: v[i] for k, v in preds.items()}, mask)
+        candidates = [self.postprocess.decode_stage(frame_preds(preds, i), mask)
                       for i, (_, mask) in enumerate(frames)]
         return tuple(self.postprocess.finalize_frames(candidates))
 

@@ -6,7 +6,8 @@ framework/inference.py:26-138), with the same two stages:
 
   * `decode_stage`: per class, gate the logits by the anchor mask and the
     score threshold, take the top k, decode those k boxes, flip their yaw by
-    the direction classifier and test the centre limit;
+    the direction classifier and test the centre limit; the predictions may
+    be one map each or, from the split head, a pair of column-parity maps;
   * `finalize_stage`: NMS for all classes at once (`kernels.nms_cuda`, one
     kernel call per frame on the card), the `post_max_size` rank cap, the
     range filter, and compaction into (post_max, …) blocks in score order;
@@ -83,9 +84,30 @@ def _bucketed_topk_rows(g: torch.Tensor, k: int):
     b = n // bsz
     if b <= k:
         return torch.topk(g.reshape(-1), k)
+    bmax, barg = _bucket_reduce(g, b, bsz)
+    top, bidx = torch.topk(bmax, k)
+    return top, bidx * bsz + barg[bidx]
+
+
+def _bucket_reduce(g: torch.Tensor, b: int, bsz: int):
+    """Per-bucket (max, first argmax) of a map viewed as (b, bsz)."""
     s2 = g.reshape(b, bsz)
     barg = torch.argmax(s2, dim=1)
-    bmax = torch.gather(s2, 1, barg[:, None])[:, 0]
+    return torch.gather(s2, 1, barg[:, None])[:, 0], barg
+
+
+def _bucketed_topk_pair(g0: torch.Tensor, g1: torch.Tensor, k: int):
+    """Approximate top-k over a column-parity pair of maps (each (…, w2)),
+    returning flat indices into their parity-major stack (the JAX
+    package's `_bucketed_topk_pair`, postprocess.py:123-147): row buckets of
+    each parity's own map, and the exact top k of the 2b bucket maxima."""
+    n = g0.numel()
+    bsz = _row_bucket_size(g0.shape[-1], 2 * n, k)
+    b = n // bsz
+    if 2 * b <= k:
+        return torch.topk(torch.cat([g0.reshape(-1), g1.reshape(-1)]), k)
+    (m0, a0), (m1, a1) = _bucket_reduce(g0, b, bsz), _bucket_reduce(g1, b, bsz)
+    bmax, barg = torch.cat([m0, m1]), torch.cat([a0, a1])
     top, bidx = torch.topk(bmax, k)
     return top, bidx * bsz + barg[bidx]
 
@@ -98,8 +120,10 @@ def _bucketed_topk(g: torch.Tensor, k: int):
     Where fy is even, that path holds every map as a pair of column-parity
     maps (its split head), so a bucket is `bsz` same-parity columns of one
     row and the bucket maxima are ranked in parity-major order
-    (`_bucketed_topk_pair` there). The map is viewed in that order here, so
-    both select the same candidates; an odd fy keeps plain row buckets."""
+    (`_bucketed_topk_pair`). A merged map is viewed in that order here, so
+    the dense network selects what the split head selects; an odd fy keeps
+    plain row buckets. Predictions that come as a pair take
+    `_bucketed_topk_pair` itself."""
     cch, fx, fy = g.shape
     if fy % 2:
         return _bucketed_topk_rows(g, k)
@@ -131,6 +155,11 @@ def _decode_candidates(top_logits, box_k, dir_labels, anchors_k, center_limit, u
     min_mask = (boxes[:, :3] > center_limit[:3]).any(dim=1)
     max_mask = (boxes[:, 3:6] < center_limit[3:]).any(dim=1)
     return Candidates(boxes, top_scores, standup, valid, min_mask & max_mask)
+
+
+def frame_preds(preds: dict, i: int) -> dict:
+    """Frame i of batched predictions; a column-parity pair stays a pair."""
+    return {k: tuple(t[i] for t in v) if isinstance(v, tuple) else v[i] for k, v in preds.items()}
 
 
 class PostProcessor(nn.Module):
@@ -175,18 +204,22 @@ class PostProcessor(nn.Module):
     def class_anchors(self) -> list[torch.Tensor]:
         return [getattr(self, f"anchors_{i}") for i in range(len(self.channels))]
 
-    def decode_stage(self, preds: dict[str, torch.Tensor], anchors_mask: torch.Tensor) -> list[Candidates]:
+    def _gate(self, logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return torch.where(mask & (logits.float() >= self.logit_thr), logits,
+                           torch.full((), -math.inf, dtype=logits.dtype, device=logits.device))
+
+    def decode_stage(self, preds: dict, anchors_mask: torch.Tensor) -> list[Candidates]:
         """preds: cls (1, nch, fx, fy), box (7, nch, fx, fy), dir (2, nch,
-        fx, fy); anchors_mask (nch, fx, fy) bool. Scores stay logits: the
-        gate compares in float32 logit space (-inf marks "none") and the
-        top-k order on logits is the order on sigmoids."""
+        fx, fy), or from the split head a column-parity pair of each with
+        fy/2 columns (`_decode_pair`); anchors_mask (nch, fx, fy) bool.
+        Scores stay logits: the gate compares in float32 logit space (-inf
+        marks "none") and the top-k order on logits is the order on
+        sigmoids."""
+        if isinstance(preds["cls_preds"], tuple):
+            return self._decode_pair(preds, anchors_mask)
         p = self.params
         hw = self.fx * self.fy
-        logits = preds["cls_preds"][0]
-        gated = torch.where(
-            anchors_mask & (logits.float() >= self.logit_thr), logits,
-            torch.full((), -math.inf, dtype=logits.dtype, device=logits.device),
-        )
+        gated = self._gate(preds["cls_preds"][0], anchors_mask)
         box_all, dir_all = preds["box_preds"], preds["dir_preds"]
 
         out = []
@@ -205,6 +238,43 @@ class PostProcessor(nn.Module):
             chg = ch + c0
             box_k = box_all[:, chg, xx, yy].float().T                   # (k, 7)
             dir_k = dir_all[:, chg, xx, yy]                              # (2, k)
+            out.append(_decode_candidates(top_logits, box_k, dir_k[1] > dir_k[0], anchors[idx],
+                                          self.center_limit, self.unit_corners))
+        return out
+
+    def _decode_pair(self, preds: dict, anchors_mask: torch.Tensor) -> list[Candidates]:
+        """The decode of a column-parity pair (the JAX package's parity path,
+        postprocess.py:281-337): each parity gated by its columns of the
+        mask, the top k over the parity-major stack of a class's two maps
+        (exact, or `_bucketed_topk_pair`), the stacked index unravelled to
+        (p, ch, x, y2) and to the class-flat index with y = 2·y2 + p, and the
+        winners' box and dir read by two gathers and a select."""
+        p = self.params
+        hw, w2 = self.fx * self.fy, self.fy // 2
+        gated = [self._gate(cls[0], anchors_mask[:, :, par::2]) for par, cls in enumerate(preds["cls_preds"])]
+        box_pair, dir_pair = preds["box_preds"], preds["dir_preds"]
+        out = []
+        for (c0, c1), anchors in zip(self.channels, self.class_anchors):
+            cch = c1 - c0
+            n_class = cch * hw
+            k = min(p.nms_pre_max_size, n_class)
+            g0, g1 = gated[0][c0:c1], gated[1][c0:c1]                    # (cch, fx, w2)
+            if p.approx_topk and k < n_class:
+                top_logits, sidx = _bucketed_topk_pair(g0, g1, k)
+            else:
+                top_logits, sidx = torch.topk(torch.cat([g0.reshape(-1), g1.reshape(-1)]), k)
+            half = cch * self.fx * w2
+            par = sidx // half
+            rem = sidx - par * half
+            ch = rem // (self.fx * w2)
+            rem = rem - ch * (self.fx * w2)
+            xx = rem // w2
+            y2 = rem - xx * w2
+            idx = ch * hw + xx * self.fy + 2 * y2 + par                  # class-flat anchor order
+            chg = ch + c0
+            odd = par == 1
+            box_k = torch.where(odd, box_pair[1][:, chg, xx, y2], box_pair[0][:, chg, xx, y2]).float().T
+            dir_k = torch.where(odd, dir_pair[1][:, chg, xx, y2], dir_pair[0][:, chg, xx, y2])
             out.append(_decode_candidates(top_logits, box_k, dir_k[1] > dir_k[0], anchors[idx],
                                           self.center_limit, self.unit_corners))
         return out

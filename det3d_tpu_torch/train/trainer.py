@@ -10,19 +10,27 @@ statistics, the `TrainState` the optimizer's moments, step and lr, and
 `train_step` returns the state it was given, updated. On the card the
 step launches the matcher's two kernels once (all samples and classes),
 the scatter's forward and backward kernels once each, and the fence once.
+
+`Trainer(device_global_augment=True)` runs the global augmentation
+(flip, rotation, scaling, translation) inside the step on the device, as
+the JAX trainer's option of that name does, with the dataset's host chain
+keeping only the per-object noise (`DetectionDataset(device_global_augment=True)`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from det3d_tpu_torch.config import Config
+from det3d_tpu_torch.data import augment as agm
 from det3d_tpu_torch.kernels.fence_cuda import s2b_fence
 from det3d_tpu_torch.losses import detection_loss
+from det3d_tpu_torch.ops import geometry
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame
 from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.postprocess import Detections
@@ -60,11 +68,26 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.power(np.float32(decay), np.float32(count)))
 
 
+def augment_seed(aug_seed: int, step: int) -> int:
+    """The seed of a step's augmentation draws: a function of the run's seed
+    and the step alone (the JAX trainer's `fold_in(key, step)`), so a
+    resumed run draws what the uninterrupted one drew."""
+    return int(np.random.SeedSequence((aug_seed, step)).generate_state(1, np.uint64)[0])
+
+
 class Trainer:
     """One optimizer step at a time on `device` ("cuda" unless the caller
-    names another; see `pipeline.resolve_device`)."""
+    names another; see `pipeline.resolve_device`).
 
-    def __init__(self, cfg: Config, device=None):
+    `device_global_augment=True`: each sample of a step is flipped, rotated,
+    scaled and translated on the device before it is voxelized
+    (`data/augment.apply_global_augment`, the batch in one set of
+    launches), with parameters drawn per sample from a generator seeded by
+    `augment_seed(aug_seed, state.step)`; then the range filter updates
+    `gt_valid` and the yaw wraps by 2π, which the host chain does otherwise
+    (`device_augment`)."""
+
+    def __init__(self, cfg: Config, device=None, *, device_global_augment: bool = False, aug_seed: int = 0):
         self.cfg = cfg
         self.detector = Detector(cfg, device)
         self.device = self.detector.device
@@ -72,6 +95,14 @@ class Trainer:
         self.params = list(self.model.parameters())
         self.assigner = make_target_assigner(cfg, self.detector.anchor_set, self.device)
         self.fence = s2b_fence
+        self.device_global_augment = device_global_augment
+        self.aug_seed = int(aug_seed)
+        if device_global_augment:
+            # made once: a constant built per step would be a host-card copy
+            dr = cfg.detection_range
+            self.aug_generator = torch.Generator(device=self.device)
+            self.aug_range = torch.tensor([dr[0], dr[1], dr[3], dr[4]], dtype=torch.float32, device=self.device)
+            self.aug_unit = geometry.unit_corners(0.5, self.device, torch.float32)
 
     # -- state -------------------------------------------------------------
     def init_state(self, seed: int | None = None) -> TrainState:
@@ -93,16 +124,41 @@ class Trainer:
     def to_device(self, batch: TrainBatch) -> TrainBatch:
         return TrainBatch(*(torch.as_tensor(a).to(self.device) for a in batch))
 
-    def prepare(self, batch: TrainBatch) -> tuple[VoxelizedFrame, TargetAssignment]:
-        """Per sample voxelize + anchor mask, then one target assignment for
-        the stacked batch (trainer.py:124-161 of the JAX package)."""
+    def augment_params(self, step: int, batch: int) -> dict:
+        """The step's global-augmentation parameters, one row per sample,
+        drawn on the trainer's device (no host round trip)."""
+        self.aug_generator.manual_seed(augment_seed(self.aug_seed, step))
+        return agm.sample_global_augment_params(self.aug_generator, batch, self.device)
+
+    def device_augment(self, points, gt_boxes, gt_valid, params: dict):
+        """The global transforms on the device, then the host path's range
+        filter as a `gt_valid` update and its 2π yaw wrap (the JAX trainer's
+        `_device_augment_one`, trainer.py:104-122), for one sample or, with
+        a leading batch axis on everything, for a batch at once. The
+        scale's re-fit folds yaw into (-π/2, π/2); the wrap keeps the host's
+        2π period all the same, as a π period would alias headings that
+        differ by π and break the direction targets."""
+        points, gt_boxes = agm.apply_global_augment(points, gt_boxes, params)
+        keep = geometry.filter_gt_box_outside_range(gt_boxes.reshape(-1, 7), self.aug_range, self.aug_unit)
+        yaw = geometry.limit_period(gt_boxes[..., 6:], period=2 * math.pi)
+        return points, torch.cat([gt_boxes[..., :6], yaw], dim=-1), gt_valid & keep.reshape(gt_valid.shape)
+
+    def prepare(self, batch: TrainBatch, step: int = 0) -> tuple[VoxelizedFrame, TargetAssignment]:
+        """(The global augmentation of step `step`, where the trainer applies
+        it, then) per sample voxelize + anchor mask, then one target
+        assignment for the stacked batch (trainer.py:124-161 of the JAX
+        package)."""
+        points, gt_boxes, gt_valid = batch.points, batch.gt_boxes, batch.gt_valid
+        if self.device_global_augment:
+            params = self.augment_params(step, points.shape[0])
+            points, gt_boxes, gt_valid = self.device_augment(points, gt_boxes, gt_valid, params)
         frames, masks = [], []
-        for i in range(batch.points.shape[0]):
-            frame, mask = self.detector.preprocess(batch.points[i], batch.num_points[i])
+        for i in range(points.shape[0]):
+            frame, mask = self.detector.preprocess(points[i], batch.num_points[i])
             frames.append(frame)
             masks.append(mask)
         frames = VoxelizedFrame(*(torch.stack(x) for x in zip(*frames)))
-        tgt = self.assigner(batch.gt_boxes, batch.gt_classes, batch.gt_valid, torch.stack(masks))
+        tgt = self.assigner(gt_boxes, batch.gt_classes, gt_valid, torch.stack(masks))
         return frames, tgt
 
     def forward_loss(self, frames: VoxelizedFrame, tgt: TargetAssignment):
@@ -145,7 +201,7 @@ class Trainer:
     def train_step(self, state: TrainState, batch: TrainBatch):
         """One optimizer step → (state, loss dict, metric counts)."""
         batch = self.to_device(batch)
-        frames, tgt = self.prepare(batch)
+        frames, tgt = self.prepare(batch, state.step)
         loss_dict, preds = self.forward_loss(frames, tgt)
         for p in self.params:
             p.grad = None

@@ -53,10 +53,14 @@ def variables_to_state_dict(variables: dict, layer_nums: tuple[int, ...] = (2, 4
     sd["rpn.deconv1.0.weight"] = _f32(rpn["deconv0"]["kernel"]).transpose(2, 3, 0, 1)
     sd["rpn.deconv2.0.weight"] = np.flip(_f32(rpn["deconv1"]["kernel"]), (0, 1)).transpose(2, 3, 0, 1)
     sd["rpn.deconv3.0.weight"] = np.flip(_f32(rpn["deconv2"]["kernel"]), (0, 1)).transpose(2, 3, 0, 1)
-    for name in ("conv_cls", "conv_box", "conv_dir"):
+    head = p["head"]
+    # the shared head's conv_{cls,box,dir}, or the multi head's
+    # head{c}_{reduce,cls,box,dir} (`MultiHead`); no reference `.pth`
+    # layout exists for the latter, so these are the port's own keys
+    for name in ("conv_cls", "conv_box", "conv_dir") if "conv_cls" in head else head:
         # nn.Dense (I, O) → Conv2d 1x1 (O, I, 1, 1), [anchor][k] channel order
-        sd[f"heads.{name}.weight"] = _f32(p["head"][name]["kernel"]).T[..., None, None]
-        sd[f"heads.{name}.bias"] = _f32(p["head"][name]["bias"])
+        sd[f"heads.{name}.weight"] = _f32(head[name]["kernel"]).T[..., None, None]
+        sd[f"heads.{name}.bias"] = _f32(head[name]["bias"])
     return {k: np.ascontiguousarray(v) for k, v in sd.items()}
 
 

@@ -242,8 +242,22 @@ def test_filter_gt_outside_range_equals_jax():
 
 
 def test_device_global_augment_not_ported(split):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tds.DetectionDataset(split[1], split[1].train_info, device_global_augment=True)
+    """Now ported: `DetectionDataset(device_global_augment=True)` at one
+    seed (the per-object noise only, the radius pre-filter, no range filter
+    or yaw wrap on the host) equals JAX's, array for array, also through
+    two spawned workers, which get the flag with the pickled dataset."""
+    jcfg, tcfg = split
+    tdsx = tds.DetectionDataset(tcfg, tcfg.train_info, training=True, seed=3, device_global_augment=True)
+    jdsx = jds.DetectionDataset(jcfg, jcfg.train_info, training=True, seed=3, device_global_augment=True)
+    for i in (0, 1, 5):
+        got, want = tdsx[i], jdsx[i]
+        for key in ("points", "gt_boxes", "gt_classes"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    plain = datasets(split, training=True)[0][0]
+    assert not np.array_equal(plain["points"], tdsx[0]["points"])  # the global transforms are gone
+    for g, w in zip(batches(tpf, tdsx, tcfg, 2, n=3), batches(jpf, jdsx, jcfg, 0, n=3)):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("reader", ["native", "numpy"])

@@ -4,8 +4,9 @@ mode, one packed + blocked train step, and the rules that select a path.
 
 Tolerances, each with its reason:
   * predictions: rtol/atol 1e-4 — both sides run the packed convolutions
-    and the blocked statistics, summed in other orders (the JAX side with
-    `fuse_in_stats` and `split_head` off: the port has neither);
+    and the blocked statistics, summed in other orders (both sides with
+    `fuse_in_stats` and `split_head` off: the unfused, merged neck; those
+    two are tests/test_torch_options.py's);
   * the train step, as tests/test_torch_train.py holds the dense one: loss
     terms rtol 1e-5, metric counts equal, every gradient within 1e-4 of its
     tensor's largest magnitude.

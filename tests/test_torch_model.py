@@ -153,6 +153,16 @@ def test_init_weights_seeded():
 
 
 def test_rejects_multi_head():
-    cfg = dataclasses.replace(pu.to_torch_cfg(pu.small_cfg()), head="multi")
-    with pytest.raises(NotImplementedError):
-        PointPillars(cfg)
+    """Now ported: `head: "multi"` builds `MultiHead`, whose preds equal the
+    JAX MultiHead's (dense network, same weights and pillars); only a head
+    that is neither "shared" nor "multi" is rejected."""
+    cfg = pu.small_cfg().replace(head="multi")
+    variables = _variables(cfg)
+    inputs = _inputs(cfg, n_valid=min(40, cfg.max_voxels - 8))
+    want = JaxPointPillars(cfg).apply(variables, *(jnp.asarray(a) for a in inputs), train=False)
+    with torch.no_grad():
+        got = _torch_model(cfg, variables)(*(torch.from_numpy(a) for a in inputs))
+    for key in ("cls_preds", "box_preds", "dir_preds"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), err_msg=key, **TOL)
+    with pytest.raises(ValueError, match="'shared' or 'multi'"):
+        PointPillars(dataclasses.replace(pu.to_torch_cfg(pu.small_cfg()), head="triple"))

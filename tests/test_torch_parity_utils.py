@@ -36,7 +36,8 @@ def mid_cfg():
     return mid_cfg()
 
 
-LAYOUT_FIELDS = frozenset({"pack_w", "block0_blocked", "block0_blocked_train", "late_blocked_train"})
+LAYOUT_FIELDS = frozenset({"pack_w", "block0_blocked", "block0_blocked_train", "late_blocked_train",
+                           "fuse_in_stats", "split_head"})
 
 
 def to_torch_cfg(cfg, layout: bool = False) -> tcfg.Config:
