@@ -104,6 +104,24 @@ Phases, each printed as it runs; any failure exits non-zero:
      network, its kernels against their plain versions and bounds at the
      10 cm shapes, 3 train steps at batch 2; and ntusl_20cm at batch 4, 5
      steps. Every number beside the card's name and power limit.
+ 15. data parallelism (`parallel/mesh.py`), each group of ranks in
+     processes of its own (spawn, a file:// rendezvous in a temporary
+     directory, a rank alive after DP_TIMEOUT_S fails the phase): (a) a
+     world-1 NCCL group on cuda:0, phase 7's step (ntusl_20cm, bf16, batch
+     2, the same weights and batch) through `make_sharded_train_step`
+     against the plain step, 3 steps each from fresh trainers, bit for bit
+     (cuDNN deterministic for both; two plain runs bit-equal too), then
+     ms/step, device ms, peak memory, host-card syncs, collectives and
+     kernel launches per step of each; (b) two gloo ranks sharing the card
+     (NCCL refuses two ranks on one card), f32, batch 1 each, 2 steps
+     against one process at batch 2 at phase 8's tolerances, once with the
+     kernels on both ranks and once with rank 1 on the plain versions
+     (the two runs must agree too); ms/step per rank, launches per rank;
+     (c) `make_sharded_infer` of 4 frames over those two ranks against
+     `Detector.infer_batch` at batch 4 in one process, NMS calls per rank;
+     (d) `train_app.train` on the world-1 NCCL group, 3 steps and a save,
+     rank 0's checkpoint restored bit-equal. Each kernel row of the kernels
+     line gains `dp_launches` (launches per path and rank).
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
@@ -118,6 +136,7 @@ from __future__ import annotations
 import collections
 import json
 import multiprocessing
+import pickle
 import re
 import shutil
 import statistics
@@ -196,6 +215,12 @@ R1_STEPS = 3
 BATCH4 = 4           # ... and ntusl_20cm train steps at batch 4
 BATCH4_STEPS = 5
 FUSED_VS_UNFUSED_TOL = 1e-4  # tests/test_torch_model.py's rtol/atol for the network's outputs
+DP_STEPS = 3          # phase 15(a): steps of the world-1 NCCL step held bit for bit against the plain step
+DP_TIMED_STEPS = 20   # ... then timed, each path, in turns (plain, data-parallel, plain)
+DP_GLOO_STEPS = 2     # phase 15(b): f32 steps of two gloo ranks (batch 1 each) against one process at batch 2
+DP_INFER_FRAMES = 4   # phase 15(c): frames of the sharded infer_batch
+DP_APP_STEPS = 3      # phase 15(d): train_app steps at world 1, one save
+DP_TIMEOUT_S = 120.0  # a rank still alive after this fails the phase
 # every hand-written kernel by the name the profiler gives it, under its row
 # of the kernels line. A scatter's or a gather's canvas layout is its
 # template argument (csrc/scatter.cu: 0 dense, 1 and 2 the s2d orders), so
@@ -1749,6 +1774,397 @@ def run_options(cfg, cfg32, frames, batch, card: str, base: dict, root: Path) ->
     return dict(launches=launches, kernels10=kernels10)
 
 
+# --- phase 15: data parallelism (each group of ranks in processes of its own) ---
+
+
+def dp_state(trainer, state) -> dict:
+    """CPU copies of the weights, batch statistics and Adam moments."""
+    return dict(sd={k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
+                moments=[t.detach().cpu().clone() for t in state.mu + state.nu], step=state.step)
+
+
+def same_bits(a: dict, b: dict) -> list[str]:
+    """The tensors of two `dp_state`s that are not bit-equal (by name)."""
+    bad = [k for k in a["sd"] if not torch.equal(a["sd"][k], b["sd"][k])]
+    bad += [f"moment {i}" for i, (x, y) in enumerate(zip(a["moments"], b["moments"])) if not torch.equal(x, y)]
+    return bad + (["step"] if a["step"] != b["step"] else [])
+
+
+def dp_timed_steps(step, state, batch, mesh) -> dict:
+    """DP_TIMED_STEPS calls of `step` after the checked ones, the launch
+    counters set to 0 just before and read just after: ms/step, peak memory,
+    launches and collectives per step, host-card syncs of one more step, the
+    profiler's device ms per step."""
+    counters = train_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    before = dict(mesh.collectives)
+    times = []
+    for _ in range(DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, _, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: c.launches / DP_TIMED_STEPS for k, c in counters.items()}
+    collectives = {k: (n - before.get(k, 0)) / DP_TIMED_STEPS for k, n in mesh.collectives.items()
+                   if n != before.get(k, 0)}
+    peak = torch.cuda.max_memory_allocated()
+    syncs = count_syncs(lambda: step(state, batch))
+    traced = profile_device_time(lambda: step(state, batch), 3)
+    return dict(ms=statistics.median(times), min=min(times), max=max(times), peak=peak, launches=launches,
+                collectives=collectives, syncs=len(syncs), device=None if traced is None else traced[0])
+
+
+def dp_world1_child(out_dir: str) -> None:
+    """Phase 15(a) and (d), in a process of its own: a world-1 NCCL group on
+    cuda:0. (a) phase 7's step (ntusl_20cm, bf16, batch 2, the same weights
+    and batch) plain, through `make_sharded_train_step`, and plain again,
+    each DP_STEPS steps from a fresh trainer and then timed; cuDNN
+    deterministic, so that two plain runs are bit-equal at all. (d) `train_app.train` on the
+    group, a save, the checkpoint restored into a fresh trainer."""
+    import torch.distributed as dist
+
+    from det3d_tpu_torch.apps.train_app import train
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.parallel import mesh as pm
+    from det3d_tpu_torch.train.checkpoint import CheckpointManager
+    from det3d_tpu_torch.train.trainer import Trainer, host_batch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(out_dir)
+    cfg = load_config("configs/ntusl_20cm.json", max_points=120_000)
+    batch = host_batch(cfg, train_scenes(cfg, SEED))
+    mesh = pm.make_mesh(device="cuda:0", rank=0, world_size=1, init_method=f"file://{out}/rendezvous-a")
+    result = {"backend": mesh.backend, "device": str(mesh.device)}
+    try:
+        for name in ("plain", "data-parallel", "plain again"):
+            trainer = Trainer(cfg)
+            state = trainer.init_state(SEED)
+            step = trainer.train_step
+            if name == "data-parallel":
+                state = pm.replicated(mesh, trainer, state)
+                step = pm.make_sharded_train_step(trainer, mesh)
+            losses = []
+            for _ in range(DP_STEPS):
+                state, loss, _ = step(state, batch)
+                losses.append(float(loss["loss"]))
+            result[name] = dict(dp_state(trainer, state), losses=losses)
+            result[name].update(dp_timed_steps(step, state, batch, mesh))
+            del trainer, state, step
+            torch.cuda.empty_cache()
+        counters = train_counters()
+        for c in counters.values():
+            c.launches = 0
+        summary = train(cfg, max_steps=DP_APP_STEPS, display_step=DP_APP_STEPS, save_step=DP_APP_STEPS,
+                        eval_step=10**9, synthetic=True, seed=SEED, model_dir=str(out / "app"), mesh=mesh)
+        launches = {k: c.launches for k, c in counters.items()}
+        fresh = Trainer(cfg)
+        restored = CheckpointManager(out / "app", readonly=True).restore_latest(fresh)
+        result["app"] = dict(ms_per_step=summary["ms_per_step"], launches=launches, steps=summary["steps"],
+                             files=sorted(p.name for p in (out / "app").iterdir()),
+                             restored=same_bits(dp_state(summary["trainer"], summary["state"]),
+                                                dp_state(fresh, restored)))
+    finally:
+        dist.destroy_process_group()
+    with open(out / "world1.pkl", "wb") as f:
+        pickle.dump(result, f)
+
+
+def dp_step_record(trainer, state, loss) -> dict:
+    return dict(dp_state(trainer, state), loss={k: float(v) for k, v in loss.items()},
+                grads={n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()})
+
+
+def dp_compare(got: list[dict], want: list[dict], lr: float, elementwise: bool = True) -> dict:
+    """Steps of one run against another. The first step at phase 8's
+    tolerances: loss terms rtol 1e-5, gradients within 1e-4 of each
+    tensor's largest, parameters within 1e-6 where the gradient is above
+    1e-3 of the tensor's largest and within 2·lr elsewhere, batch statistics
+    rtol 1e-5. After step k > 1: parameters within k·2·lr, batch statistics
+    rtol 1e-5, loss terms rtol 1e-4 — Adam's first update moves every
+    weight by ±lr, so a weight whose gradient is within rounding of 0 moves
+    2·lr apart in two summation orders, and the later steps start from
+    weights that differ so (their gradients are not compared).
+
+    `elementwise=False` holds the first step's gradients by norm instead,
+    |Δg| within 1e-2 of |g| for each tensor (the late-blocked RPN's
+    criterion against JAX, tests/test_torch_layouts.py), and drops the
+    1e-6 on parameters that follows from the elementwise gradients: for a
+    run whose convolutions see another batch than the reference's. cuDNN
+    sums in other orders at another batch, and at full width the
+    one-process step's own gradients move by up to ~1e-2 of a tensor's
+    largest element, but under 1e-3 of its norm, when only the order of its
+    two samples changes (PERF.md, phase 15; 15(b) measures it in each
+    run). Returns the worst of each, relative to its bound (a check fails
+    above 1), and the tensor where it is."""
+    worst: dict[str, tuple[float, str]] = collections.defaultdict(lambda: (0.0, ""))
+
+    def note(kind: str, ratio: float, where: str) -> None:
+        if ratio > worst[kind][0]:
+            worst[kind] = (ratio, where)
+
+    for k, (g, w) in enumerate(zip(got, want), 1):
+        rtol = 1e-5 if k == 1 else 1e-4
+        for key, v in w["loss"].items():
+            note("loss", abs(g["loss"][key] - v) / (rtol * abs(v) + 1e-12), f"{key}, step {k}")
+        for name, wg in w["grads"].items():
+            dp = (g["sd"][name] - w["sd"][name]).abs()
+            note("params", dp.max().item() / (k * 2 * lr), f"{name}, step {k}")
+            if k == 1 and not elementwise:
+                note("grads by norm", (g["grads"][name] - wg).norm().item() / (1e-2 * wg.norm().item() + 1e-30), name)
+            elif k == 1:
+                scale = wg.abs().max().item()
+                note("grads", (g["grads"][name] - wg).abs().max().item() / (1e-4 * scale + 1e-30), name)
+                big = wg.abs() > 1e-3 * scale
+                if big.any():
+                    note("params where |g| is large", dp[big].max().item() / 1e-6, name)
+        for name in w["sd"]:
+            if "running" in name:
+                err = (g["sd"][name] - w["sd"][name]).abs() / (1e-5 * w["sd"][name].abs() + 1e-6)
+                note("batch stats", err.max().item(), f"{name}, step {k}")
+    return dict(worst)
+
+
+def dp_gloo_child(rank: int, out_dir: str) -> None:
+    """Phase 15(b) and (c), rank `rank` of two gloo ranks that share cuda:0
+    (NCCL refuses two ranks on one card). (b) DP_GLOO_STEPS f32 steps of
+    ntusl_20cm, each rank on its sample of phase 8's batch of 2, with the
+    kernels on both ranks and then with rank 1 on the plain versions;
+    rank 0 runs the one-process step at batch 2, and again with its two
+    samples swapped, and holds both runs against the first (`dp_compare`:
+    the runs against each other elementwise, against the one process by
+    norm). (c) `make_sharded_infer` of DP_INFER_FRAMES frames, two a rank,
+    held by rank 0 against `Detector.infer_batch` of all four in one
+    process."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.kernels import fence_cuda
+    from det3d_tpu_torch.parallel import mesh as pm
+    from det3d_tpu_torch.pipeline import Detector
+    from det3d_tpu_torch.postprocess import Detections, to_annos
+    from det3d_tpu_torch.train.trainer import Trainer, TrainBatch, host_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(out_dir)
+    cfg32 = load_config("configs/ntusl_20cm.json", max_points=120_000).replace(compute_dtype="float32")
+    batch = host_batch(cfg32, train_scenes(cfg32, SEED))
+    mesh = pm.make_mesh(device="cuda:0", backend="gloo", rank=rank, world_size=2,
+                        init_method=f"file://{out}/rendezvous-b")
+    result = {"backend": mesh.backend, "rank": mesh.rank}
+    counters = train_counters()
+    try:
+        runs = {}
+        for name in ("kernels on both ranks", "rank 1 on the plain versions"):
+            trainer = Trainer(cfg32)
+            if rank == 1 and name.startswith("rank 1"):
+                trainer.assigner = trainer.assigner.plain
+                use_plain_scatters(trainer.model)
+                trainer.fence = fence_cuda.fence_copy_plain
+            state = pm.replicated(mesh, trainer, trainer.init_state(SEED))
+            step = pm.make_sharded_train_step(trainer, mesh)
+            local = pm.shard_batch(mesh, batch)
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            records, times = [], []
+            for _ in range(DP_GLOO_STEPS):
+                t0 = time.perf_counter()
+                state, loss, _ = step(state, local)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                records.append(dp_step_record(trainer, state, loss))
+            last = records[-1]
+            digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in [*last["sd"].values(), *last["moments"]]))
+            runs[name] = records
+            result[name] = dict(ms=times, launches={k: c.launches for k, c in counters.items()},
+                                digest=digest.hexdigest(), losses=[r["loss"]["loss"] for r in records])
+            del trainer, state
+        if rank == 0:
+            one = {}
+            for name, order in (("one process", [0, 1]), ("one process, samples swapped", [1, 0])):
+                trainer = Trainer(cfg32)
+                state = trainer.init_state(SEED)
+                one[name] = []
+                for _ in range(DP_GLOO_STEPS):
+                    state, loss, _ = trainer.train_step(state, TrainBatch(*(a[order] for a in batch)))
+                    one[name].append(dp_step_record(trainer, state, loss))
+                del trainer
+            want, lr = one["one process"], state.lr
+            result["one process"] = dict(losses=[r["loss"]["loss"] for r in want])
+            swapped = one["one process, samples swapped"]
+            result["swapped"] = dict(by_norm=dp_compare(swapped, want, lr, elementwise=False),
+                                     elementwise=dp_compare(swapped, want, lr))
+            for name, records in runs.items():
+                result[name]["vs one process"] = dp_compare(records, want, lr, elementwise=False)
+            result["runs agree"] = dp_compare(runs["rank 1 on the plain versions"], runs["kernels on both ranks"],
+                                              lr)
+            del state, want, one, swapped
+        del runs
+
+        det = Detector(cfg32).init_weights(SEED)
+        clouds = [synthetic_cloud(cfg32.max_points, N_POINTS, seed=SEED + i) for i in range(DP_INFER_FRAMES)]
+        points = np.stack(clouds)
+        num_points = np.full(DP_INFER_FRAMES, N_POINTS, np.int32)
+        infer = pm.make_sharded_infer(det, mesh)
+        infer(points, num_points)  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        got = infer(points, num_points)
+        torch.cuda.synchronize()
+        result["infer"] = dict(ms=(time.perf_counter() - t0) * 1e3, launches={k: c.launches for k, c in counters.items()},
+                               shape=tuple(got.boxes.shape))
+        if rank == 0:
+            want = det.infer_batch(torch.from_numpy(points).cuda(), torch.from_numpy(num_points).cuda())
+            g_np, w_np = [tuple(t.cpu().numpy() for t in d) for d in (got, want)]
+            if not np.array_equal(g_np[2], w_np[2]):
+                # cuDNN sums in another order at another batch: a near-tie that
+                # NMS broke the other way, as phase 13 sees between batch sizes
+                swaps = [annos_match(to_annos(cfg32, Detections(*(t[i] for t in got))),
+                                     to_annos(cfg32, Detections(*(t[i] for t in want))), f"(c) frame {i}",
+                                     det.postprocess.params.nms_iou_threshold) for i in range(DP_INFER_FRAMES)]
+                result["infer"]["vs one process"] = f"equal but for NMS near-ties broken the other way: {swaps}"
+            elif detections_equal(g_np, w_np, "(c) sharded vs batch 4"):
+                result["infer"]["vs one process"] = "bit-equal"
+            else:
+                result["infer"]["vs one process"] = "valid equal, boxes and scores within the golden tolerances"
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(out / f"gloo-{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_ranks(procs, what: str) -> None:
+    """Start the ranks' processes and join them within DP_TIMEOUT_S; a rank
+    still alive then is killed, and it or a non-zero exit fails the phase."""
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        check(not hung, f"{what}: ranks {hung} still running after {DP_TIMEOUT_S} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * len(procs), f"{what}: exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+
+
+def run_data_parallel(card: str, base: dict) -> dict:
+    """Phase 15: (a) and (d) in one process, then (b) and (c) in two, each
+    group's ranks spawned with a file:// rendezvous in a temporary
+    directory; prints every result beside phase 7's numbers in `base` and
+    checks them → the launches of each path per rank, for the kernels line."""
+    ctx = multiprocessing.get_context("spawn")
+    root = Path(tempfile.mkdtemp(prefix="det3d-dp-"))
+    try:
+        run_ranks([ctx.Process(target=dp_world1_child, args=(str(root),))], "(a)/(d) world 1, NCCL")
+        with open(root / "world1.pkl", "rb") as f:
+            w1 = pickle.load(f)
+        run_ranks([ctx.Process(target=dp_gloo_child, args=(r, str(root))) for r in range(2)],
+                  "(b)/(c) two gloo ranks")
+        gloo = []
+        for r in range(2):
+            with open(root / f"gloo-{r}.pkl", "rb") as f:
+                gloo.append(pickle.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    plain, again, dp = w1["plain"], w1["plain again"], w1["data-parallel"]
+    print(f"[{card}] (a) world 1, {w1['backend']} on {w1['device']}: loss by step, plain {plain['losses']}, "
+          f"data-parallel {dp['losses']}")
+    check(not same_bits(plain, again), f"(a) two plain runs differ: {same_bits(plain, again)[:5]}")
+    differ = same_bits(plain, dp)
+    check(not differ, f"(a) the world-1 step differs from the plain step in {differ[:5]}")
+    print(f"[{card}] (a) after {DP_STEPS} steps the data-parallel weights, batch statistics, Adam moments and step "
+          f"equal the plain step's bit for bit (cuDNN deterministic; two plain runs bit-equal too)")
+    for name, run in (("plain", plain), ("data-parallel", dp), ("plain again", again)):
+        device = "not measured" if run["device"] is None else f"{run['device']:.3f} ms"
+        print(f"[{card}] (a) {name}: ms/step median {run['ms']:.3f} (min {run['min']:.3f}, max {run['max']:.3f}) "
+              f"over {DP_TIMED_STEPS} steps; device {device}; peak {run['peak']} bytes; host-card syncs of a step "
+              f"{run['syncs']}; collectives per step {run['collectives']}")
+    print(f"[{card}] (a) beside them, phase 7's step in this run: ms/step median {base['step_ms']:.3f}, "
+          f"device {base['step_device']}, peak {base['step_peak']} bytes")
+    want = {k: 1.0 for k in TRAIN_COUNTERS}
+    want["nms"] = 0.0
+    print(f"[{card}] (a) kernel launches per step, world 1: {dp['launches']}")
+    check(dp["launches"] == want, f"(a) launches per step {dp['launches']}, expected {want}")
+    check(dp["collectives"] == {"all_reduce": 7}, f"(a) collectives per step {dp['collectives']}")
+    check(plain["collectives"] == {}, f"(a) the plain step issued collectives {plain['collectives']}")
+
+    app = w1["app"]
+    print(f"[{card}] (d) train_app at world 1 ({w1['backend']}): {app['steps']} steps, ms/step "
+          f"{[round(v, 3) for v in app['ms_per_step']]}, files {app['files']}, launches {app['launches']}")
+    check(app["steps"] == DP_APP_STEPS and "latest.pth" in app["files"] and f"{DP_APP_STEPS}.pth" in app["files"],
+          f"(d) steps {app['steps']}, files {app['files']}")
+    check(not app["restored"], f"(d) the restored checkpoint differs in {app['restored'][:5]}")
+    want_app = {k: DP_APP_STEPS for k in TRAIN_COUNTERS}
+    want_app["nms"] = 0
+    check(app["launches"] == want_app, f"(d) launches {app['launches']}, expected {want_app}")
+    print(f"[{card}] (d) rank 0's latest.pth restores into a fresh trainer bit-equal (weights, batch statistics, "
+          "Adam moments, step)")
+
+    r0, r1 = gloo
+    kernels_run, plain_run = "kernels on both ranks", "rank 1 on the plain versions"
+    fmt = lambda worst: ", ".join(f"{k} {v:.3f} ({at})" for k, (v, at) in worst.items())  # noqa: E731
+    print(f"[{card}] (b) two gloo ranks sharing the card, f32, batch 1 each, {DP_GLOO_STEPS} steps; one process at "
+          f"batch 2: loss {r0['one process']['losses']}")
+    print(f"[{card}] (b) the one-process step against itself with its two samples swapped, worst over its bound: "
+          f"elementwise {fmt(r0['swapped']['elementwise'])}; by norm {fmt(r0['swapped']['by_norm'])}")
+    for name in (kernels_run, plain_run):
+        for r in (r0, r1):
+            print(f"[{card}] (b) {name}, rank {r['rank']}: loss {r[name]['losses']}; ms/step "
+                  f"{[round(v, 3) for v in r[name]['ms']]} (two ranks on one card through the host: not a scaling "
+                  f"number); launches {r[name]['launches']}")
+        check(r0[name]["digest"] == r1[name]["digest"], f"(b) {name}: the ranks' states differ")
+        worst = r0[name]["vs one process"]
+        print(f"[{card}] (b) {name} vs one process (gradients by norm), worst of each over its bound: {fmt(worst)}")
+        check(all(v <= 1.0 for v, _ in worst.values()), f"(b) {name} vs one process: {worst}")
+    worst = r0["runs agree"]
+    print(f"[{card}] (b) the two runs against each other (elementwise, phase 8's tolerances), worst over its "
+          f"bound: {fmt(worst)}")
+    check(all(v <= 1.0 for v, _ in worst.values()), f"(b) the runs disagree: {worst}")
+    want_k = {k: DP_GLOO_STEPS for k in TRAIN_COUNTERS}
+    want_k["nms"] = 0
+    for r in (r0, r1):
+        check(r[kernels_run]["launches"] == want_k, f"(b) rank {r['rank']} launches {r[kernels_run]['launches']}")
+    check(r0[plain_run]["launches"] == want_k, f"(b) rank 0 launches {r0[plain_run]['launches']}")
+    check(not any(r1[plain_run]["launches"].values()), f"(b) rank 1 on plain launched {r1[plain_run]['launches']}")
+
+    print(f"[{card}] (c) make_sharded_infer over two gloo ranks, {DP_INFER_FRAMES} frames of {N_POINTS} points, "
+          f"f32: detections {r0['infer']['shape']} on every rank; vs Detector.infer_batch at batch "
+          f"{DP_INFER_FRAMES} in one process: {r0['infer']['vs one process']}")
+    for r in (r0, r1):
+        print(f"[{card}] (c) rank {r['rank']}: {r['infer']['ms']:.3f} ms for the call; launches {r['infer']['launches']}")
+        want_i = {k: 0 for k in TRAIN_COUNTERS}
+        want_i.update(scatter_fwd=1, nms=1)
+        check(r["infer"]["launches"] == want_i, f"(c) rank {r['rank']} launches {r['infer']['launches']}")
+    check(r1["infer"]["shape"] == r0["infer"]["shape"], "(c) the ranks gathered other shapes")
+    return {
+        "(a) per step, world 1 NCCL": dp["launches"],
+        "(b) rank 0, 2 steps": r0[kernels_run]["launches"],
+        "(b) rank 1, 2 steps": r1[kernels_run]["launches"],
+        "(c) rank 0": r0["infer"]["launches"],
+        "(c) rank 1": r1["infer"]["launches"],
+        "(d) app, 3 steps": app["launches"],
+    }
+
+
 def small_config():
     """A 32x32-grid geometry with the default 9 anchors per location."""
     from det3d_tpu_torch.config import load_config
@@ -1894,10 +2310,12 @@ def main() -> int:
     for name, ms in train_stage_breakdown(trainer, state, batch, 5).items():
         print(f"  {name:36s} {ms:.3f}")
     traced = profile_device_time(lambda: trainer.train_step(state, batch), 3)
+    step_base = dict(step_ms=step_ms, step_peak=run["peak"], step_device="not measured")
     if traced is None:
         print("device time per step: not measured (the profiler trace holds no device events)")
     else:
         busy, top = traced
+        step_base["step_device"] = f"{busy:.3f} ms"
         print(f"device time per step (torch.profiler, 3 steps): {busy:.3f} ms = "
               f"{100 * busy / step_ms:.1f}% of the {step_ms:.3f} ms median step")
         for name, ms in top:
@@ -2014,6 +2432,10 @@ def main() -> int:
     finally:
         shutil.rmtree(apps_root, ignore_errors=True)
 
+    phase("15. data parallelism (ntusl_20cm: world 1 under NCCL, two gloo ranks on the one card)")
+    torch.cuda.empty_cache()
+    dp_launches = run_data_parallel(card, step_base)
+
     kernels = [
         {
             "name": "scatter_to_bev", "route": "cuda",
@@ -2079,10 +2501,12 @@ def main() -> int:
                 "scatter_to_bev_s2d_blocked": "blocked_fwd", "scatter_to_bev_s2d_blocked_bwd": "blocked_bwd"}
     graph = deploy["graph"]["per_frame"]  # None where the profiler saw no kernel inside the graph
     print(f"[{card}] calls per frame of each kernel inside the graph (profiler): {graph}")
-    for k in kernels:  # launches over phase 12 (both apps); calls per frame inside phase 13's graph; phase 14's paths
+    # launches over phase 12 (both apps); calls per frame inside phase 13's graph; phase 14's and 15's paths
+    for k in kernels:
         k["app_launches"] = app_launches[app_keys[k["name"]]]
         k["graph_launches_per_frame"] = None if graph is None else graph[k["name"]]
         k["option_launches"] = {path: n[app_keys[k["name"]]] for path, n in options["launches"].items()}
+        k["dp_launches"] = {path: n.get(app_keys[k["name"]], 0) for path, n in dp_launches.items()}
     phase(None)
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,14 +11,20 @@ loader's threads where its library builds).
 `batch > 1` runs chunks of `batch` frames through `Detector.infer_batch`
 (the network once at that batch, NMS once per chunk), the JAX app's
 `jax.vmap` path on one device; `exported` runs an exported artifact
-(`deploy.runtime.infer_exported`). Not ported: `spatial` and the batch
-sharded over several devices (ROADMAP item 13). The JAX app's
-`exact_topk` becomes `approx_topk`, because the port's top-k is exact by
-default.
+(`deploy.runtime.infer_exported`). With a data-parallel `mesh`
+(`torchrun ... infer --batch B`), each chunk is sharded over the ranks by
+`parallel/mesh.make_sharded_infer` (each rank's slice through its own
+`infer_batch`, the detections gathered in frame order), over the first
+gcd(B, world) ranks where B does not divide the world, and on rank 0
+alone where they share no factor, as the JAX app's rule
+(infer_app.py:92-116); rank 0 writes the annos, the timing and the eval.
+Not ported: `spatial` (ROADMAP). The JAX app's `exact_topk` becomes
+`approx_topk`, because the port's top-k is exact by default.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
 import time
 
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from det3d_tpu_torch.config import Config
+from det3d_tpu_torch.parallel.mesh import DataMesh, make_mesh, make_sharded_infer
 from det3d_tpu_torch.postprocess import Detections, PostProcessParams, frame_preds, to_annos
 from det3d_tpu_torch.utils.timing import StageTimers, block_until_ready, time_fn
 
@@ -60,7 +67,8 @@ def infer(
     batch: int = 1,
     exported: str | None = None,
     device=None,
-) -> dict:
+    mesh: DataMesh | None = None,
+) -> dict | None:
     """Returns {"dt_annos", "gt_annos", "eval_strs", "avg_ms", "reader",
     "stages", "timed_frames"}. `checkpoint`: a model directory (its
     `latest.pth`) or a `.pth` file; seeded random weights without one. The
@@ -70,7 +78,23 @@ def infer(
     the last chunk is padded with its last frame and the average counts
     every dispatched frame, padding included, as the JAX app does.
     `exported`: an artifact directory, run by `infer_exported` (which
-    returns its own dict) in place of a live detector."""
+    returns its own dict) in place of a live detector. `mesh`: the batch
+    sharded over its ranks (see the module docstring), on the mesh's
+    device; None on every rank but rank 0."""
+    lead = mesh is None or mesh.rank == 0  # prints, writes, evaluates
+    shard = None
+    if mesh is not None:
+        device = mesh.device
+        use = 1 if exported else math.gcd(batch, mesh.world)
+        if use > 1:
+            shard = mesh if use == mesh.world else make_mesh(use, device=device)  # a collective of every rank
+            if not shard.member:
+                return None
+        elif not lead:
+            return None
+        if lead and mesh.world > 1:
+            print(f"batch {batch} " + (f"data-parallel over {use}/{mesh.world} ranks" if shard is not None else
+                                       f"shares no factor with {mesh.world} ranks: rank 0 alone"))
     if exported:
         if checkpoint or batch > 1 or breakdown:
             raise ValueError("an exported artifact carries its weights and runs one frame at a time: "
@@ -88,15 +112,22 @@ def infer(
         from det3d_tpu_torch.train.checkpoint import load_latest_state
 
         _, state = load_latest_state(cfg, checkpoint, det)
-        print(f"loaded checkpoint @ step {state.step}")
+        if lead:
+            print(f"loaded checkpoint @ step {state.step}")
     else:
         det.init_weights(0)
-        print("WARNING: random weights (no checkpoint given)")
+        if lead:
+            print("WARNING: random weights (no checkpoint given)")
 
     reader, gt_annos, frames = frame_source(cfg, synthetic, num_frames, seed, det.pad_points)
-    print(f"point reader: {reader}")
+    if lead:
+        print(f"point reader: {reader}")
     timers = StageTimers()
-    if batch > 1:
+    if shard is not None:
+        dt_annos, total, denom, first = _run_batched(det, frames, batch, timers, make_sharded_infer(det, shard))
+        if not lead:
+            return None
+    elif batch > 1:
         dt_annos, total, denom, first = _run_batched(det, frames, batch, timers)
     else:
         dt_annos, total, denom, first = _run_frames(det, frames, timers)
@@ -145,10 +176,16 @@ def _run_frames(det, frames, timers: StageTimers):
     return dt_annos, total, max(len(dt_annos) - 1, 1), first
 
 
-def _run_batched(det, frames, batch: int, timers: StageTimers):
-    """Chunks of `batch` frames through `Detector.infer_batch`, the last
+def _run_batched(det, frames, batch: int, timers: StageTimers, sharded=None):
+    """Chunks of `batch` frames through `Detector.infer_batch`, or through
+    `sharded` (`make_sharded_infer`'s function of host arrays), the last
     chunk padded with its last frame → (annos, timed seconds, dispatched
     frames timed, the first frame)."""
+    def run(pts, cnt):
+        if sharded is not None:
+            return sharded(pts, cnt)
+        return det.infer_batch(torch.from_numpy(pts).to(det.device), torch.from_numpy(cnt).to(det.device))
+
     dt_annos, total, timed, first = [], 0.0, 0, None
     frames = list(frames)
     for start in range(0, len(frames), batch):
@@ -158,8 +195,7 @@ def _run_batched(det, frames, batch: int, timers: StageTimers):
         pts = np.stack([p for p, _ in padded])
         cnt = np.asarray([int(n) for _, n in padded], np.int32)
         t0 = time.perf_counter()
-        out = block_until_ready(det.infer_batch(torch.from_numpy(pts).to(det.device),
-                                                torch.from_numpy(cnt).to(det.device)))
+        out = block_until_ready(run(pts, cnt))
         dt = time.perf_counter() - t0
         if start > 0:
             total += dt
@@ -170,8 +206,7 @@ def _run_batched(det, frames, batch: int, timers: StageTimers):
     if timed == 0 and frames:
         # the one chunk paid the build: time it again, on moved inputs
         t0 = time.perf_counter()
-        block_until_ready(det.infer_batch(torch.from_numpy(pts + np.float32(1e-3)).to(det.device),
-                                          torch.from_numpy(cnt).to(det.device)))
+        block_until_ready(run(pts + np.float32(1e-3), cnt))
         total, timed = time.perf_counter() - t0, batch
         timers.add("e2e", total / batch)
     return dt_annos, total, max(timed, 1), first

@@ -1,4 +1,5 @@
-"""Training application: the reference's `train()` loop on one device.
+"""Training application: the reference's `train()` loop, on one device or
+data-parallel over several.
 
 Counterpart of the JAX package's apps/train_app.py (reference
 train.py:23-162): an endless step loop, running precision / recall printed
@@ -15,8 +16,18 @@ Data sources, with the JAX app's seeds, so that a seed gives its batches:
 `device_augment=True` (`train --device-augment`) moves the global
 transforms of the augmentation into the step, on the device
 (`Trainer(device_global_augment=True)`); the dataset's workers then do only
-the per-object noise. Not ported: spatial sharding and several devices
-(ROADMAP item 13).
+the per-object noise.
+
+Data-parallel (`mesh`, a `parallel.mesh.DataMesh`; `torchrun
+--nproc-per-node N -m det3d_tpu_torch train`, the JAX app's pure-DP mode,
+train_app.py:151-175): every rank runs `make_sharded_train_step` on its
+slice of each global batch of `cfg.batch_size` (which the world must
+divide), loading only that slice; every rank starts from the same weights
+(seeded, or the same `latest.pth`), broadcast from rank 0 once more by
+`replicated`. Rank 0 alone prints, writes `log.txt`, saves checkpoints
+and runs the eval; the others open the model directory readonly and wait
+at a barrier after each save and eval. Not ported: `spatial_shards`, the
+hybrid data x spatial mode (ROADMAP).
 """
 
 from __future__ import annotations
@@ -29,25 +40,32 @@ import torch
 
 from det3d_tpu_torch.config import Config
 from det3d_tpu_torch.data.synthetic import sample_scene, scene_to_annos
+from det3d_tpu_torch.parallel.mesh import DataMesh, make_sharded_train_step, replicated
 from det3d_tpu_torch.train.checkpoint import CheckpointManager
 from det3d_tpu_torch.train.metrics import RunningMetrics
 from det3d_tpu_torch.train.trainer import Trainer, host_batch
 
 
-def _batch_iterator(cfg: Config, synthetic: bool, seed: int = 0, device_augment: bool = False):
+def _batch_iterator(cfg: Config, synthetic: bool, seed: int = 0, device_augment: bool = False,
+                    shard: tuple[int, int] = (0, 1)):
     """Host TrainBatches forever (the reference's dataloader loop,
-    train.py:92-99, restarts at each epoch's end). Closing the generator
-    stops the prefetcher's workers."""
+    train.py:92-99, restarts at each epoch's end); with `shard=(rank,
+    world)`, rank's contiguous slice of each global batch. Closing the
+    generator stops the prefetcher's workers."""
+    rank, world = shard
     if synthetic:
+        local = cfg.batch_size // world
         rng = np.random.RandomState(seed)
         while True:
-            yield host_batch(cfg, [sample_scene(cfg, rng) for _ in range(cfg.batch_size)])
+            # every rank draws the global batch's scenes and keeps its own
+            scenes = [sample_scene(cfg, rng) for _ in range(cfg.batch_size)]
+            yield host_batch(cfg, scenes[rank * local:(rank + 1) * local])
     else:
         from det3d_tpu_torch.data.dataset import DetectionDataset
         from det3d_tpu_torch.data.prefetcher import BatchPrefetcher
 
         ds = DetectionDataset(cfg, cfg.train_info, training=True, seed=seed, device_global_augment=device_augment)
-        with BatchPrefetcher(ds, cfg, cfg.num_workers, seed=seed) as pf:
+        with BatchPrefetcher(ds, cfg, cfg.num_workers, seed=seed, shard=shard) as pf:
             yield from pf.epochs()
 
 
@@ -107,28 +125,45 @@ def train(
     seed: int = 0,
     device_augment: bool = False,
     device=None,
+    mesh: DataMesh | None = None,
 ) -> dict:
     """Train on `device` ("cuda" unless the caller names another) from
     seeded weights, or resume from `model_dir`'s `latest.pth` with the
     config's lr (reference train.py:69-76); `device_augment`: the global
-    augmentation inside the step, on the device. Returns what the loop saw:
-    the steps run, ms/step of each display window, the seconds each step
-    waited for its batch, each save's and each eval's wall seconds, the eval
-    strings, and the trainer and its state."""
+    augmentation inside the step, on the device; `mesh`: data-parallel on
+    the mesh's device (see the module docstring). Returns what the loop saw
+    (on rank 0; the other ranks keep the steps, batch waits and their
+    trainer and state): the steps run, ms/step of each display window, the
+    seconds each step waited for its batch, each save's and each eval's
+    wall seconds, the eval strings, and the trainer and its state."""
     model_dir = Path(model_dir or (Path(cfg.model_path or ".") / cfg.experiment))
-    model_dir.mkdir(parents=True, exist_ok=True)
     log_path = model_dir / "log.txt"
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    lead = rank == 0  # prints, writes, evaluates
+    if mesh is not None:
+        if cfg.batch_size % world:
+            raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the {world} data-parallel ranks")
+        device = mesh.device
+    if lead:
+        model_dir.mkdir(parents=True, exist_ok=True)
 
     trainer = Trainer(cfg, device, device_global_augment=device_augment, aug_seed=seed)
-    ckpt = CheckpointManager(model_dir)
+    ckpt = CheckpointManager(model_dir, readonly=not lead)
     state = trainer.init_state(seed)
     restored = ckpt.restore_latest(trainer)
     if restored is not None:
         state = Trainer.override_lr(restored, cfg.learning_rate)
-        print(f"resumed from step {state.step} (lr={cfg.learning_rate})")
+        if lead:
+            print(f"resumed from step {state.step} (lr={cfg.learning_rate})")
+    step_fn = trainer.train_step
+    if mesh is not None:
+        state = replicated(mesh, trainer, state)
+        step_fn = make_sharded_train_step(trainer, mesh)
+        if lead:
+            print(f"data-parallel over {world} ranks ({mesh.backend}), {cfg.batch_size // world} samples each")
 
     metrics = RunningMetrics()
-    batches = _batch_iterator(cfg, synthetic, seed, device_augment)
+    batches = _batch_iterator(cfg, synthetic, seed, device_augment, (rank, world))
     eval_set = None
     summary = {"steps": 0, "ms_per_step": [], "batch_wait_s": [], "save_s": [], "eval_s": [], "eval_strs": []}
 
@@ -142,11 +177,12 @@ def train(
             t_wait = time.perf_counter()
             batch = next(batches)
             summary["batch_wait_s"].append(time.perf_counter() - t_wait)
-            state, loss_dict, counts = trainer.train_step(state, batch)
+            state, loss_dict, counts = step_fn(state, batch)
             step += 1
-            pending_counts.append(counts)
+            if lead:
+                pending_counts.append(counts)
 
-            if step % display_step == 0:
+            if lead and step % display_step == 0:
                 for c in pending_counts:
                     metrics.update(c)
                 pending_counts.clear()
@@ -159,21 +195,27 @@ def train(
                 t0 = time.perf_counter()
 
             if step % save_step == 0:
-                t_save = time.perf_counter()
-                ckpt.save(state, trainer.model)
-                summary["save_s"].append(time.perf_counter() - t_save)
-                print(f"saved checkpoint @ {step}")
+                if lead:
+                    t_save = time.perf_counter()
+                    ckpt.save(state, trainer.model)
+                    summary["save_s"].append(time.perf_counter() - t_save)
+                    print(f"saved checkpoint @ {step}")
+                if mesh is not None:
+                    mesh.barrier()
 
             if step % eval_step == 0:
-                t_eval = time.perf_counter()
-                if eval_set is None:
-                    eval_set = _eval_samples(cfg, synthetic, eval_frames)
-                eval_str = run_eval(trainer, *eval_set)
-                summary["eval_s"].append(time.perf_counter() - t_eval)
-                summary["eval_strs"].append(eval_str)
-                print(eval_str)
-                with open(log_path, "a") as f:
-                    f.write(f"===== step {step} =====\n{eval_str}\n")
+                if lead:
+                    t_eval = time.perf_counter()
+                    if eval_set is None:
+                        eval_set = _eval_samples(cfg, synthetic, eval_frames)
+                    eval_str = run_eval(trainer, *eval_set)
+                    summary["eval_s"].append(time.perf_counter() - t_eval)
+                    summary["eval_strs"].append(eval_str)
+                    print(eval_str)
+                    with open(log_path, "a") as f:
+                        f.write(f"===== step {step} =====\n{eval_str}\n")
+                if mesh is not None:
+                    mesh.barrier()
                 t0 = time.perf_counter()
     finally:
         batches.close()

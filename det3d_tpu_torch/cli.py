@@ -11,6 +11,8 @@
     python -m det3d_tpu_torch export-weights --config ... --checkpoint DIR --out FILE.pth
     python -m det3d_tpu_torch create-info --root DATA_ROOT [--waymo]
 
+    torchrun --nproc-per-node N -m det3d_tpu_torch train|infer ...   (data-parallel on cards 0..N-1)
+
 Counterpart of the JAX package's cli.py for these commands, with its flags
 where they apply, plus `--device` (default `cuda`, an error without a card;
 `--device cpu` runs on the CPU, and there a bf16 config computes in
@@ -20,8 +22,12 @@ runs the global augmentation on the device, inside the step. A config's
 `head: "multi"`, and `pack_w` with its `fuse_in_stats` and `split_head`,
 run through every command; `import-weights` / `export-weights` refuse a
 multi-head config (the reference `.pth` layout has the shared head only).
-Not offered yet: view and tune (ROADMAP), and `--spatial` (several
-devices).
+Under `torchrun`, `train` and `infer` run data-parallel over its world
+(`parallel/mesh.make_mesh`: NCCL on `cuda:LOCAL_RANK`, gloo with `--device
+cpu`), as the JAX CLI runs over every visible device: `train` shards each
+global batch over the ranks, `infer --batch B` each chunk; rank 0 prints
+and writes. Without `torchrun` every command runs in this one process.
+Not offered yet: view and tune (ROADMAP), and `--spatial` / `--spatial-shards`.
 """
 
 from __future__ import annotations
@@ -131,6 +137,24 @@ def main(argv: list[str] | None = None) -> None:
         print(f"{args.cmd} on cpu: promoting compute_dtype bfloat16 -> float32")
         cfg = cfg.replace(compute_dtype="float32")
 
+    mesh = None
+    if args.cmd in ("train", "infer"):
+        from det3d_tpu_torch.parallel.mesh import launched_by_torchrun, make_mesh
+
+        if launched_by_torchrun():
+            mesh = make_mesh(device=device)
+    try:
+        _run(args, cfg, device, mesh)
+        if mesh is not None:
+            mesh.barrier()  # no rank leaves while another still works
+    finally:
+        if mesh is not None:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, device, mesh) -> None:
     if args.cmd == "train":
         if args.batch_size:
             cfg = cfg.replace(batch_size=args.batch_size)
@@ -140,13 +164,14 @@ def main(argv: list[str] | None = None) -> None:
 
         train(cfg, max_steps=args.steps, display_step=args.display_step, save_step=args.save_step,
               eval_step=args.eval_step, eval_frames=args.eval_frames, synthetic=args.synthetic,
-              model_dir=args.model_dir, seed=args.seed, device_augment=args.device_augment, device=device)
+              model_dir=args.model_dir, seed=args.seed, device_augment=args.device_augment, device=device,
+              mesh=mesh)
     elif args.cmd == "infer":
         from det3d_tpu_torch.apps.infer_app import infer
 
         infer(cfg, checkpoint=args.checkpoint, synthetic=args.synthetic, num_frames=args.frames,
               breakdown=args.breakdown, out_path=args.out, approx_topk=args.approx_topk, batch=args.batch,
-              exported=args.exported, device=device)
+              exported=args.exported, device=device, mesh=mesh)
     elif args.cmd == "export":
         from det3d_tpu_torch.deploy.export import export_detector
 

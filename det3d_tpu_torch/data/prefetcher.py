@@ -10,8 +10,11 @@ into each worker; this module and the dataset's import no torch, so a
 worker never touches the card.
 
 Workers reseed the augmentation rng per (seed, epoch, index), so an epoch
-is the same whichever worker takes which sample, and the same as the JAX
-prefetcher's for the same seed.
+is the same whichever worker, or whichever rank of a data-parallel run,
+takes which sample, and the same as the JAX prefetcher's for the same
+seed. `shard=(rank, world)` loads only a rank's contiguous slice of each
+global batch of `cfg.batch_size` samples (the shuffle is the same on every
+rank), so the ranks' slices in rank order are the one-process batch.
 """
 
 from __future__ import annotations
@@ -49,11 +52,15 @@ class BatchPrefetcher:
                 ...
     """
 
-    def __init__(self, dataset, cfg: Config, num_workers: int, *, seed: int = 0):
+    def __init__(self, dataset, cfg: Config, num_workers: int, *, seed: int = 0, shard: tuple[int, int] = (0, 1)):
+        rank, world = shard
+        if cfg.batch_size % world or not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world}: batch_size {cfg.batch_size} must split over the ranks")
         self.dataset = dataset
         self.cfg = cfg
         self.num_workers = max(int(num_workers), 0)
         self.seed = seed
+        self.shard = shard
         self._pool = None
         if self.num_workers > 0:
             ctx = mp.get_context("spawn")
@@ -66,16 +73,20 @@ class BatchPrefetcher:
         order = np.arange(len(self.dataset))
         rng.shuffle(order)
         bs = self.cfg.batch_size
+        rank, world = self.shard
+        local = bs // world
         idxs = order[: (len(order) // bs) * bs]
+        # this rank's slice of each global batch
+        idxs = idxs.reshape(-1, world, local)[:, rank].reshape(-1)
         jobs = [((self.seed * 1_000_003 + epoch * 9_999_991 + int(i)) & 0xFFFFFFFF, i) for i in idxs]
         if self._pool is None:
             samples = (_load_with(self.dataset, job) for job in jobs)
         else:
-            samples = self._pool.imap(_load_one, jobs, chunksize=max(1, bs // self.num_workers))
+            samples = self._pool.imap(_load_one, jobs, chunksize=max(1, local // self.num_workers))
         buf = []
         for s in samples:
             buf.append(s)
-            if len(buf) == bs:
+            if len(buf) == local:
                 yield host_batch(self.cfg, buf)
                 buf = []
 

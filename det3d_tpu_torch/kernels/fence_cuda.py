@@ -133,11 +133,12 @@ def fence_copy_cuda(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     plan = copy_plan(x)
     arrays = [(ctypes.c_int64 * MAX_RANK)(*v) for v in (plan.sizes, plan.src, plan.dst)]
-    err = _lib().det3d_fence_copy(
-        x.data_ptr(), out.data_ptr(), x.numel(), x.element_size(), ROUTES.index(plan.route), len(plan.sizes),
-        *(ctypes.addressof(a) for a in arrays), plan.inner, plan.tile, plan.row,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the runtime launches on the current device
+        err = _lib().det3d_fence_copy(
+            x.data_ptr(), out.data_ptr(), x.numel(), x.element_size(), ROUTES.index(plan.route), len(plan.sizes),
+            *(ctypes.addressof(a) for a in arrays), plan.inner, plan.tile, plan.row,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"fence.cu ({plan.route}) failed with CUDA error {err}")
     counter.launches += 1

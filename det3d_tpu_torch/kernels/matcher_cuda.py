@@ -115,12 +115,13 @@ def gt_max_bits_cuda(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, g
     _check(tables, mask, gt_boxes, gt_bv, gt_classes, gt_valid)
     b, g = gt_valid.shape
     bits = torch.empty((b, g), dtype=torch.int32, device=mask.device)
-    err = _lib().det3d_matcher_gt_max(
-        tables.anchors_bv.data_ptr(), tables.chunk_bv.data_ptr(), mask.data_ptr(), gt_bv.data_ptr(),
-        gt_classes.data_ptr(), gt_valid.data_ptr(), tables.class_start.data_ptr(),
-        tables.class_start.shape[0] - 1, b, tables.anchors.shape[0], g, tables.chunk_bv.shape[0],
-        parts, bits.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream,
-    )
+    with torch.cuda.device(mask.device):  # the runtime launches on the current device
+        err = _lib().det3d_matcher_gt_max(
+            tables.anchors_bv.data_ptr(), tables.chunk_bv.data_ptr(), mask.data_ptr(), gt_bv.data_ptr(),
+            gt_classes.data_ptr(), gt_valid.data_ptr(), tables.class_start.data_ptr(),
+            tables.class_start.shape[0] - 1, b, tables.anchors.shape[0], g, tables.chunk_bv.shape[0],
+            parts, bits.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"matcher.cu gt-max failed with CUDA error {err}")
     if parts & 2:
@@ -152,15 +153,16 @@ def assign_cuda(tables: MatcherTables, mask, gt_boxes, gt_bv, gt_classes, gt_val
     targets = torch.empty((b, 7, a), dtype=torch.float32, device=dev)
     weights = torch.empty((b, a), dtype=torch.float32, device=dev)
     dirs = torch.empty((b, a), dtype=torch.int32, device=dev)
-    err = _lib().det3d_matcher_assign(
-        tables.anchors_t.data_ptr(), tables.anchors_bv.data_ptr(), tables.chunk_bv.data_ptr(),
-        mask.data_ptr(), gt_boxes.data_ptr(), gt_bv.data_ptr(), gt_classes.data_ptr(), gt_valid.data_ptr(),
-        gmax_bits.data_ptr(), tables.class_start.data_ptr(), tables.thresholds.data_ptr(),
-        tables.class_start.shape[0] - 1, b, a, g, tables.chunk_bv.shape[0],
-        int(early),
-        labels.data_ptr(), targets.data_ptr(), weights.data_ptr(), dirs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the runtime launches on the current device
+        err = _lib().det3d_matcher_assign(
+            tables.anchors_t.data_ptr(), tables.anchors_bv.data_ptr(), tables.chunk_bv.data_ptr(),
+            mask.data_ptr(), gt_boxes.data_ptr(), gt_bv.data_ptr(), gt_classes.data_ptr(), gt_valid.data_ptr(),
+            gmax_bits.data_ptr(), tables.class_start.data_ptr(), tables.thresholds.data_ptr(),
+            tables.class_start.shape[0] - 1, b, a, g, tables.chunk_bv.shape[0],
+            int(early),
+            labels.data_ptr(), targets.data_ptr(), weights.data_ptr(), dirs.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"matcher.cu assign failed with CUDA error {err}")
     assign_counter.launches += 1

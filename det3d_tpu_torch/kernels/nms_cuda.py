@@ -76,9 +76,10 @@ def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, mask:
     ncls = boxes.shape[0] if boxes.dim() == 3 else 1
     keep = torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = _lib().det3d_nms_keep(
-        boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), ncls, k, iou_threshold, parts, stream
-    )
+    with torch.cuda.device(boxes.device):  # the runtime launches on the current device
+        err = _lib().det3d_nms_keep(
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), ncls, k, iou_threshold, parts, stream
+        )
     if err != 0:
         raise RuntimeError(f"nms.cu failed with CUDA error {err}")
     return keep

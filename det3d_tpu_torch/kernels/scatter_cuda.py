@@ -156,10 +156,11 @@ def scatter_to_bev_cuda(pillar_features: torch.Tensor, coors: torch.Tensor, grid
     b, v, c = pillar_features.shape
     canvas = torch.empty((b, nx, ny, c), dtype=pillar_features.dtype, device=pillar_features.device)
     stream = torch.cuda.current_stream(pillar_features.device).cuda_stream
-    err = _lib().det3d_scatter_to_bev(
-        pillar_features.data_ptr(), coors.data_ptr(), canvas.data_ptr(),
-        b, v, c, pillar_features.element_size(), nx, ny, stream,
-    )
+    with torch.cuda.device(pillar_features.device):  # the runtime launches on the current device
+        err = _lib().det3d_scatter_to_bev(
+            pillar_features.data_ptr(), coors.data_ptr(), canvas.data_ptr(),
+            b, v, c, pillar_features.element_size(), nx, ny, stream,
+        )
     if err != 0:
         raise RuntimeError(f"scatter.cu failed with CUDA error {err}")
     counter.launches += 1
@@ -176,11 +177,12 @@ def scatter_to_bev_bwd_cuda(grad_canvas: torch.Tensor, coors: torch.Tensor) -> t
     v = coors.shape[1]
     dfeats = torch.empty((b, v, c), dtype=grad_canvas.dtype, device=grad_canvas.device)
     sb, sx, sy, _ = grad_canvas.stride()
-    err = _lib().det3d_scatter_to_bev_bwd(
-        grad_canvas.data_ptr(), coors.data_ptr(), dfeats.data_ptr(),
-        b, v, c, grad_canvas.element_size(), nx, ny, sb, sx, sy,
-        torch.cuda.current_stream(grad_canvas.device).cuda_stream,
-    )
+    with torch.cuda.device(grad_canvas.device):  # the runtime launches on the current device
+        err = _lib().det3d_scatter_to_bev_bwd(
+            grad_canvas.data_ptr(), coors.data_ptr(), dfeats.data_ptr(),
+            b, v, c, grad_canvas.element_size(), nx, ny, sb, sx, sy,
+            torch.cuda.current_stream(grad_canvas.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"scatter.cu backward failed with CUDA error {err}")
     bwd_counter.launches += 1
@@ -343,11 +345,12 @@ def scatter_to_bev_s2d_cuda(pillar_features: torch.Tensor, coors: torch.Tensor, 
     b, v, c = pillar_features.shape
     shape = (b, ny // 2, nx // 2, 4 * c) if w_major else (b, nx // 2, ny // 2, 4 * c)
     canvas = torch.empty(shape, dtype=pillar_features.dtype, device=pillar_features.device)
-    err = _lib().det3d_scatter_to_bev_s2d(
-        pillar_features.data_ptr(), coors.data_ptr(), canvas.data_ptr(),
-        b, v, c, pillar_features.element_size(), nx, ny, int(w_major),
-        torch.cuda.current_stream(pillar_features.device).cuda_stream,
-    )
+    with torch.cuda.device(pillar_features.device):  # the runtime launches on the current device
+        err = _lib().det3d_scatter_to_bev_s2d(
+            pillar_features.data_ptr(), coors.data_ptr(), canvas.data_ptr(),
+            b, v, c, pillar_features.element_size(), nx, ny, int(w_major),
+            torch.cuda.current_stream(pillar_features.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"scatter.cu s2d failed with CUDA error {err}")
     s2d_counter.launches += 1
@@ -363,11 +366,12 @@ def scatter_to_bev_s2d_bwd_cuda(grad_canvas: torch.Tensor, coors: torch.Tensor) 
     v = coors.shape[1]
     dfeats = torch.empty((b, v, c4 // 4), dtype=grad_canvas.dtype, device=grad_canvas.device)
     sb, sx, sy, _ = grad_canvas.stride()
-    err = _lib().det3d_scatter_to_bev_s2d_bwd(
-        grad_canvas.data_ptr(), coors.data_ptr(), dfeats.data_ptr(),
-        b, v, c4 // 4, grad_canvas.element_size(), 2 * nx2, 2 * ny2, sb, sx, sy,
-        torch.cuda.current_stream(grad_canvas.device).cuda_stream,
-    )
+    with torch.cuda.device(grad_canvas.device):  # the runtime launches on the current device
+        err = _lib().det3d_scatter_to_bev_s2d_bwd(
+            grad_canvas.data_ptr(), coors.data_ptr(), dfeats.data_ptr(),
+            b, v, c4 // 4, grad_canvas.element_size(), 2 * nx2, 2 * ny2, sb, sx, sy,
+            torch.cuda.current_stream(grad_canvas.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"scatter.cu s2d backward failed with CUDA error {err}")
     s2d_bwd_counter.launches += 1
@@ -385,11 +389,12 @@ def scatter_to_bev_s2d_blocked_cuda(pillar_features: torch.Tensor, coors: torch.
     b, v, c = pillar_features.shape
     canvas = torch.empty((b, nblk, rtot, ny // 2, 4 * c), dtype=pillar_features.dtype,
                          device=pillar_features.device)
-    err = _lib().det3d_scatter_to_bev_s2d_blocked(
-        pillar_features.data_ptr(), coors.data_ptr(), canvas.data_ptr(),
-        b, v, c, pillar_features.element_size(), nx, ny, nblk, halo[0], halo[1],
-        torch.cuda.current_stream(pillar_features.device).cuda_stream,
-    )
+    with torch.cuda.device(pillar_features.device):  # the runtime launches on the current device
+        err = _lib().det3d_scatter_to_bev_s2d_blocked(
+            pillar_features.data_ptr(), coors.data_ptr(), canvas.data_ptr(),
+            b, v, c, pillar_features.element_size(), nx, ny, nblk, halo[0], halo[1],
+            torch.cuda.current_stream(pillar_features.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"scatter.cu blocked s2d failed with CUDA error {err}")
     blocked_counter.launches += 1
@@ -407,11 +412,12 @@ def scatter_to_bev_s2d_blocked_bwd_cuda(grad_canvas: torch.Tensor, coors: torch.
     v = coors.shape[1]
     dfeats = torch.empty((b, v, c4 // 4), dtype=grad_canvas.dtype, device=grad_canvas.device)
     sb, sj, sr, sy, _ = grad_canvas.stride()
-    err = _lib().det3d_scatter_to_bev_s2d_blocked_bwd(
-        grad_canvas.data_ptr(), coors.data_ptr(), dfeats.data_ptr(),
-        b, v, c4 // 4, int(grad_canvas.dtype == torch.bfloat16), 2 * nx2, 2 * ny2, nblk, halo[0], halo[1],
-        sb, sj, sr, sy, torch.cuda.current_stream(grad_canvas.device).cuda_stream,
-    )
+    with torch.cuda.device(grad_canvas.device):  # the runtime launches on the current device
+        err = _lib().det3d_scatter_to_bev_s2d_blocked_bwd(
+            grad_canvas.data_ptr(), coors.data_ptr(), dfeats.data_ptr(),
+            b, v, c4 // 4, int(grad_canvas.dtype == torch.bfloat16), 2 * nx2, 2 * ny2, nblk, halo[0], halo[1],
+            sb, sj, sr, sy, torch.cuda.current_stream(grad_canvas.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"scatter.cu blocked s2d backward failed with CUDA error {err}")
     blocked_bwd_counter.launches += 1

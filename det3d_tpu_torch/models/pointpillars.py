@@ -60,6 +60,7 @@ from torch import nn
 
 from det3d_tpu_torch.config import Config
 from det3d_tpu_torch.kernels.scatter_cuda import scatter_to_bev, scatter_to_bev_s2d, scatter_to_bev_s2d_blocked
+from det3d_tpu_torch.parallel.mesh import all_reduce_sum
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -86,8 +87,9 @@ class PFN(nn.Module):
         )
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor, coors: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
-        # voxels (B, V, P, 4) f32, num_points (B, V) int32, coors (B, V, 3)
+                train: bool = False, mesh=None) -> torch.Tensor:
+        # voxels (B, V, P, 4) f32, num_points (B, V) int32, coors (B, V, 3);
+        # mesh: the sync-BN group of a data-parallel step (JAX's axis_name)
         vx, vy = self.voxel_size[0], self.voxel_size[1]
         x_offset = vx / 2 + self.offset[0]
         y_offset = vy / 2 + self.offset[1]
@@ -109,7 +111,7 @@ class PFN(nn.Module):
         conv, bn = self.pfn_layers
         x = F.linear(features.to(self.dtype), conv.weight[:, :, 0].to(self.dtype))
         if train:
-            mean, var = masked_batch_stats(x, mask, bn)
+            mean, var = masked_batch_stats(x, mask, bn, mesh)
         else:
             mean, var = bn.running_mean, bn.running_var
         # batch norm in float32
@@ -124,21 +126,32 @@ class PFN(nn.Module):
         return torch.where((num_points > 0)[..., None], x, 0.0).to(self.dtype)
 
 
-def masked_batch_stats(x: torch.Tensor, mask: torch.Tensor, bn: nn.BatchNorm1d):
+def masked_batch_stats(x: torch.Tensor, mask: torch.Tensor, bn: nn.BatchNorm1d, mesh=None):
     """Training statistics of the PFN batch norm (the JAX package's
     MaskedBatchNorm, models/pointpillars.py:51-104): float32 mean and biased
     variance over the valid point slots only, per channel of x (..., C);
     `mask` (...) marks the valid slots. Updates `bn`'s running statistics
     with the unbiased variance sum_sq / max(count - 1, 1), as torch's
     BatchNorm1d stores it. `nn.BatchNorm1d`'s own train forward would
-    average the padding slots too, so it holds the parameters only."""
+    average the padding slots too, so it holds the parameters only.
+
+    `mesh` (a `parallel.mesh.DataMesh`, JAX's `axis_name`): sync-BN.
+    [count, Σx] and then Σ m(x - mean)² are summed over the ranks
+    (`all_reduce_sum`, differentiable), so every rank normalises with the
+    global batch's statistics and stores the same running ones."""
     m = mask.to(torch.float32)[..., None]
     xf = x.to(torch.float32)
     red = tuple(range(x.dim() - 1))
     count = m.sum()
+    sum_x = (xf * m).sum(dim=red)
+    if mesh is not None:
+        sums = all_reduce_sum(torch.cat([count[None], sum_x]), mesh)
+        count, sum_x = sums[0], sums[1:]
     denom = torch.clamp(count, min=1.0)
-    mean = (xf * m).sum(dim=red) / denom
+    mean = sum_x / denom
     sum_sq = (m * (xf - mean) ** 2).sum(dim=red)
+    if mesh is not None:
+        sum_sq = all_reduce_sum(sum_sq, mesh)
     with torch.no_grad():
         # torch's convention: momentum is the share of the new batch statistic
         var_unbiased = sum_sq / torch.clamp(count - 1.0, min=1.0)
@@ -989,11 +1002,12 @@ class PointPillars(nn.Module):
         return scatter(feats, coors, self.grid_xy).permute(0, 3, 1, 2)
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor, coors: torch.Tensor,
-                train: bool = False) -> dict:
+                train: bool = False, mesh=None) -> dict:
         # voxels (B, V, P, 4), num_points (B, V) int32, coors (B, V, 3) int32;
-        # train: masked batch statistics in the PFN (and their running update)
+        # train: masked batch statistics in the PFN (and their running update);
+        # mesh: those statistics synced over a data-parallel group (JAX's axis_name)
         layout = self.layout(voxels.shape[0], train)
-        pillar_features = self.pillar_point_net(voxels, num_points, coors, train)
+        pillar_features = self.pillar_point_net(voxels, num_points, coors, train, mesh)
         x = self.canvas(pillar_features, coors, layout)
         return self.heads(self.rpn(x, *layout, *self.neck(train)))
 

@@ -18,6 +18,10 @@ the JAX package (`import_torch_checkpoint`):
 
 Each file is written to `.tmp.<name>.<hex>` in the same directory and then
 renamed over its target, so a crash mid-save leaves the previous `latest`.
+In a data-parallel run rank 0 alone writes; every other rank opens the
+directory `readonly` (no sweep of `.tmp.*` files that rank 0 may be
+writing, and `save` raises), restores from it, and waits at a barrier
+while rank 0 saves (`apps/train_app.py`).
 """
 
 from __future__ import annotations

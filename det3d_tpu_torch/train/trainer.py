@@ -15,6 +15,14 @@ the scatter's forward and backward kernels once each, and the fence once.
 (flip, rotation, scaling, translation) inside the step on the device, as
 the JAX trainer's option of that name does, with the dataset's host chain
 keeping only the per-object noise (`DetectionDataset(device_global_augment=True)`).
+
+`train_step(state, batch, mesh)` is the per-rank body of a data-parallel
+step (`parallel/mesh.make_sharded_train_step`; the JAX step's `axis_name`,
+trainer.py:166-234): the batch is this rank's slice, the PFN's batch
+statistics are synced over the mesh, the gradients averaged over it in
+one all-reduce before the clip and Adam, the loss terms averaged and the
+metric counts summed, so every rank applies the one-process step's update
+at the global batch.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from det3d_tpu_torch.kernels.fence_cuda import s2b_fence
 from det3d_tpu_torch.losses import detection_loss
 from det3d_tpu_torch.ops import geometry
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame
+from det3d_tpu_torch.parallel.mesh import pmean, pmean_gradients, psum
 from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.postprocess import Detections
 from det3d_tpu_torch.targets import TargetAssignment, make_target_assigner
@@ -68,11 +77,14 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.power(np.float32(decay), np.float32(count)))
 
 
-def augment_seed(aug_seed: int, step: int) -> int:
+def augment_seed(aug_seed: int, step: int, rank: int | None = None) -> int:
     """The seed of a step's augmentation draws: a function of the run's seed
     and the step alone (the JAX trainer's `fold_in(key, step)`), so a
-    resumed run draws what the uninterrupted one drew."""
-    return int(np.random.SeedSequence((aug_seed, step)).generate_state(1, np.uint64)[0])
+    resumed run draws what the uninterrupted one drew; in a data-parallel
+    step also of the rank (its `fold_in(key, axis_index)`), so that each
+    rank draws its own transforms."""
+    entropy = (aug_seed, step) if rank is None else (aug_seed, step, rank)
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
 
 
 class Trainer:
@@ -124,10 +136,11 @@ class Trainer:
     def to_device(self, batch: TrainBatch) -> TrainBatch:
         return TrainBatch(*(torch.as_tensor(a).to(self.device) for a in batch))
 
-    def augment_params(self, step: int, batch: int) -> dict:
+    def augment_params(self, step: int, batch: int, rank: int | None = None) -> dict:
         """The step's global-augmentation parameters, one row per sample,
-        drawn on the trainer's device (no host round trip)."""
-        self.aug_generator.manual_seed(augment_seed(self.aug_seed, step))
+        drawn on the trainer's device (no host round trip); `rank`: this
+        rank's draws in a data-parallel step."""
+        self.aug_generator.manual_seed(augment_seed(self.aug_seed, step, rank))
         return agm.sample_global_augment_params(self.aug_generator, batch, self.device)
 
     def device_augment(self, points, gt_boxes, gt_valid, params: dict):
@@ -143,14 +156,15 @@ class Trainer:
         yaw = geometry.limit_period(gt_boxes[..., 6:], period=2 * math.pi)
         return points, torch.cat([gt_boxes[..., :6], yaw], dim=-1), gt_valid & keep.reshape(gt_valid.shape)
 
-    def prepare(self, batch: TrainBatch, step: int = 0) -> tuple[VoxelizedFrame, TargetAssignment]:
+    def prepare(self, batch: TrainBatch, step: int = 0,
+                rank: int | None = None) -> tuple[VoxelizedFrame, TargetAssignment]:
         """(The global augmentation of step `step`, where the trainer applies
-        it, then) per sample voxelize + anchor mask, then one target
-        assignment for the stacked batch (trainer.py:124-161 of the JAX
-        package)."""
+        it, drawn for `rank` in a data-parallel step, then) per sample
+        voxelize + anchor mask, then one target assignment for the stacked
+        batch (trainer.py:124-161 of the JAX package)."""
         points, gt_boxes, gt_valid = batch.points, batch.gt_boxes, batch.gt_valid
         if self.device_global_augment:
-            params = self.augment_params(step, points.shape[0])
+            params = self.augment_params(step, points.shape[0], rank)
             points, gt_boxes, gt_valid = self.device_augment(points, gt_boxes, gt_valid, params)
         frames, masks = [], []
         for i in range(points.shape[0]):
@@ -161,10 +175,11 @@ class Trainer:
         tgt = self.assigner(gt_boxes, batch.gt_classes, gt_valid, torch.stack(masks))
         return frames, tgt
 
-    def forward_loss(self, frames: VoxelizedFrame, tgt: TargetAssignment):
-        """Train-mode forward, the fence on `cls_preds` (as the JAX step,
-        trainer.py:199-211), and the loss: (loss dict, preds)."""
-        preds = self.model(frames.voxels, frames.num_points_per_voxel, frames.coors, train=True)
+    def forward_loss(self, frames: VoxelizedFrame, tgt: TargetAssignment, mesh=None):
+        """Train-mode forward (its batch statistics synced over `mesh`), the
+        fence on `cls_preds` (as the JAX step, trainer.py:199-211), and the
+        loss: (loss dict, preds)."""
+        preds = self.model(frames.voxels, frames.num_points_per_voxel, frames.coors, train=True, mesh=mesh)
         preds = dict(preds, cls_preds=self.fence(preds["cls_preds"]))
         loss_dict = detection_loss(preds, tgt.labels, tgt.bbox_targets, tgt.dir_targets)
         return loss_dict, preds
@@ -198,18 +213,28 @@ class Trainer:
         return state
 
     # -- the step ----------------------------------------------------------
-    def train_step(self, state: TrainState, batch: TrainBatch):
-        """One optimizer step → (state, loss dict, metric counts)."""
+    def train_step(self, state: TrainState, batch: TrainBatch, mesh=None):
+        """One optimizer step → (state, loss dict, metric counts). With
+        `mesh` (a `parallel.mesh.DataMesh`), the per-rank body of a
+        data-parallel step on this rank's slice of the batch: sync-BN, and
+        the gradients and losses averaged and the counts summed over the
+        ranks (the JAX step's `pmean` / `psum`, trainer.py:226-234). The
+        losses are means per sample over the local batch, so their mean
+        over equal slices is the global batch's."""
         batch = self.to_device(batch)
-        frames, tgt = self.prepare(batch, state.step)
-        loss_dict, preds = self.forward_loss(frames, tgt)
+        frames, tgt = self.prepare(batch, state.step, None if mesh is None else mesh.rank)
+        loss_dict, preds = self.forward_loss(frames, tgt, mesh)
         for p in self.params:
             p.grad = None
         loss_dict["loss"].backward()
         with torch.no_grad():
             metrics = binary_counts(tgt.labels, preds["cls_preds"])
+        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        if mesh is not None:
+            pmean_gradients(self.params, mesh)
+            loss_dict, metrics = pmean(loss_dict, mesh), psum(metrics, mesh)
         self.apply_gradients(state)
-        return state, {k: v.detach() for k, v in loss_dict.items()}, metrics
+        return state, loss_dict, metrics
 
     # -- eval forward (for the in-training eval loop) -----------------------
     def eval_step(self, points, num_points) -> Detections:

@@ -752,3 +752,63 @@ def test_layout_scatters_autograd_use_their_kernels(cuda):
     assert torch.equal(f.grad, scatter_cuda.scatter_to_bev_s2d_blocked_bwd_plain(g5, co, (4, 3)))
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [n + 1 for n in before]
+
+
+# --- the device guard: tensors on another card than the current one --------
+
+
+@pytest.fixture
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (run on a machine of several cards with -m gpu)")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["scatter", "scatter_bwd", "s2d", "s2d_bwd", "blocked", "blocked_bwd", "nms",
+                                    "matcher", "fence"])
+def test_kernels_launch_on_the_card_of_their_tensors(second_card, kernel):
+    """Every wrapper launches on its tensors' card, not on the current one
+    (the CUDA runtime's default): the tensors on cuda:1 while cuda:0 is
+    current, the result equal to the plain version there, and cuda:0 still
+    current afterwards."""
+    dev = second_card
+    feats, coors = scatter_case(2, 300, 16, (48, 40), 250, seed=9)
+    f, co = torch.from_numpy(feats).to(dev), torch.from_numpy(coors).to(dev)
+    if kernel == "scatter":
+        got, want = scatter_cuda.scatter_to_bev_cuda(f, co, (48, 40)), scatter_cuda.scatter_to_bev_plain(f, co, (48, 40))
+    elif kernel == "scatter_bwd":
+        g = torch.randn(2, 48, 40, 16, device=dev)
+        got, want = scatter_cuda.scatter_to_bev_bwd_cuda(g, co), scatter_cuda.scatter_to_bev_bwd_plain(g, co)
+    elif kernel == "s2d":
+        got = scatter_cuda.scatter_to_bev_s2d_cuda(f, co, (48, 40))
+        want = scatter_cuda.scatter_to_bev_s2d_plain(f, co, (48, 40))
+    elif kernel == "s2d_bwd":
+        g = torch.randn(2, 24, 20, 64, device=dev)
+        got, want = scatter_cuda.scatter_to_bev_s2d_bwd_cuda(g, co), scatter_cuda.scatter_to_bev_s2d_bwd_plain(g, co)
+    elif kernel == "blocked":
+        got = scatter_cuda.scatter_to_bev_s2d_blocked_cuda(f, co, (48, 40), 3, (4, 3))
+        want = scatter_cuda.scatter_to_bev_s2d_blocked_plain(f, co, (48, 40), 3, (4, 3))
+    elif kernel == "blocked_bwd":
+        g = torch.randn(2, 3, 15, 20, 64, device=dev)
+        got = scatter_cuda.scatter_to_bev_s2d_blocked_bwd_cuda(g, co, (4, 3))
+        want = scatter_cuda.scatter_to_bev_s2d_blocked_bwd_plain(g, co, (4, 3))
+    elif kernel == "nms":
+        boxes, valid = zip(*(nms_case(700, seed)[:2] for seed in (1, 2, 3)))
+        b = torch.from_numpy(np.stack(boxes)).to(dev)
+        v = torch.from_numpy(np.stack(valid)).to(dev)
+        got, want = nms_cuda.nms_keep_cuda(b, v, 0.5), nms_cuda.nms_keep_plain(b, v, 0.5)
+    elif kernel == "matcher":
+        cfg = load_config(MATCH_CFG)
+        assigner = make_assigner(cfg, dev)
+        args = matcher_case(cfg, assigner, seed=4, device=dev)
+        got = assigner(*args[1:], args[0])
+        want = assigner.plain(*args[1:], args[0])
+        got, want = torch.stack([got.labels, got.dir_targets]), torch.stack([want.labels, want.dir_targets])
+    else:
+        x = torch.randn(2, 90, 50, 40, device=dev).contiguous(memory_format=torch.channels_last)[:, :9]
+        got, want = fence_cuda.fence_copy_cuda(x), fence_cuda.fence_copy_plain(x)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    assert got.device == dev and torch.equal(got, want)

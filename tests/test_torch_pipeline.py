@@ -145,7 +145,7 @@ def test_package_imports_no_jax_fresh_process():
         "det3d_tpu_torch.data.dataset, det3d_tpu_torch.data.prefetcher, det3d_tpu_torch.data.create_info, "
         "det3d_tpu_torch.data.native_loader, det3d_tpu_torch.ops.rotated_iou, det3d_tpu_torch.eval.ap, "
         "det3d_tpu_torch.apps.train_app, det3d_tpu_torch.apps.infer_app, det3d_tpu_torch.cli, "
-        "det3d_tpu_torch.__main__, chip_smoke\n"
+        "det3d_tpu_torch.__main__, det3d_tpu_torch.parallel.mesh, chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r})\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
     )
