@@ -122,6 +122,25 @@ Phases, each printed as it runs; any failure exits non-zero:
      (d) `train_app.train` on the world-1 NCCL group, 3 steps and a save,
      rank 0's checkpoint restored bit-equal. Each kernel row of the kernels
      line gains `dp_launches` (launches per path and rank).
+ 16. the spatial modes (`parallel/spatial.py`, `make_spatial_infer`,
+     `make_spatial_train`), each group of ranks in processes of its own as
+     in phase 15: (a) a world-1 NCCL group, cuDNN deterministic: in f32,
+     8 frames of `make_spatial_infer` against the plain detector (phase
+     5's tolerances, bit-equal frames counted) and 3 steps of
+     `make_spatial_train` on the (1, 1) grid against the plain step
+     (phase 8's), collectives per frame and per step; in bf16 each path
+     timed beside the plain one (ms, device ms and busy share, peak,
+     launches; a detect's host-card syncs, equal to the plain one's, and
+     its host self time split by the profiler); (b) two gloo ranks sharing the card, sp = 2: the slab
+     scatter and its backward bit-equal to the full canvas's rows (f32,
+     bf16), 4 f32 frames against one process (valid equal, scores 2e-3,
+     boxes 5e-3 / 1e-2), 3 f32 steps at (1, 2) against one process
+     (phase 15(b)'s rule over its 2 steps, gradients by norm; the third
+     measured), each rank's peak beside the one process's,
+     launches and collectives per rank; (c) ntusl_10cm at (1, 2) on the
+     two gloo ranks, bf16, batch 2, 2 steps: each rank's peak against the
+     one-process 12 129 428 480 bytes of phase 14(d) (PERF.md). Each
+     kernel row gains `spatial_launches`.
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
@@ -134,6 +153,7 @@ two commits in one call, in turns).
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import multiprocessing
 import pickle
@@ -221,6 +241,14 @@ DP_GLOO_STEPS = 2     # phase 15(b): f32 steps of two gloo ranks (batch 1 each) 
 DP_INFER_FRAMES = 4   # phase 15(c): frames of the sharded infer_batch
 DP_APP_STEPS = 3      # phase 15(d): train_app steps at world 1, one save
 DP_TIMEOUT_S = 120.0  # a rank still alive after this fails the phase
+SP_FRAMES_W1 = 8      # phase 16(a): frames of make_spatial_infer on a world-1 NCCL group
+SP_STEPS = 3          # phase 16(a) and (b): hybrid steps at batch 2
+SP_FRAMES_GLOO = 4    # phase 16(b): frames of make_spatial_infer over two gloo ranks
+SP10_STEPS = 2        # phase 16(c): ntusl_10cm hybrid steps at (1, 2), after one warm-up step
+SP_TIMEOUT_S = 300.0  # a rank of phase 16 still alive after this fails the phase
+# the one-process peak of the ntusl_10cm train step at batch 2, bf16, on an
+# H100 at 700 W (PERF.md, phase 14(d))
+ONE_PROCESS_PEAK_10CM = 12_129_428_480
 # every hand-written kernel by the name the profiler gives it, under its row
 # of the kernels line. A scatter's or a gather's canvas layout is its
 # template argument (csrc/scatter.cu: 0 dense, 1 and 2 the s2d orders), so
@@ -2045,17 +2073,18 @@ def dp_gloo_child(rank: int, out_dir: str) -> None:
         pickle.dump(result, f)
 
 
-def run_ranks(procs, what: str) -> None:
-    """Start the ranks' processes and join them within DP_TIMEOUT_S; a rank
-    still alive then is killed, and it or a non-zero exit fails the phase."""
+def run_ranks(procs, what: str, timeout: float = DP_TIMEOUT_S) -> None:
+    """Start the ranks' processes and join them within `timeout` seconds; a
+    rank still alive then is killed, and it or a non-zero exit fails the
+    phase."""
     for p in procs:
         p.start()
-    deadline = time.monotonic() + DP_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         hung = [i for i, p in enumerate(procs) if p.is_alive()]
-        check(not hung, f"{what}: ranks {hung} still running after {DP_TIMEOUT_S} s")
+        check(not hung, f"{what}: ranks {hung} still running after {timeout} s")
         codes = [p.exitcode for p in procs]
         check(codes == [0] * len(procs), f"{what}: exit codes {codes}")
     finally:
@@ -2165,6 +2194,451 @@ def run_data_parallel(card: str, base: dict) -> dict:
     }
 
 
+# --- phase 16: the spatial modes (each group of ranks in processes of its own) ---
+
+
+def counts_delta(before: dict, after: dict) -> dict:
+    """The collectives between two `collective_counts` readings (by group
+    for a hybrid grid), only the kinds that moved."""
+    if after and isinstance(next(iter(after.values())), dict):
+        return {g: counts_delta(before.get(g, {}), after[g]) for g in after}
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+def detection_arrays(d) -> tuple:
+    return tuple(t.cpu().numpy() for t in d)
+
+
+def spatial_timed(fn, n: int, counters, counted=None) -> dict:
+    """`fn()` n times after one warm-up call, the launch counters set to 0
+    just before and read just after: ms per call (host clock around the
+    call + synchronize), peak memory, launches and collectives per call
+    (of `counted`, a mesh), the profiler's device ms per call."""
+    from det3d_tpu_torch.parallel import mesh as pm
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    before = {} if counted is None else pm.collective_counts(counted)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    collectives = {} if counted is None else counts_delta(before, pm.collective_counts(counted))
+    out = dict(ms=statistics.median(times), min=min(times), max=max(times), n=n,
+               peak=torch.cuda.max_memory_allocated(), launches={k: c.launches for k, c in counters.items()},
+               collectives=collectives)
+    traced = profile_device_time(fn, 2)
+    out["device"] = None if traced is None else traced[0]
+    return out
+
+
+def host_split(fn, n: int) -> dict[str, float]:
+    """The host's self CPU ms per call of `fn` from a torch.profiler trace:
+    all of it, and the spatial path's own parts (the halo exchange's and
+    the InstanceNorm's autograd functions, the collectives' bookkeeping and
+    calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for e in prof.key_averages():
+        ms = e.self_cpu_time_total / 1e3 / n
+        out["total"] += ms
+        for part in ("_HaloExchange", "_SpatialInstanceNorm", "record_param_comms", "c10d::"):
+            if e.key.startswith(part):
+                out[part] += ms
+    return dict(out)
+
+
+def spatial_steps(step, trainer, state, batch, n: int) -> list[dict]:
+    records = []
+    for _ in range(n):
+        state, loss, _ = step(state, batch)
+        records.append(dp_step_record(trainer, state, loss))
+    return records
+
+
+def spatial_world1_child(out_dir: str) -> None:
+    """Phase 16(a), in a process of its own: a world-1 NCCL group on
+    cuda:0, cuDNN deterministic. f32: `make_spatial_infer` against the
+    plain detector on SP_FRAMES_W1 frames (phase 5's tolerances), and
+    `make_spatial_train` on the (1, 1) grid against the plain step,
+    SP_STEPS steps at batch 2 (phase 8's); then bf16, each path timed in
+    turns (plain, spatial) with its launches and collectives."""
+    import torch.distributed as dist
+
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.parallel import mesh as pm
+    from det3d_tpu_torch.pipeline import Detector
+    from det3d_tpu_torch.train.trainer import Trainer, host_batch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(out_dir)
+    cfg = load_config("configs/ntusl_20cm.json", max_points=120_000)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    clouds = [synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + 300 + i) for i in range(SP_FRAMES_W1 + 1)]
+    counters = train_counters()
+    mesh = pm.make_spatial_mesh(device="cuda:0", rank=0, world_size=1, init_method=f"file://{out}/rendezvous-s1")
+    result = {"backend": mesh.backend, "device": str(mesh.device)}
+    try:
+        det, infer = pm.make_spatial_infer(cfg32, mesh)
+        det.init_weights(SEED)
+        plain = Detector(cfg32).init_weights(SEED)
+        equal, per_frame = 0, []
+        for pts in clouds[1:]:
+            before = pm.collective_counts(mesh)
+            got = detection_arrays(infer(pts, N_POINTS))
+            per_frame.append(counts_delta(before, pm.collective_counts(mesh)))
+            want = detection_arrays(plain.infer(torch.from_numpy(pts).cuda(), N_POINTS))
+            equal += detections_equal(got, want, "16(a) f32 spatial vs plain frame")
+        result["infer_f32"] = dict(bit_equal=equal, collectives=per_frame)
+        del det, plain
+        batch = host_batch(cfg32, train_scenes(cfg32, SEED))
+        hybrid = pm.make_hybrid_mesh(1, 1, device="cuda:0")
+        records = {}
+        for name in ("plain", "spatial"):
+            if name == "plain":
+                trainer = Trainer(cfg32)
+                state, step = trainer.init_state(SEED), trainer.train_step
+            else:
+                trainer, step = pm.make_spatial_train(cfg32, hybrid)
+                state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
+            before = pm.collective_counts(hybrid)
+            records[name] = spatial_steps(step, trainer, state, batch, SP_STEPS)
+            result.setdefault("train_collectives", {})[name] = counts_delta(before, pm.collective_counts(hybrid))
+            lr = state.lr
+            del trainer, state, step
+        result["train_f32"] = dict(vs_plain=dp_compare(records["spatial"], records["plain"], lr),
+                                   differ=same_bits(records["spatial"][-1], records["plain"][-1]),
+                                   losses={k: [r["loss"]["loss"] for r in v] for k, v in records.items()})
+        del records
+        torch.cuda.empty_cache()
+
+        for name in ("plain", "spatial"):
+            det = Detector(cfg) if name == "plain" else pm.make_spatial_infer(cfg, mesh)[0]
+            det.init_weights(SEED)
+            frames_iter = itertools.cycle(clouds)
+            result[f"infer {name}"] = spatial_timed(lambda: det.infer(torch.from_numpy(next(frames_iter)).cuda(),
+                                                                      N_POINTS), SP_FRAMES_W1, counters, mesh)
+            result[f"infer {name}"].update(syncs=len(count_syncs(lambda: det.detect(clouds[1]))),
+                                           host=host_split(lambda: det.detect(next(frames_iter)), 3))
+            del det
+        batch = host_batch(cfg, train_scenes(cfg, SEED))
+        for name in ("plain", "spatial"):
+            if name == "plain":
+                trainer = Trainer(cfg)
+                state, step = trainer.init_state(SEED), trainer.train_step
+            else:
+                trainer, step = pm.make_spatial_train(cfg, hybrid)
+                state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
+            result[f"train {name}"] = spatial_timed(lambda: step(state, batch), SP_STEPS, counters, hybrid)
+            del trainer, state, step
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(out / "spatial-world1.pkl", "wb") as f:
+        pickle.dump(result, f)
+
+
+def check_slab_scatter(grid_xy, v: int, c: int, sp: int) -> dict:
+    """The dense scatter into each of `sp` slabs (the pillars' x shifted by
+    the slab's first row, a grid of the slab's rows) against the full
+    canvas's rows, and its backward against the full backward of a
+    cotangent that is zero outside the slab, bit for bit, f32 and bf16, at
+    the 20 cm shapes; the pillars outside the slab get zero."""
+    from det3d_tpu_torch.kernels import scatter_cuda as sc
+    from det3d_tpu_torch.parallel.spatial import slab_bounds
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    nx, ny = grid_xy
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        feats, coors = scatter_inputs(v, c, grid_xy, 12_000, dtype, gen)
+        full = sc.scatter_to_bev(feats, coors, grid_xy)
+        g_full = torch.randn((1, nx, ny, c), generator=gen).to(dtype).cuda()
+        for lo, hi in slab_bounds(nx, sp)[0]:
+            shifted = torch.cat([coors[..., :1] - lo, coors[..., 1:]], dim=-1).contiguous()
+            slab = sc.scatter_to_bev(feats, shifted, (hi - lo, ny))
+            check(torch.equal(bits(slab), bits(full[:, lo:hi])), f"slab [{lo}, {hi}) {dtype}: not the canvas's rows")
+            fs = feats.clone().requires_grad_()
+            sc.scatter_to_bev(fs, shifted, (hi - lo, ny)).backward(g_full[:, lo:hi].contiguous())
+            gz = torch.zeros_like(g_full)
+            gz[:, lo:hi] = g_full[:, lo:hi]
+            fw = feats.clone().requires_grad_()
+            sc.scatter_to_bev(fw, coors, grid_xy).backward(gz)
+            inside = (coors[..., 0] >= lo) & (coors[..., 0] < hi)
+            check(torch.equal(bits(fs.grad), bits(fw.grad)), f"slab [{lo}, {hi}) {dtype}: backward differs")
+            check(not fs.grad[~inside].any(), f"slab [{lo}, {hi}) {dtype}: gradient outside the slab")
+            result[f"{dtype} [{lo}, {hi})"] = int(inside.sum())
+    torch.cuda.synchronize()
+    return result
+
+
+def spatial_gloo_child(rank: int, out_dir: str) -> None:
+    """Phase 16(b) and (c), rank `rank` of two gloo ranks that share cuda:0
+    (NCCL refuses two ranks on one card), sp = 2. (b) rank 0 holds the slab
+    scatter and its backward against the full canvas, bit for bit; then
+    `make_spatial_infer` over SP_FRAMES_GLOO f32 frames, held by rank 0
+    against the one-process detector (which it runs first, for its peak);
+    then `make_spatial_train` at (1, 2), f32, batch 2, SP_STEPS steps, held
+    by rank 0 against the one-process step (gradients by norm). (c)
+    ntusl_10cm at (1, 2), bf16, batch 2: one warm-up step and SP10_STEPS
+    timed, each rank's peak."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.parallel import mesh as pm
+    from det3d_tpu_torch.pipeline import Detector
+    from det3d_tpu_torch.postprocess import Detections, to_annos
+    from det3d_tpu_torch.train.trainer import Trainer, host_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(out_dir)
+    cfg = load_config("configs/ntusl_20cm.json", max_points=120_000)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    counters = train_counters()
+    mesh = pm.make_spatial_mesh(device="cuda:0", backend="gloo", rank=rank, world_size=2,
+                                init_method=f"file://{out}/rendezvous-s2")
+    result = {"rank": rank, "backend": mesh.backend}
+    try:
+        if rank == 0:
+            result["slab"] = check_slab_scatter((cfg.grid_size[0], cfg.grid_size[1]), cfg.max_voxels, 64, 2)
+        clouds = [synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + 400 + i) for i in range(SP_FRAMES_GLOO + 1)]
+        if rank == 0:
+            plain = Detector(cfg32).init_weights(SEED)
+            plain.infer(torch.from_numpy(clouds[0]).cuda(), N_POINTS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            want = [detection_arrays(plain.infer(torch.from_numpy(p).cuda(), N_POINTS)) for p in clouds[1:]]
+            result["infer one process peak"] = torch.cuda.max_memory_allocated()
+            del plain
+            torch.cuda.empty_cache()
+        det, infer = pm.make_spatial_infer(cfg32, mesh)
+        det.init_weights(SEED)
+        got = []
+        frames_iter = itertools.cycle(clouds)
+        result["infer"] = spatial_timed(lambda: got.append(detection_arrays(infer(next(frames_iter), N_POINTS))),
+                                        SP_FRAMES_GLOO, counters, mesh)
+        got = got[1:1 + SP_FRAMES_GLOO]  # the warm-up frame out, the profiler's frames out
+        if rank == 0:
+            verdicts = []
+            for i, (g, w) in enumerate(zip(got, want)):
+                if all(np.array_equal(a, b) for a, b in zip(g, w)):
+                    verdicts.append("bit-equal")
+                    continue
+                if not np.array_equal(g[2], w[2]):
+                    # a near-tie that NMS broke the other way, as phases 13 and 15 see
+                    swaps = annos_match(to_annos(cfg32, Detections(*map(torch.from_numpy, g))),
+                                        to_annos(cfg32, Detections(*map(torch.from_numpy, w))), f"16(b) frame {i}",
+                                        det.postprocess.params.nms_iou_threshold)
+                    verdicts.append(f"NMS near-ties broken the other way: {swaps}")
+                    continue
+                v = w[2]
+                check(np.allclose(g[1][v], w[1][v], rtol=0, atol=2e-3)
+                      and np.allclose(g[0][v], w[0][v], rtol=5e-3, atol=1e-2), f"16(b) frame {i}: outside tolerance")
+                verdicts.append(f"valid equal; scores max diff {np.abs(g[1] - w[1])[v].max(initial=0.0):.2e}, "
+                                f"boxes {np.abs(g[0] - w[0])[v].max(initial=0.0):.2e}")
+            result["infer"]["vs one process"] = verdicts
+        del det, infer, got
+        torch.cuda.empty_cache()
+
+        batch = host_batch(cfg32, train_scenes(cfg32, SEED))
+        if rank == 0:
+            trainer = Trainer(cfg32)
+            state = trainer.init_state(SEED)
+            trainer.train_step(state, batch)  # the peak of a step after the first, as below
+            state = trainer.init_state(SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            want = spatial_steps(trainer.train_step, trainer, state, batch, SP_STEPS)
+            result["train one process peak"] = torch.cuda.max_memory_allocated()
+            lr = state.lr
+            del trainer, state
+            torch.cuda.empty_cache()
+        hybrid = pm.make_hybrid_mesh(1, 2, device="cuda:0")
+        trainer, step = pm.make_spatial_train(cfg32, hybrid)
+        state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        before = pm.collective_counts(hybrid)
+        t0 = time.perf_counter()
+        records = spatial_steps(step, trainer, state, batch, SP_STEPS)
+        torch.cuda.synchronize()
+        result["train"] = dict(ms=(time.perf_counter() - t0) * 1e3 / SP_STEPS, peak=torch.cuda.max_memory_allocated(),
+                               launches={k: c.launches for k, c in counters.items()},
+                               collectives=counts_delta(before, pm.collective_counts(hybrid)),
+                               losses=[r["loss"]["loss"] for r in records])
+        digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in [*records[-1]["sd"].values(),
+                                                                         *records[-1]["moments"]]))
+        result["train"]["digest"] = digest.hexdigest()
+        if rank == 0:
+            # the gate: phase 15(b)'s steps; the rest measured (their weights drift by Adam's sign flips)
+            result["train"]["vs one process"] = dp_compare(records[:DP_GLOO_STEPS], want[:DP_GLOO_STEPS], lr,
+                                                           elementwise=False)
+            result["train"]["vs one process, every step"] = dp_compare(records, want, lr, elementwise=False)
+            del want
+        del trainer, state, step, records
+        torch.cuda.empty_cache()
+
+        cfg10 = load_config("configs/ntusl_10cm.json", max_points=120_000)
+        batch10 = host_batch(cfg10, train_scenes(cfg10, SEED))
+        trainer, step = pm.make_spatial_train(cfg10, hybrid)
+        state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
+        step(state, batch10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        times, losses = [], []
+        for _ in range(SP10_STEPS):
+            t0 = time.perf_counter()
+            state, loss, _ = step(state, batch10)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss["loss"]))
+        result["10cm"] = dict(ms=times, peak=torch.cuda.max_memory_allocated(), losses=losses,
+                              launches={k: c.launches for k, c in counters.items()})
+        del trainer, state, step
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(out / f"spatial-gloo-{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_spatial(card: str, base: dict) -> dict:
+    """Phase 16: (a) in one process, then (b) and (c) in two, each group's
+    ranks spawned with a file:// rendezvous in a temporary directory;
+    prints every result beside the numbers of phases 4 and 7 in `base` and
+    checks them → the launches of each path per rank, for the kernels
+    line."""
+    ctx = multiprocessing.get_context("spawn")
+    root = Path(tempfile.mkdtemp(prefix="det3d-spatial-"))
+    try:
+        run_ranks([ctx.Process(target=spatial_world1_child, args=(str(root),))], "16(a) world 1, NCCL",
+                  SP_TIMEOUT_S)
+        with open(root / "spatial-world1.pkl", "rb") as f:
+            w1 = pickle.load(f)
+        run_ranks([ctx.Process(target=spatial_gloo_child, args=(r, str(root))) for r in range(2)],
+                  "16(b)/(c) two gloo ranks", SP_TIMEOUT_S)
+        gloo = []
+        for r in range(2):
+            with open(root / f"spatial-gloo-{r}.pkl", "rb") as f:
+                gloo.append(pickle.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    n_convs, n_norms = 16, 19
+    per_frame = {"all_gather": n_convs + 1, "all_reduce": n_norms}
+    per_step = {"spatial": {"all_gather": 2 * n_convs + 1, "all_reduce": 2 * n_norms}, "data": {"all_reduce": 6},
+                "world": {"all_reduce": 1}}
+    inf = w1["infer_f32"]
+    print(f"[{card}] (a) world 1, {w1['backend']} on {w1['device']}, f32: make_spatial_infer vs the plain detector "
+          f"over {SP_FRAMES_W1} frames: {inf['bit_equal']} bit-equal, the rest within phase 5's tolerances; "
+          f"collectives per frame {inf['collectives'][0]}")
+    check(all(c == per_frame for c in inf["collectives"]), f"(a) collectives per frame {inf['collectives']}")
+    tr = w1["train_f32"]
+    fmt = lambda worst: ", ".join(f"{k} {v:.3f} ({at})" for k, (v, at) in worst.items())  # noqa: E731
+    print(f"[{card}] (a) f32 make_spatial_train (1, 1) vs the plain step, {SP_STEPS} steps at batch 2: loss "
+          f"{tr['losses']}; bit-equal: {not tr['differ']}; worst of each over phase 8's bound: {fmt(tr['vs_plain'])}")
+    check(all(v <= 1.0 for v, _ in tr["vs_plain"].values()), f"(a) spatial step vs plain: {tr['vs_plain']}")
+    check(w1["infer spatial"]["syncs"] == w1["infer plain"]["syncs"],
+          f"(a) host-card syncs of a detect: spatial {w1['infer spatial']['syncs']}, plain {w1['infer plain']['syncs']}")
+    check(w1["train_collectives"]["spatial"] == {g: {k: n * SP_STEPS for k, n in d.items()}
+                                                 for g, d in per_step.items()},
+          f"(a) collectives {w1['train_collectives']}")
+    launches = {}
+    for what, unit, n_want in (("infer", "frame", dict(scatter_fwd=1, nms=1)),
+                               ("train", "step", dict(matcher_gt_max=1, matcher_assign=1, scatter_fwd=1,
+                                                      scatter_bwd=1))):
+        for name in ("plain", "spatial"):
+            run = w1[f"{what} {name}"]
+            device = "not measured" if run["device"] is None else \
+                f"{run['device']:.3f} ms ({100 * run['device'] / run['ms']:.1f} % busy)"
+            per = {k: v / run["n"] for k, v in run["launches"].items()}
+            print(f"[{card}] (a) bf16 {what}, {name}: ms/{unit} median {run['ms']:.3f} (min {run['min']:.3f}, max "
+                  f"{run['max']:.3f}) over {run['n']}; device {device}; peak {run['peak']} bytes; launches per {unit} "
+                  f"{per}; collectives over the run {run['collectives']}")
+            if what == "infer":
+                print(f"[{card}] (a) bf16 detect, {name}: host-card syncs {run['syncs']}; host self CPU ms per frame "
+                      f"(torch.profiler, 3 frames) {({k: round(v, 3) for k, v in run['host'].items()})}")
+        want = {k: 0 for k in TRAIN_COUNTERS}
+        want.update({k: v * w1[f"{what} spatial"]["n"] for k, v in n_want.items()})
+        if what == "train":
+            want["fence"] = 0
+        check(w1[f"{what} spatial"]["launches"] == want, f"(a) {what} launches {w1[f'{what} spatial']['launches']}")
+        launches[f"(a) {what}, world 1 NCCL, {w1[f'{what} spatial']['n']} {unit}s"] = w1[f"{what} spatial"]["launches"]
+    print(f"[{card}] (a) beside them, phase 4's frame {base['frame_ms']:.3f} ms and peak {base['frame_peak']} bytes; "
+          f"phase 7's step {base['step_ms']:.3f} ms and peak {base['step_peak']} bytes")
+
+    r0, r1 = gloo
+    print(f"[{card}] (b) slab scatter and its backward, 2 slabs of the 20 cm canvas, f32 and bf16: bit-equal to the "
+          f"full canvas's rows (pillars per slab {r0['slab']})")
+    for r in (r0, r1):
+        run = r["infer"]
+        device = "not measured" if run["device"] is None else f"{run['device']:.3f} ms"
+        print(f"[{card}] (b) rank {r['rank']}, make_spatial_infer f32, sp 2 over gloo: ms/frame median {run['ms']:.3f} "
+              f"(two ranks on one card through the host: not a scaling number); device {device}; peak "
+              f"{run['peak']} bytes; launches {run['launches']}; collectives {run['collectives']}")
+        check(run["launches"] == expected_launches(train_counters(), scatter_fwd=SP_FRAMES_GLOO, nms=SP_FRAMES_GLOO),
+              f"(b) rank {r['rank']} inference launches {run['launches']}")
+        check(run["collectives"] == {k: v * SP_FRAMES_GLOO for k, v in per_frame.items()},
+              f"(b) rank {r['rank']} collectives {run['collectives']}")
+    print(f"[{card}] (b) the one-process f32 detector's peak {r0['infer one process peak']} bytes; spatial vs one "
+          f"process by frame: {r0['infer']['vs one process']}")
+    for r in (r0, r1):
+        run = r["train"]
+        print(f"[{card}] (b) rank {r['rank']}, make_spatial_train (1, 2) f32 batch 2: {run['ms']:.3f} ms/step over "
+              f"{SP_STEPS} (through the host); peak {run['peak']} bytes; loss {run['losses']}; launches "
+              f"{run['launches']}; collectives {run['collectives']}")
+        check(run["launches"] == expected_launches(train_counters(), matcher_gt_max=SP_STEPS, matcher_assign=SP_STEPS,
+                                                   scatter_fwd=SP_STEPS, scatter_bwd=SP_STEPS),
+              f"(b) rank {r['rank']} train launches {run['launches']}")
+        check(run["collectives"] == {g: {k: n * SP_STEPS for k, n in d.items()} for g, d in per_step.items()},
+              f"(b) rank {r['rank']} collectives {run['collectives']}")
+    check(r0["train"]["digest"] == r1["train"]["digest"], "(b) the ranks' states differ")
+    worst = r0["train"]["vs one process"]
+    print(f"[{card}] (b) the one-process f32 step's peak {r0['train one process peak']} bytes; spatial vs one process "
+          f"(gradients by norm), worst of each over its bound in the first {DP_GLOO_STEPS} steps (phase 15(b)'s): "
+          f"{fmt(worst)}; over all {SP_STEPS} (measured, not held: later steps start from weights Adam's first "
+          f"update moved ±lr apart): {fmt(r0['train']['vs one process, every step'])}")
+    check(all(v <= 1.0 for v, _ in worst.values()), f"(b) spatial step vs one process: {worst}")
+    for r in (r0, r1):
+        run = r["10cm"]
+        print(f"[{card}] (c) rank {r['rank']}, ntusl_10cm make_spatial_train (1, 2) bf16 batch 2: ms/step "
+              f"{[round(v, 3) for v in run['ms']]} (through the host); peak {run['peak']} bytes = "
+              f"{run['peak'] / ONE_PROCESS_PEAK_10CM:.3f} of the one-process {ONE_PROCESS_PEAK_10CM} (phase 14(d)); loss {run['losses']}; "
+              f"launches {run['launches']}")
+        check(all(np.isfinite(run["losses"])), "(c) non-finite loss")
+        check(run["launches"] == expected_launches(train_counters(), matcher_gt_max=SP10_STEPS,
+                                                   matcher_assign=SP10_STEPS, scatter_fwd=SP10_STEPS,
+                                                   scatter_bwd=SP10_STEPS),
+              f"(c) rank {r['rank']} launches {run['launches']}")
+    check(r0["10cm"]["losses"] == r1["10cm"]["losses"], "(c) the ranks' losses differ")
+    for r in (r0, r1):
+        launches[f"(b) infer, rank {r['rank']}, {SP_FRAMES_GLOO} frames"] = r["infer"]["launches"]
+        launches[f"(b) train, rank {r['rank']}, {SP_STEPS} steps"] = r["train"]["launches"]
+        launches[f"(c) 10 cm train, rank {r['rank']}, {SP10_STEPS} steps"] = r["10cm"]["launches"]
+    return launches
+
+
 def small_config():
     """A 32x32-grid geometry with the default 9 anchors per location."""
     from det3d_tpu_torch.config import load_config
@@ -2225,7 +2699,7 @@ def main() -> int:
     print(f"grid {cfg.grid_size}, {cfg.max_voxels} pillars x {cfg.max_num_points} points, "
           f"{det.anchor_set.num_anchors} anchors, {N_POINTS} points per frame")
     run = run_frames(det, frames, {"scatter": scatter_cuda.counter, "nms": nms_cuda.counter})
-    launches, frame_ms = run["launches"], run["ms"]
+    launches, frame_ms, frame_peak = run["launches"], run["ms"], run["peak"]
     print(f"ms/frame median {frame_ms:.3f} (host clock around detect + synchronize; "
           f"min {run['min']:.3f}, max {run['max']:.3f}) over {run['n']} frames")
     print(f"peak memory allocated {run['peak']} bytes; detections per frame {run['detections']}")
@@ -2436,6 +2910,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp_launches = run_data_parallel(card, step_base)
 
+    phase("16. spatial modes (ntusl_20cm unless stated: world 1 under NCCL, two gloo ranks on the one card)")
+    spatial_launches = run_spatial(card, dict(step_base, frame_ms=frame_ms, frame_peak=frame_peak))
+
     kernels = [
         {
             "name": "scatter_to_bev", "route": "cuda",
@@ -2507,6 +2984,7 @@ def main() -> int:
         k["graph_launches_per_frame"] = None if graph is None else graph[k["name"]]
         k["option_launches"] = {path: n[app_keys[k["name"]]] for path, n in options["launches"].items()}
         k["dp_launches"] = {path: n.get(app_keys[k["name"]], 0) for path, n in dp_launches.items()}
+        k["spatial_launches"] = {path: n.get(app_keys[k["name"]], 0) for path, n in spatial_launches.items()}
     phase(None)
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,12 @@ loader's threads where its library builds).
 gcd(B, world) ranks where B does not divide the world, and on rank 0
 alone where they share no factor, as the JAX app's rule
 (infer_app.py:92-116); rank 0 writes the annos, the timing and the eval.
-Not ported: `spatial` (ROADMAP). The JAX app's `exact_topk` becomes
+`spatial=True` (`infer --spatial`) splits each frame's network along x
+over the ranks of `mesh` (`parallel/mesh.make_spatial_infer`), the
+multi-card single-frame latency mode: one frame at a time (no `batch`, no
+`exported`), no `breakdown` (it times stages of one device); every rank
+runs every frame and holds its detections, and rank 0 prints, writes and
+evaluates. The JAX app's `exact_topk` becomes
 `approx_topk`, because the port's top-k is exact by default.
 """
 
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from det3d_tpu_torch.config import Config
-from det3d_tpu_torch.parallel.mesh import DataMesh, make_mesh, make_sharded_infer
+from det3d_tpu_torch.parallel.mesh import DataMesh, make_mesh, make_sharded_infer, make_spatial_infer
 from det3d_tpu_torch.postprocess import Detections, PostProcessParams, frame_preds, to_annos
 from det3d_tpu_torch.utils.timing import StageTimers, block_until_ready, time_fn
 
@@ -68,6 +73,7 @@ def infer(
     exported: str | None = None,
     device=None,
     mesh: DataMesh | None = None,
+    spatial: bool = False,
 ) -> dict | None:
     """Returns {"dt_annos", "gt_annos", "eval_strs", "avg_ms", "reader",
     "stages", "timed_frames"}. `checkpoint`: a model directory (its
@@ -80,10 +86,22 @@ def infer(
     `exported`: an artifact directory, run by `infer_exported` (which
     returns its own dict) in place of a live detector. `mesh`: the batch
     sharded over its ranks (see the module docstring), on the mesh's
-    device; None on every rank but rank 0."""
+    device; None on every rank but rank 0. `spatial`: each frame split over
+    the ranks of `mesh` (see the module docstring)."""
     lead = mesh is None or mesh.rank == 0  # prints, writes, evaluates
     shard = None
-    if mesh is not None:
+    if spatial:
+        if batch > 1:
+            raise ValueError("--spatial partitions within one frame; use it with batch=1")
+        if exported:
+            raise ValueError("--spatial runs the live detector: no exported artifact with it")
+        if mesh is None:
+            raise ValueError("--spatial needs a process group (parallel/mesh.make_spatial_mesh)")
+        device = mesh.device
+        if breakdown and lead:
+            print("NOTE: --breakdown is per-stage on a single device and is skipped under --spatial")
+        breakdown = False
+    elif mesh is not None:
         device = mesh.device
         use = 1 if exported else math.gcd(batch, mesh.world)
         if use > 1:
@@ -107,7 +125,13 @@ def infer(
 
     if batch < 1:
         raise ValueError(f"batch must be at least 1, got {batch}")
-    det = Detector(cfg, device, postprocess_params=PostProcessParams(approx_topk=True) if approx_topk else None)
+    pp = PostProcessParams(approx_topk=True) if approx_topk else None
+    if spatial:
+        det, _ = make_spatial_infer(cfg, mesh, postprocess_params=pp)
+        if lead:
+            print(f"spatial partitioning over {mesh.world} ranks ({mesh.backend})")
+    else:
+        det = Detector(cfg, device, postprocess_params=pp)
     if checkpoint:
         from det3d_tpu_torch.train.checkpoint import load_latest_state
 
@@ -131,6 +155,8 @@ def infer(
         dt_annos, total, denom, first = _run_batched(det, frames, batch, timers)
     else:
         dt_annos, total, denom, first = _run_frames(det, frames, timers)
+        if not lead:
+            return None
 
     if breakdown and first is not None:
         _stage_breakdown(det, *first, timers)

@@ -12,7 +12,14 @@ frames, and a ROS subscriber would call `server.submit(points)`
 
 The detector is the live `Detector` (its `infer`, by default) or an
 exported artifact (`infer_fn=ExportedDetector(...).infer`, one CUDA-graph
-replay a frame on the card). Not ported: `spatial` (ROADMAP item 13).
+replay a frame on the card).
+
+`spatial` (a spatial group, `serve --spatial`): each frame's network is
+split along x over the group's ranks (`parallel/mesh.make_spatial_infer`).
+Rank 0 runs the producer, the queue and the latency record; for each frame
+it serves it broadcasts a header (go, point count) and the padded points,
+and the other ranks (`follow`) run the same frame with it until a header
+says stop, which rank 0 sends however its serving ends.
 """
 
 from __future__ import annotations
@@ -118,25 +125,80 @@ class PointCloudServer:
                 print(f"served {served} frames, avg latency {avg:.1f} ms ({len(annos['name'])} dets)")
 
 
+class SpatialLead:
+    """Rank 0's `infer_fn` under a spatial group: the frame's header and
+    points broadcast to the group, then the split network on it."""
+
+    def __init__(self, detector, mesh):
+        self.detector, self.mesh = detector, mesh
+
+    def __call__(self, points: np.ndarray, num_points):
+        dev = self.detector.device
+        self.mesh.broadcast_(torch.tensor([1, int(num_points)], dtype=torch.int64, device=dev))
+        pts = self.mesh.broadcast_(torch.from_numpy(points).to(dev))
+        return self.detector.infer(pts, int(num_points))
+
+    def stop(self) -> None:
+        self.mesh.broadcast_(torch.zeros(2, dtype=torch.int64, device=self.detector.device))
+
+
+def follow(detector, mesh) -> int:
+    """A rank > 0 of a spatial server: run every frame rank 0 broadcasts
+    until its stop header → the frames run."""
+    cfg, dev = detector.cfg, detector.device
+    served = 0
+    while True:
+        header = mesh.broadcast_(torch.zeros(2, dtype=torch.int64, device=dev)).tolist()
+        if not header[0]:
+            return served
+        pts = mesh.broadcast_(torch.empty((cfg.max_points, cfg.num_point_features), dtype=torch.float32, device=dev))
+        detector.infer(pts, header[1])
+        served += 1
+
+
 def make_server(cfg: Config, *, checkpoint: str | None = None, exported: str | None = None,
-                device=None) -> PointCloudServer:
+                device=None, spatial=None) -> PointCloudServer:
     """The server of the live detector (weights from `checkpoint`, or
-    `init_weights(0)`) or, with `exported`, of an artifact's runtime."""
+    `init_weights(0)`) or, with `exported`, of an artifact's runtime; with a
+    `spatial` group, of the split detector, whose `infer_fn` on rank 0 is a
+    `SpatialLead` (every rank makes its server; ranks > 0 `follow`)."""
     if exported:
+        if spatial is not None:
+            raise ValueError("--spatial serves the live detector: no exported artifact with it")
         from det3d_tpu_torch.deploy.runtime import ExportedDetector
 
         runner = ExportedDetector(exported, device)
         return PointCloudServer(runner.cfg, infer_fn=runner.infer)
     from det3d_tpu_torch.pipeline import Detector
 
-    det = Detector(cfg, device)
+    if spatial is not None:
+        device = spatial.device
+    det = Detector(cfg, device, spatial=spatial)
     if checkpoint:
         from det3d_tpu_torch.train.checkpoint import load_latest_state
 
         load_latest_state(cfg, checkpoint, det)
     else:
         det.init_weights(0)
-    return PointCloudServer(cfg, detector=det)
+    lead = None if spatial is None or spatial.rank else SpatialLead(det, spatial)
+    return PointCloudServer(cfg, detector=det, infer_fn=lead)
+
+
+def _serve(server: PointCloudServer, run) -> ServeStats:
+    """`run()` (the producer, the queue and the consumer) on a plain server
+    or on rank 0 of a spatial one, its followers stopped however `run`
+    ends; on a follower, `follow` until rank 0 stops it → an empty record."""
+    det = server.detector
+    spatial = None if det is None or det.spatial is None else det.spatial.mesh
+    if spatial is None:
+        return run()
+    if spatial.rank:
+        follow(det, spatial)
+        return ServeStats()
+    try:
+        return run()
+    finally:
+        server.infer_fn.stop()
 
 
 def _run_server(server: PointCloudServer, producer_body) -> ServeStats:
@@ -174,12 +236,13 @@ def _run_server(server: PointCloudServer, producer_body) -> ServeStats:
 
 def serve_synthetic(cfg: Config, *, checkpoint: str | None = None, exported: str | None = None,
                     frames: int = 100, hz: float = 10.0, device=None,
-                    server: PointCloudServer | None = None) -> ServeStats:
+                    server: PointCloudServer | None = None, spatial=None) -> ServeStats:
     """Drive the server from a synthetic sensor at `hz` frames/sec; a
-    caller's `server` in place of one `make_server` builds."""
+    caller's `server` in place of one `make_server` builds; `spatial`: a
+    spatial group (see the module docstring)."""
     from det3d_tpu_torch.data.synthetic import sample_scene
 
-    server = server or make_server(cfg, checkpoint=checkpoint, exported=exported, device=device)
+    server = server or make_server(cfg, checkpoint=checkpoint, exported=exported, device=device, spatial=spatial)
     rng = np.random.RandomState(0)
 
     def producer_body(server):
@@ -190,18 +253,26 @@ def serve_synthetic(cfg: Config, *, checkpoint: str | None = None, exported: str
             server.submit(sample_scene(cfg, rng)["points"])
             time.sleep(period)
 
-    return _run_server(server, producer_body)
+    return _serve(server, lambda: _run_server(server, producer_body))
 
 
 def serve_replay(cfg: Config, replay_dir: str, *, checkpoint: str | None = None, exported: str | None = None,
                  hz: float = 10.0, frames: int | None = None, loop: bool = False, device=None,
-                 server: PointCloudServer | None = None) -> ServeStats:
+                 server: PointCloudServer | None = None, spatial=None) -> ServeStats:
     """Replay a directory of raw `.bin` point-cloud files through the server
     at a fixed rate: the recorded drive as the sensor (reference
     ros_node.py:61-83). The disk reads run in the native loader's threads
     ahead of the producer's clock, so `hz` paces serving, not the disk;
     `numpy.fromfile` reads where the loader is unavailable. `loop=True`
-    cycles the directory until `frames` have been submitted."""
+    cycles the directory until `frames` have been submitted. `spatial`: a
+    spatial group; rank 0 alone reads the directory."""
+    server = server or make_server(cfg, checkpoint=checkpoint, exported=exported, device=device, spatial=spatial)
+    return _serve(server, lambda: _replay(cfg, server, replay_dir, hz, frames, loop))
+
+
+def _replay(cfg: Config, server: PointCloudServer, replay_dir: str, hz: float, frames: int | None,
+            loop: bool) -> ServeStats:
+    """`serve_replay`'s producer over the directory's frames, and the server."""
     from pathlib import Path
 
     from det3d_tpu_torch.data import native_loader
@@ -215,7 +286,6 @@ def serve_replay(cfg: Config, replay_dir: str, *, checkpoint: str | None = None,
     use_native = native_loader.available()
     print(f"replaying {total} frames from {replay_dir} at {hz} Hz "
           f"({'native loader' if use_native else 'numpy reader'})")
-    server = server or make_server(cfg, checkpoint=checkpoint, exported=exported, device=device)
 
     def frame_paths():
         for i in range(total):

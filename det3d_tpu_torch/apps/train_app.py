@@ -26,8 +26,15 @@ divide), loading only that slice; every rank starts from the same weights
 (seeded, or the same `latest.pth`), broadcast from rank 0 once more by
 `replicated`. Rank 0 alone prints, writes `log.txt`, saves checkpoints
 and runs the eval; the others open the model directory readonly and wait
-at a barrier after each save and eval. Not ported: `spatial_shards`, the
-hybrid data x spatial mode (ROADMAP).
+at a barrier after each save and eval.
+
+Hybrid data x spatial (`spatial_shards` S > 1; `torchrun ... train
+--spatial-shards S`, the JAX app's mode of that name, train_app.py:116-150):
+the world's W ranks become a (W/S) x S grid (`make_hybrid_mesh`), each
+spatial group splitting its samples' RPN along x (`make_spatial_train`).
+The ranks of a spatial group load the same slice of each global batch (the
+slice of their data rank); rank 0 saves, and the eval runs on rank 0's
+spatial group (its network is split too), rank 0 printing and writing.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ import torch
 
 from det3d_tpu_torch.config import Config
 from det3d_tpu_torch.data.synthetic import sample_scene, scene_to_annos
-from det3d_tpu_torch.parallel.mesh import DataMesh, make_sharded_train_step, replicated
+from det3d_tpu_torch.parallel.mesh import (DataMesh, make_hybrid_mesh, make_sharded_train_step, make_spatial_train,
+                                           replicated)
 from det3d_tpu_torch.train.checkpoint import CheckpointManager
 from det3d_tpu_torch.train.metrics import RunningMetrics
 from det3d_tpu_torch.train.trainer import Trainer, host_batch
@@ -50,8 +58,9 @@ def _batch_iterator(cfg: Config, synthetic: bool, seed: int = 0, device_augment:
                     shard: tuple[int, int] = (0, 1)):
     """Host TrainBatches forever (the reference's dataloader loop,
     train.py:92-99, restarts at each epoch's end); with `shard=(rank,
-    world)`, rank's contiguous slice of each global batch. Closing the
-    generator stops the prefetcher's workers."""
+    world)`, rank's contiguous slice of each global batch (the data rank
+    and dp in the hybrid mode). Closing the generator stops the
+    prefetcher's workers."""
     rank, world = shard
     if synthetic:
         local = cfg.batch_size // world
@@ -126,12 +135,14 @@ def train(
     device_augment: bool = False,
     device=None,
     mesh: DataMesh | None = None,
+    spatial_shards: int = 1,
 ) -> dict:
     """Train on `device` ("cuda" unless the caller names another) from
     seeded weights, or resume from `model_dir`'s `latest.pth` with the
     config's lr (reference train.py:69-76); `device_augment`: the global
     augmentation inside the step, on the device; `mesh`: data-parallel on
-    the mesh's device (see the module docstring). Returns what the loop saw
+    the mesh's device (see the module docstring); `spatial_shards`: the
+    hybrid mode over the mesh's ranks. Returns what the loop saw
     (on rank 0; the other ranks keep the steps, batch waits and their
     trainer and state): the steps run, ms/step of each display window, the
     seconds each step waited for its batch, each save's and each eval's
@@ -140,14 +151,31 @@ def train(
     log_path = model_dir / "log.txt"
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     lead = rank == 0  # prints, writes, evaluates
-    if mesh is not None:
+    hybrid = None
+    shard = (rank, world)  # the slice of each global batch this rank loads
+    evaluates = lead       # runs the in-training eval
+    if spatial_shards > 1:
+        if world % spatial_shards:
+            raise ValueError(f"--spatial-shards {spatial_shards} must divide the {world} ranks")
+        dp = world // spatial_shards
+        if cfg.batch_size % dp:
+            raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the data-parallel factor {dp} "
+                             "(= ranks/spatial_shards)")
+        hybrid = make_hybrid_mesh(dp, spatial_shards, device=mesh.device)
+        device = hybrid.device
+        shard = (hybrid.data.rank, dp)
+        evaluates = hybrid.data.rank == 0
+    elif mesh is not None:
         if cfg.batch_size % world:
             raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the {world} data-parallel ranks")
         device = mesh.device
     if lead:
         model_dir.mkdir(parents=True, exist_ok=True)
 
-    trainer = Trainer(cfg, device, device_global_augment=device_augment, aug_seed=seed)
+    if hybrid is not None:
+        trainer, hybrid_step = make_spatial_train(cfg, hybrid, device_global_augment=device_augment, aug_seed=seed)
+    else:
+        trainer = Trainer(cfg, device, device_global_augment=device_augment, aug_seed=seed)
     ckpt = CheckpointManager(model_dir, readonly=not lead)
     state = trainer.init_state(seed)
     restored = ckpt.restore_latest(trainer)
@@ -156,14 +184,19 @@ def train(
         if lead:
             print(f"resumed from step {state.step} (lr={cfg.learning_rate})")
     step_fn = trainer.train_step
-    if mesh is not None:
+    if hybrid is not None:
+        state = replicated(hybrid.world, trainer, state)
+        step_fn = hybrid_step
+        if lead:
+            print(f"hybrid {hybrid.dp}x{hybrid.sp} (data x spatial) over {world} ranks ({mesh.backend})")
+    elif mesh is not None:
         state = replicated(mesh, trainer, state)
         step_fn = make_sharded_train_step(trainer, mesh)
         if lead:
             print(f"data-parallel over {world} ranks ({mesh.backend}), {cfg.batch_size // world} samples each")
 
     metrics = RunningMetrics()
-    batches = _batch_iterator(cfg, synthetic, seed, device_augment, (rank, world))
+    batches = _batch_iterator(cfg, synthetic, seed, device_augment, shard)
     eval_set = None
     summary = {"steps": 0, "ms_per_step": [], "batch_wait_s": [], "save_s": [], "eval_s": [], "eval_strs": []}
 
@@ -204,11 +237,12 @@ def train(
                     mesh.barrier()
 
             if step % eval_step == 0:
-                if lead:
+                if evaluates:
                     t_eval = time.perf_counter()
                     if eval_set is None:
                         eval_set = _eval_samples(cfg, synthetic, eval_frames)
                     eval_str = run_eval(trainer, *eval_set)
+                if lead:
                     summary["eval_s"].append(time.perf_counter() - t_eval)
                     summary["eval_strs"].append(eval_str)
                     print(eval_str)

@@ -12,6 +12,7 @@
     python -m det3d_tpu_torch create-info --root DATA_ROOT [--waymo]
 
     torchrun --nproc-per-node N -m det3d_tpu_torch train|infer ...   (data-parallel on cards 0..N-1)
+    torchrun --nproc-per-node N -m det3d_tpu_torch infer --spatial | serve --spatial | train --spatial-shards S
 
 Counterpart of the JAX package's cli.py for these commands, with its flags
 where they apply, plus `--device` (default `cuda`, an error without a card;
@@ -26,8 +27,13 @@ Under `torchrun`, `train` and `infer` run data-parallel over its world
 (`parallel/mesh.make_mesh`: NCCL on `cuda:LOCAL_RANK`, gloo with `--device
 cpu`), as the JAX CLI runs over every visible device: `train` shards each
 global batch over the ranks, `infer --batch B` each chunk; rank 0 prints
-and writes. Without `torchrun` every command runs in this one process.
-Not offered yet: view and tune (ROADMAP), and `--spatial` / `--spatial-shards`.
+and writes. `infer --spatial` and `serve --spatial` split each frame's
+network along x over the world's ranks (`make_spatial_infer`); `train
+--spatial-shards S` trains on a (world/S) x S data x spatial grid
+(`make_spatial_train`); `serve` runs under `torchrun` with `--spatial`
+only. Without `torchrun` every command runs in this one process, and
+`--spatial` in a group of this process alone. Not offered yet: view and
+tune (ROADMAP).
 """
 
 from __future__ import annotations
@@ -60,6 +66,10 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--device-augment", action="store_true",
                    help="run the global augmentation transforms (flip/rotate/scale/translate) on the device inside "
                    "the step; the host data loader keeps only the per-object noise")
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="hybrid data x spatial parallelism: partition every sample's conv activations spatially over "
+                   "this many ranks (ranks/spatial_shards become data-parallel groups; parallel/mesh."
+                   "make_spatial_train) — the activation-memory scaling mode for large canvases")
 
     p = sub.add_parser("infer", help="offline eval + timing (reference train.py:187)")
     add_common(p)
@@ -72,6 +82,9 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--batch", type=int, default=1,
                    help="frames per network call (one NMS call per chunk; the last chunk padded)")
     p.add_argument("--exported", default=None, help="run an exported artifact directory instead")
+    p.add_argument("--spatial", action="store_true",
+                   help="spatially partition each frame's conv stack over all the ranks (parallel/mesh."
+                   "make_spatial_infer) — multi-card single-frame latency; mutually exclusive with --batch > 1")
 
     p = sub.add_parser("eval", help="official mAP from pickled annos (reference eval/)")
     add_common(p)
@@ -93,6 +106,8 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--replay", default=None, metavar="DIR",
                    help="replay the raw .bin point clouds of DIR at --hz instead of the synthetic sensor")
     p.add_argument("--loop", action="store_true", help="with --replay: cycle the directory until --frames")
+    p.add_argument("--spatial", action="store_true",
+                   help="serve each frame spatially partitioned over all the ranks (parallel/mesh.make_spatial_infer)")
 
     p = sub.add_parser("bench-rpn", help="RPN microbenchmark, dense and packed (reference rpn_builder.py)")
     add_common(p)
@@ -138,11 +153,16 @@ def main(argv: list[str] | None = None) -> None:
         cfg = cfg.replace(compute_dtype="float32")
 
     mesh = None
-    if args.cmd in ("train", "infer"):
+    if args.cmd in ("train", "infer", "serve"):
         from det3d_tpu_torch.parallel.mesh import launched_by_torchrun, make_mesh
 
+        spatial = getattr(args, "spatial", False)
         if launched_by_torchrun():
+            if args.cmd == "serve" and not spatial:
+                raise ValueError("serve runs under torchrun with --spatial only")
             mesh = make_mesh(device=device)
+        elif spatial:
+            mesh = make_mesh(device=device, rank=0, world_size=1)  # a group of this process alone
     try:
         _run(args, cfg, device, mesh)
         if mesh is not None:
@@ -165,13 +185,13 @@ def _run(args, cfg, device, mesh) -> None:
         train(cfg, max_steps=args.steps, display_step=args.display_step, save_step=args.save_step,
               eval_step=args.eval_step, eval_frames=args.eval_frames, synthetic=args.synthetic,
               model_dir=args.model_dir, seed=args.seed, device_augment=args.device_augment, device=device,
-              mesh=mesh)
+              mesh=mesh, spatial_shards=args.spatial_shards)
     elif args.cmd == "infer":
         from det3d_tpu_torch.apps.infer_app import infer
 
         infer(cfg, checkpoint=args.checkpoint, synthetic=args.synthetic, num_frames=args.frames,
               breakdown=args.breakdown, out_path=args.out, approx_topk=args.approx_topk, batch=args.batch,
-              exported=args.exported, device=device, mesh=mesh)
+              exported=args.exported, device=device, mesh=mesh, spatial=args.spatial)
     elif args.cmd == "export":
         from det3d_tpu_torch.deploy.export import export_detector
 
@@ -179,7 +199,8 @@ def _run(args, cfg, device, mesh) -> None:
     elif args.cmd == "serve":
         from det3d_tpu_torch.apps import serve_app
 
-        kw = dict(checkpoint=args.checkpoint, exported=args.exported, hz=args.hz, frames=args.frames, device=device)
+        kw = dict(checkpoint=args.checkpoint, exported=args.exported, hz=args.hz, frames=args.frames, device=device,
+                  spatial=mesh)
         if args.replay:
             serve_app.serve_replay(cfg, args.replay, loop=args.loop, **kw)
         else:

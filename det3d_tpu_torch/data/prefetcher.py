@@ -14,7 +14,9 @@ is the same whichever worker, or whichever rank of a data-parallel run,
 takes which sample, and the same as the JAX prefetcher's for the same
 seed. `shard=(rank, world)` loads only a rank's contiguous slice of each
 global batch of `cfg.batch_size` samples (the shuffle is the same on every
-rank), so the ranks' slices in rank order are the one-process batch.
+rank), so the ranks' slices in rank order are the one-process batch. In
+the hybrid data x spatial mode the shard is `(data rank, dp)`, so the
+ranks of one spatial group load the same slice.
 """
 
 from __future__ import annotations

@@ -61,6 +61,7 @@ from torch import nn
 from det3d_tpu_torch.config import Config
 from det3d_tpu_torch.kernels.scatter_cuda import scatter_to_bev, scatter_to_bev_s2d, scatter_to_bev_s2d_blocked
 from det3d_tpu_torch.parallel.mesh import all_reduce_sum
+from det3d_tpu_torch.parallel.spatial import gather_rows, halo_conv, spatial_instance_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -705,6 +706,16 @@ class Resnet2(nn.Module):
         k = len(convs)
         return x[:, :, k:x.shape[2] - k] + h
 
+    def forward_spatial(self, x: torch.Tensor, spatial, level: int) -> torch.Tensor:
+        """The unit on this rank's slab of a level-`level` map
+        (`parallel.spatial`): InstanceNorms over the whole map, convolutions
+        with halo rows."""
+        n = spatial.global_rows(level) * x.shape[3]
+        h = x
+        for conv in self._convs():
+            h = halo_conv(torch.relu(spatial_instance_norm(h, spatial.mesh, n)), conv, spatial.mesh)
+        return x + h
+
 
 class RPN(nn.Module):
     """Three strided blocks (depths 2/4/4, widths 64/128/256) and three
@@ -725,7 +736,12 @@ class RPN(nn.Module):
     `late_blocking` finds blocks; with packing, `fuse_in_stats` runs the
     branches' IN + ReLU from Gram statistics (`fused_deconv_split`,
     `fused_pointwise_split`) and `split_out` returns one (B, 320, H, W/2)
-    map per column parity instead of the merged (B, 320, H, W) map."""
+    map per column parity instead of the merged (B, 320, H, W) map.
+
+    `spatial` (a `parallel.spatial.SpatialPlan`): x is this rank's slab of
+    the dense canvas, and the dense network runs on the slabs, its 3x3
+    convolutions with halo rows and its InstanceNorms over the whole map
+    (`_forward_spatial`); the result is the rank's slab of the features."""
 
     def __init__(
         self,
@@ -761,7 +777,10 @@ class RPN(nn.Module):
         self.out_channels = sum(num_upsample_filters)
 
     def forward(self, x: torch.Tensor, pack_w: bool = False, block0_blocked: bool = False,
-                late_blocked: bool = False, fuse_in_stats: bool = False, split_out: bool = False):
+                late_blocked: bool = False, fuse_in_stats: bool = False, split_out: bool = False,
+                spatial=None):
+        if spatial is not None:
+            return self._forward_spatial(x, spatial)
         if not pack_w:
             ups = []
             for b in range(1, self.num_blocks + 1):
@@ -769,6 +788,24 @@ class RPN(nn.Module):
                 ups.append(getattr(self, f"deconv{b}")(x))
             return torch.cat(ups, dim=1)
         return self._forward_packed(x, block0_blocked, late_blocked, fuse_in_stats, split_out)
+
+    def _forward_spatial(self, x: torch.Tensor, spatial) -> torch.Tensor:
+        """The dense RPN on this rank's slab of the canvas: block b's entry
+        conv (stride 2) and its units on level b, every upsample branch on
+        the rank's slab of level 1, whose bounds are every level's times
+        its stride (`slab_bounds`), so the branches concatenate row for row."""
+        mesh = spatial.mesh
+        ups = []
+        for b in range(1, self.num_blocks + 1):
+            block = getattr(self, f"block{b}")
+            x = halo_conv(x, block[0], mesh)
+            n = spatial.global_rows(b) * x.shape[3]
+            x = torch.relu(spatial_instance_norm(x, mesh, n))
+            for unit in block[3:]:
+                x = unit.forward_spatial(x, spatial, b)
+            u = getattr(self, f"deconv{b}")[0](x)
+            ups.append(torch.relu(spatial_instance_norm(u, mesh, spatial.global_rows(1) * u.shape[3])))
+        return torch.cat(ups, dim=1)
 
     def _forward_packed(self, x: torch.Tensor, block0_blocked: bool, late_blocked: bool,
                         fuse_in_stats: bool, split_out: bool):
@@ -928,6 +965,10 @@ class MultiHead(nn.Module):
         return {k: torch.cat([p[k] for p in per_class], dim=2) for k in per_class[0]}
 
 
+# the layout levers the spatial path refuses (`PointPillars.check_spatial`)
+SPATIAL_REFUSED = ("pack_w", "block0_blocked", "block0_blocked_train", "late_blocked_train")
+
+
 class Layout(NamedTuple):
     """The layout path of one forward (`PointPillars.layout`)."""
 
@@ -1001,13 +1042,40 @@ class PointPillars(nn.Module):
         scatter = self.scatter_s2d if layout.pack_w else self.scatter
         return scatter(feats, coors, self.grid_xy).permute(0, 3, 1, 2)
 
+    def check_spatial(self) -> None:
+        """The spatial path runs the dense network only: `pack_w`, and with
+        it every blocked lever that would act, raise with a spatial group
+        (the JAX model drops the blocked ones under a canvas sharding and
+        keeps packing, which is layout only; the port's default is dense).
+        Without `pack_w` the blocked levers are inert (`layout`), as in the
+        shipped configs, and pass."""
+        on = [k for k in SPATIAL_REFUSED if getattr(self.cfg, k)] if self.cfg.pack_w else []
+        if on:
+            raise ValueError(f"{', '.join(on)} with a spatial group: the spatial path runs the dense network "
+                             f"only (set {' and '.join(f'{k}=False' for k in on)})")
+
+    def slab_canvas(self, pillar_features: torch.Tensor, coors: torch.Tensor, spatial) -> torch.Tensor:
+        """This rank's slab of the dense canvas, rows [lo, hi) of nx, as an
+        NCHW view of channels_last memory: the dense scatter of the pillars
+        with x shifted by lo into a grid of hi - lo rows, which drops every
+        pillar outside the slab (and its backward gathers zero for them)."""
+        lo, hi = spatial.rows(0)
+        shifted = torch.cat([coors[..., :1] - lo, coors[..., 1:]], dim=-1).contiguous()
+        return self.scatter(pillar_features.contiguous(), shifted, (hi - lo, self.grid_xy[1])).permute(0, 3, 1, 2)
+
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor, coors: torch.Tensor,
-                train: bool = False, mesh=None) -> dict:
+                train: bool = False, mesh=None, spatial=None) -> dict:
         # voxels (B, V, P, 4), num_points (B, V) int32, coors (B, V, 3) int32;
         # train: masked batch statistics in the PFN (and their running update);
-        # mesh: those statistics synced over a data-parallel group (JAX's axis_name)
-        layout = self.layout(voxels.shape[0], train)
+        # mesh: those statistics synced over a data-parallel group (JAX's axis_name);
+        # spatial: a parallel.spatial.SpatialPlan — the RPN and the head on
+        # this rank's slab, the preds gathered whole on every rank of the group
         pillar_features = self.pillar_point_net(voxels, num_points, coors, train, mesh)
+        if spatial is not None:
+            self.check_spatial()
+            x = self.rpn(self.slab_canvas(pillar_features, coors, spatial), spatial=spatial)
+            return gather_rows(self.heads(x), spatial.mesh, spatial.bounds[1])
+        layout = self.layout(voxels.shape[0], train)
         x = self.canvas(pillar_features, coors, layout)
         return self.heads(self.rpn(x, *layout, *self.neck(train)))
 

@@ -23,9 +23,24 @@ JAX's `P(DATA_AXIS)`), so a step at world W equals the one-process step at
 the global batch. The hand-written kernels run per rank on its slice, as
 the Pallas calls run per device inside JAX's `shard_map`.
 
-Not ported: the spatial modes (`make_spatial_mesh`, `make_hybrid_mesh`,
-`make_spatial_train`, `make_spatial_infer`): GSPMD's automatic halo
-exchange has no PyTorch counterpart (ROADMAP).
+The spatial half (mesh.py:51-60 and 135-214 of the JAX package): one
+frame's RPN split along x over the ranks of a spatial group, whose halo
+exchanges, InstanceNorm statistics and preds gather are written by hand in
+`parallel/spatial.py` (JAX leaves them to GSPMD):
+
+  * `make_spatial_mesh(n)`: the spatial group over the world or its first
+    n ranks; `make_spatial_infer(cfg, mesh)` runs one frame on it, every
+    rank voxelizing, running the PFN, decoding and running NMS on the
+    gathered preds (replicated, as JAX's replicated shardings place them),
+    each its slab of the scatter, the RPN and the head;
+  * `make_hybrid_mesh(dp, sp)`: rank = d·sp + s, as JAX's `reshape(dp,
+    sp)`; a `HybridMesh` holds the rank's data group (the ranks of its
+    spatial index) and its spatial group (the ranks of its data index).
+    `make_spatial_train` steps on it: each data group's spatial ranks load
+    the same slice of the batch and split its RPN along x; sync-BN, the
+    loss mean and the metric sums run over the data group, and the
+    gradients take one all-reduce over the world divided by dp (the sum of
+    the spatial ranks' partial gradients, then the mean over data).
 """
 
 from __future__ import annotations
@@ -45,7 +60,8 @@ DATA_AXIS = "data"
 
 @dataclasses.dataclass
 class DataMesh:
-    """The process group of the data axis and this process's place in it.
+    """The process group of one axis (data or spatial) and this process's
+    place in it.
     `rank` is -1 and `group` None on a process outside the group (a
     `make_mesh(n)` of fewer ranks than the world). `collectives` counts the
     collectives this module issued over the group, by kind (the
@@ -106,7 +122,8 @@ def make_mesh(n: int | None = None, *, device=None, backend: str | None = None, 
     The world's process group is made on the first call: from `torchrun`'s
     environment (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT`), or
     from `rank`, `world_size` and `init_method` (a `file://` path needs no
-    port). `device` is "cuda" unless named; a CUDA device without an index
+    port; a world of one with no `init_method` needs none). `device` is
+    "cuda" unless named; a CUDA device without an index
     becomes `cuda:LOCAL_RANK` and the current device. The backend is NCCL
     on the card and gloo on the CPU; gloo on the card only where `backend`
     names it (NCCL refuses two ranks on one card). A failed NCCL start
@@ -122,8 +139,11 @@ def make_mesh(n: int | None = None, *, device=None, backend: str | None = None, 
         if backend == "nccl" and device.type != "cuda":
             raise ValueError(f"NCCL needs a CUDA device, got {device}")
         kw = {"device_id": device} if backend == "nccl" else {}
-        dist.init_process_group(backend, init_method=init_method or "env://", rank=rank, world_size=world_size,
-                                **kw)
+        if init_method is None and world_size == 1:
+            kw["store"] = dist.HashStore()  # a group of this process alone needs no rendezvous
+        else:
+            kw["init_method"] = init_method or "env://"
+        dist.init_process_group(backend, rank=rank, world_size=world_size, **kw)
     else:
         device = _rank_device(device, dist.get_rank())
     mesh = DataMesh(dist.group.WORLD, dist.get_rank(), dist.get_world_size(), device, dist.get_backend())
@@ -145,8 +165,60 @@ def _rank_device(device, rank: int) -> torch.device:
     return device
 
 
-def collective_counts(mesh: DataMesh) -> dict[str, int]:
-    """The collectives issued over `mesh` so far, by kind."""
+def make_spatial_mesh(n: int | None = None, **kw) -> DataMesh:
+    """The spatial group over the world's processes, or over its first `n`
+    (JAX's 1-D mesh over the `spatial` axis); `make_mesh`'s arguments."""
+    return make_mesh(n, **kw)
+
+
+@dataclasses.dataclass
+class HybridMesh:
+    """A (data, spatial) grid of dp x sp ranks, rank = d·sp + s: the world,
+    this rank's data group (ranks s + k·sp, k < dp) and its spatial group
+    (ranks d·sp + k, k < sp)."""
+
+    world: DataMesh
+    data: DataMesh
+    spatial: DataMesh
+
+    @property
+    def dp(self) -> int:
+        return self.data.world
+
+    @property
+    def sp(self) -> int:
+        return self.spatial.world
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+
+def make_hybrid_mesh(dp: int, sp: int, **kw) -> HybridMesh:
+    """The (data, spatial) grid over a world of dp·sp processes (every
+    process calls this; `make_mesh`'s arguments). Every rank makes every
+    group, in the same order, as `new_group` asks; a group of the whole
+    world is the world's."""
+    world = make_mesh(**kw)
+    if dp < 1 or sp < 1 or dp * sp != world.world:
+        raise ValueError(f"a {dp} x {sp} (data x spatial) grid needs {dp * sp} ranks, the world has {world.world}")
+    d, s = divmod(world.rank, sp)
+
+    def group(members: list[int]):
+        # new_group is a collective of the whole world
+        return world.group if len(members) == world.world else dist.new_group(members)
+
+    data = [group([t + k * sp for k in range(dp)]) for t in range(sp)][s]
+    spatial = [group([t * sp + k for k in range(sp)]) for t in range(dp)][d]
+    return HybridMesh(world, DataMesh(data, d, dp, world.device, world.backend),
+                      DataMesh(spatial, s, sp, world.device, world.backend))
+
+
+def collective_counts(mesh: DataMesh | HybridMesh) -> dict:
+    """The collectives issued over `mesh` so far, by kind; for a
+    `HybridMesh`, by group ("world", "data", "spatial") and kind."""
+    if isinstance(mesh, HybridMesh):
+        return {name: dict(getattr(mesh, name).collectives) for name in ("world", "data", "spatial")}
     return dict(mesh.collectives)
 
 
@@ -171,17 +243,17 @@ def all_reduce_sum(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
 
 
 @torch.no_grad()
-def pmean_gradients(params, mesh: DataMesh) -> None:
-    """Every parameter's `.grad` replaced by its mean over the ranks (JAX's
-    `pmean(grads)`), through one all-reduce of a flat buffer; each `.grad`
-    keeps its tensor and layout (a missing one becomes zeros, as the
-    optimizer reads it)."""
+def pmean_gradients(params, mesh: DataMesh, n: int | None = None) -> None:
+    """Every parameter's `.grad` replaced by its sum over the ranks divided
+    by `n`, the world size by default (JAX's `pmean(grads)`), through one
+    all-reduce of a flat buffer; each `.grad` keeps its tensor and layout (a
+    missing one becomes zeros, as the optimizer reads it)."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    mesh.all_reduce_(flat).div_(mesh.world)
+    mesh.all_reduce_(flat).div_(mesh.world if n is None else n)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view(g.shape))
 
@@ -278,3 +350,41 @@ def make_sharded_infer(detector, mesh: DataMesh):
                           mesh.all_gather(out.valid.to(torch.uint8)).bool())
 
     return infer
+
+
+# --- the spatial modes ----------------------------------------------------------
+
+
+def make_spatial_infer(cfg, mesh: DataMesh, **detector_kwargs):
+    """Single-frame inference split along x over the spatial group `mesh`
+    (JAX's `make_spatial_infer` without its `variables` argument: the
+    detector holds its weights, which every rank must load alike) →
+    `(detector, infer_fn)`; `infer_fn(points (max_points, C), num_points)`,
+    a host array or a tensor, returns the frame's `Detections` on every
+    rank. Each rank launches the dense scatter once, into its slab, and
+    NMS once, on the gathered preds."""
+    from det3d_tpu_torch.pipeline import Detector
+
+    det = Detector(cfg, mesh.device, spatial=mesh, **detector_kwargs)
+
+    def infer(points, num_points) -> Detections:
+        return det.infer(torch.as_tensor(points).to(det.device), int(num_points))
+
+    return det, infer
+
+
+def make_spatial_train(cfg, mesh: HybridMesh, *, s2b_fence: bool = False, **trainer_kwargs):
+    """Hybrid data x spatial training (JAX's `make_spatial_train`) →
+    `(trainer, step_fn)`; `step_fn(state, batch)` takes this rank's data
+    group's slice of the global batch (`shard_batch(mesh.data, batch)`),
+    the same on every rank of a spatial group, and returns what
+    `Trainer.train_step` returns, the same on every rank. The fence is off
+    by default, as in JAX (it is an identity copy)."""
+    from det3d_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, mesh.device, spatial=mesh.spatial, fence=s2b_fence, **trainer_kwargs)
+
+    def step(state, batch):
+        return trainer.train_step(state, batch, mesh=mesh)
+
+    return trainer, step

@@ -9,6 +9,13 @@ result. PyTorch runs eagerly, so the stages are plain method calls; the two
 CUDA kernels (the BEV scatter of the config's layout, NMS) each launch once
 per frame on the card, or once per batch in `infer_batch`.
 
+With a spatial group (`Detector(cfg, spatial=mesh)`,
+`parallel/mesh.make_spatial_infer`) the network's scatter, RPN and head
+run on this rank's slab of the canvas (`parallel/spatial.py`); voxelize,
+the anchor mask and the PFN before them, and decode and NMS on the gathered
+preds after them, run whole on every rank of the group, as JAX runs them
+replicated, so every rank holds the frame's `Detections`.
+
 The whole points → detections function is one module, `DetectorModule`,
 whose buffers hold every device constant of the path, so that
 `deploy/export.py` exports it as it is and the live detector and the
@@ -26,6 +33,7 @@ from det3d_tpu_torch.config import Config
 from det3d_tpu_torch.models.pointpillars import PointPillars, init_weights
 from det3d_tpu_torch.ops.anchor_mask import compute_anchors_mask, compute_anchors_mask_separable
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame, VoxelizerSpec, grid_tensors, voxelize
+from det3d_tpu_torch.parallel.spatial import SpatialPlan
 from det3d_tpu_torch.postprocess import Detections, PostProcessor, PostProcessParams, frame_preds, to_annos
 from det3d_tpu_torch.utils.device import resolve_device
 from det3d_tpu_torch.utils.npmath import pad_cloud
@@ -40,10 +48,13 @@ class DetectorModule(nn.Module):
 
     `forward(points (max_points, C), num_points)` is one frame →
     (boxes, scores, valid), the fields of `Detections`; `forward_batch` is B
-    frames through the network at batch B and one NMS call."""
+    frames through the network at batch B and one NMS call. `spatial`: a
+    `parallel.spatial.SpatialPlan`, the network split over its group."""
 
-    def __init__(self, cfg: Config, anchor_set: AnchorSet, params: PostProcessParams | None, device):
+    def __init__(self, cfg: Config, anchor_set: AnchorSet, params: PostProcessParams | None, device,
+                 spatial=None):
         super().__init__()
+        self.spatial = spatial
         self.spec = VoxelizerSpec.from_config(cfg)
         self.grid_xy = (cfg.grid_size[0], cfg.grid_size[1])
         self.mask_shape = (anchor_set.num_channels, *cfg.feature_map_size[:2])
@@ -79,7 +90,8 @@ class DetectorModule(nn.Module):
     def candidates(self, points: torch.Tensor, num_points):
         """Everything before NMS: voxelize → model → decode."""
         frame, anchors_mask = self.preprocess(points, num_points)
-        preds = self.model(frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
+        preds = self.model(frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None],
+                           spatial=self.spatial)
         return self.postprocess.decode_stage(frame_preds(preds, 0), anchors_mask)
 
     def forward(self, points: torch.Tensor, num_points) -> tuple[torch.Tensor, ...]:
@@ -90,6 +102,8 @@ class DetectorModule(nn.Module):
         and masked, the network once at batch B, each frame decoded, one NMS
         call over the (B·ncls, kmax, 4) standup boxes, then the rank cap and
         compaction per frame → (B, ...) fields of `Detections`."""
+        if self.spatial is not None:
+            raise ValueError("a spatial detector partitions within one frame: no batch")
         frames = [self.preprocess(points[i], num_points[i]) for i in range(points.shape[0])]
         preds = self.model(*(torch.stack([getattr(f, k) for f, _ in frames])
                              for k in ("voxels", "num_points_per_voxel", "coors")))
@@ -100,13 +114,20 @@ class DetectorModule(nn.Module):
 
 class Detector:
     """Owns the `DetectorModule` (the model and its weights included) on
-    one device, and the host conveniences around it."""
+    one device, and the host conveniences around it. `spatial`: a spatial
+    group (`parallel.mesh.make_spatial_mesh`) over which each frame's
+    network is split; the dense network only (`PointPillars.check_spatial`)."""
 
-    def __init__(self, cfg: Config, device=None, *, postprocess_params: PostProcessParams | None = None):
+    def __init__(self, cfg: Config, device=None, *, postprocess_params: PostProcessParams | None = None,
+                 spatial=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.anchor_set: AnchorSet = build_anchors(cfg)
-        self.module = DetectorModule(cfg, self.anchor_set, postprocess_params, self.device)
+        plan = None if spatial is None else SpatialPlan.of(spatial, cfg.grid_size[0])
+        self.module = DetectorModule(cfg, self.anchor_set, postprocess_params, self.device, plan)
+        if plan is not None:
+            self.module.model.check_spatial()
+        self.spatial = plan
         self.model = self.module.model
         self.postprocess = self.module.postprocess
 

@@ -23,6 +23,17 @@ statistics are synced over the mesh, the gradients averaged over it in
 one all-reduce before the clip and Adam, the loss terms averaged and the
 metric counts summed, so every rank applies the one-process step's update
 at the global batch.
+
+`train_step(state, batch, mesh=HybridMesh)` is the per-rank body of the
+hybrid data x spatial step (`parallel/mesh.make_spatial_train`, a
+`Trainer(spatial=...)`): the batch is this rank's data group's slice, the
+same on every rank of its spatial group, which splits the RPN along x and
+computes the matcher, the loss and the metrics whole from the gathered
+preds. Sync-BN, the loss mean and the metric sums run over the data group
+(over the world they would count each sample sp times); the gradients,
+each rank's share of the sum over its spatial group, take one all-reduce
+over the world divided by dp; the augmentation draws by the data rank, so
+that a spatial group draws one transform.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from det3d_tpu_torch.kernels.fence_cuda import s2b_fence
 from det3d_tpu_torch.losses import detection_loss
 from det3d_tpu_torch.ops import geometry
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame
-from det3d_tpu_torch.parallel.mesh import pmean, pmean_gradients, psum
+from det3d_tpu_torch.parallel.mesh import HybridMesh, pmean, pmean_gradients, psum
 from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.postprocess import Detections
 from det3d_tpu_torch.targets import TargetAssignment, make_target_assigner
@@ -97,16 +108,21 @@ class Trainer:
     launches), with parameters drawn per sample from a generator seeded by
     `augment_seed(aug_seed, state.step)`; then the range filter updates
     `gt_valid` and the yaw wraps by 2π, which the host chain does otherwise
-    (`device_augment`)."""
+    (`device_augment`).
 
-    def __init__(self, cfg: Config, device=None, *, device_global_augment: bool = False, aug_seed: int = 0):
+    `spatial`: a spatial group over which the network is split (the
+    detector's); `fence=False` leaves the fence out of the step (the JAX
+    trainer's `s2b_fence`; `make_spatial_train`'s default)."""
+
+    def __init__(self, cfg: Config, device=None, *, device_global_augment: bool = False, aug_seed: int = 0,
+                 spatial=None, fence: bool = True):
         self.cfg = cfg
-        self.detector = Detector(cfg, device)
+        self.detector = Detector(cfg, device, spatial=spatial)
         self.device = self.detector.device
         self.model = self.detector.model
         self.params = list(self.model.parameters())
         self.assigner = make_target_assigner(cfg, self.detector.anchor_set, self.device)
-        self.fence = s2b_fence
+        self.fence = s2b_fence if fence else _no_fence
         self.device_global_augment = device_global_augment
         self.aug_seed = int(aug_seed)
         if device_global_augment:
@@ -179,7 +195,8 @@ class Trainer:
         """Train-mode forward (its batch statistics synced over `mesh`), the
         fence on `cls_preds` (as the JAX step, trainer.py:199-211), and the
         loss: (loss dict, preds)."""
-        preds = self.model(frames.voxels, frames.num_points_per_voxel, frames.coors, train=True, mesh=mesh)
+        preds = self.model(frames.voxels, frames.num_points_per_voxel, frames.coors, train=True, mesh=mesh,
+                           spatial=self.detector.spatial)
         preds = dict(preds, cls_preds=self.fence(preds["cls_preds"]))
         loss_dict = detection_loss(preds, tgt.labels, tgt.bbox_targets, tgt.dir_targets)
         return loss_dict, preds
@@ -220,19 +237,24 @@ class Trainer:
         the gradients and losses averaged and the counts summed over the
         ranks (the JAX step's `pmean` / `psum`, trainer.py:226-234). The
         losses are means per sample over the local batch, so their mean
-        over equal slices is the global batch's."""
+        over equal slices is the global batch's. With a `HybridMesh`, the
+        hybrid step (see the module docstring)."""
+        data = mesh.data if isinstance(mesh, HybridMesh) else mesh
         batch = self.to_device(batch)
-        frames, tgt = self.prepare(batch, state.step, None if mesh is None else mesh.rank)
-        loss_dict, preds = self.forward_loss(frames, tgt, mesh)
+        frames, tgt = self.prepare(batch, state.step, None if data is None else data.rank)
+        loss_dict, preds = self.forward_loss(frames, tgt, data)
         for p in self.params:
             p.grad = None
         loss_dict["loss"].backward()
         with torch.no_grad():
             metrics = binary_counts(tgt.labels, preds["cls_preds"])
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
-        if mesh is not None:
+        if isinstance(mesh, HybridMesh):
+            pmean_gradients(self.params, mesh.world, mesh.dp)
+        elif mesh is not None:
             pmean_gradients(self.params, mesh)
-            loss_dict, metrics = pmean(loss_dict, mesh), psum(metrics, mesh)
+        if data is not None:
+            loss_dict, metrics = pmean(loss_dict, data), psum(metrics, data)
         self.apply_gradients(state)
         return state, loss_dict, metrics
 
@@ -243,6 +265,10 @@ class Trainer:
         takes its mode from `train=`, never from `module.training`, so an
         eval between two steps leaves the next step as it was."""
         return self.detector.infer(torch.as_tensor(points, device=self.device), int(num_points))
+
+
+def _no_fence(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 def host_batch(cfg: Config, samples: list[dict]) -> TrainBatch:

@@ -631,6 +631,38 @@ def test_scatter_autograd_uses_both_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_slab_scatter_is_the_canvas_rows_bit_for_bit(cuda, dtype, sp):
+    """The spatial path's slab canvas (models/pointpillars.slab_canvas): the
+    dense scatter of the pillars with x shifted by the slab's first row into
+    a grid of the slab's rows is the full canvas's rows, and its backward
+    the full backward's rows for the slab's pillars and zero for the
+    others (uneven slabs: 25 coarse rows)."""
+    from det3d_tpu_torch.parallel.spatial import slab_bounds
+
+    grid = (200, 96)
+    feats, coors = scatter_case(2, 2000, 16, grid, 1500, seed=7)
+    f = torch.from_numpy(feats).to(device=cuda, dtype=dtype)
+    co = torch.from_numpy(coors).to(cuda)
+    full = scatter_cuda.scatter_to_bev(f, co, grid)
+    g = torch.randn(2, *grid, 16, device=cuda).to(dtype)
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    for lo, hi in slab_bounds(grid[0], sp)[0]:
+        shifted = torch.cat([co[..., :1] - lo, co[..., 1:]], dim=-1).contiguous()
+        before = (scatter_cuda.counter.launches, scatter_cuda.bwd_counter.launches)
+        fs = f.clone().requires_grad_()
+        slab = scatter_cuda.scatter_to_bev(fs, shifted, (hi - lo, grid[1]))
+        slab.backward(g[:, lo:hi].contiguous())
+        torch.cuda.synchronize()
+        assert (scatter_cuda.counter.launches, scatter_cuda.bwd_counter.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(slab.detach().view(ints), full[:, lo:hi].view(ints))
+        inside = (co[..., 0] >= lo) & (co[..., 0] < hi)
+        want = torch.where(inside[..., None], scatter_cuda.scatter_to_bev_bwd_plain(g, co), 0)
+        assert torch.equal(fs.grad.view(ints), want.view(ints))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("view", ["cls_preds", "contiguous", "odd_bytes", "int64_sliced"])
 def test_fence_kernel_bit_equal(cuda, view):
     if view == "cls_preds":
