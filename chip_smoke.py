@@ -116,7 +116,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      (NCCL refuses two ranks on one card), f32, batch 1 each, 2 steps
      against one process at batch 2 at phase 8's tolerances, once with the
      kernels on both ranks and once with rank 1 on the plain versions
-     (the two runs must agree too); ms/step per rank, launches per rank;
+     (the two runs must agree too), then a third step of each run, of the
+     one process and of the one process with its samples swapped, its
+     ratios to those bounds printed and not gated (F1); ms/step per rank,
+     launches per rank;
      (c) `make_sharded_infer` of 4 frames over those two ranks against
      `Detector.infer_batch` at batch 4 in one process, NMS calls per rank;
      (d) `train_app.train` on the world-1 NCCL group, 3 steps and a save,
@@ -136,11 +139,27 @@ Phases, each printed as it runs; any failure exits non-zero:
      bf16), 4 f32 frames against one process (valid equal, scores 2e-3,
      boxes 5e-3 / 1e-2), 3 f32 steps at (1, 2) against one process
      (phase 15(b)'s rule over its 2 steps, gradients by norm; the third
-     measured), each rank's peak beside the one process's,
+     measured, printed beside 15(b)'s third steps), each rank's peak
+     beside the one process's,
      launches and collectives per rank; (c) ntusl_10cm at (1, 2) on the
      two gloo ranks, bf16, batch 2, 2 steps: each rank's peak against the
      one-process 12 129 428 480 bytes of phase 14(d) (PERF.md). Each
      kernel row gains `spatial_launches`.
+ 17. the viewer's device pieces and tune (ntusl_20cm, bf16): (a) the nine
+     3D-box and camera functions of ops/geometry.py on the card against
+     the CPU on seeded inputs at KITTI's calibration (rtol 1e-5, atol 1e-4,
+     1e-3 where a matrix is inverted; the masks equal), the viewer's voxel
+     overlay (`SceneViewer.voxel_coors`) of a 100k-point frame equal to
+     the CPU's, and, where matplotlib is installed, a BEV and a 3D frame
+     rendered (a line says which); (b) the tuner's raw-event device time
+     against the parsed trace's on one trace, then `tune` at the JAX
+     tuner's defaults (32 frames, 12 steps at batch 2, margin 0.02, device
+     time), (i) the config as shipped and (ii) with pack_w on and every
+     other lever: each trial's device and host ms, the choices, the
+     skipped levers with their reasons, the tuned JSON loaded into a
+     `Detector` that detects; (c) every kernel's launches over each run,
+     equal to its trials' frames and steps, the blocked pair non-zero in
+     (ii), none zero over both. Each kernel row gains `tune_launches`.
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
@@ -153,6 +172,7 @@ two commits in one call, in turns).
 from __future__ import annotations
 
 import collections
+import importlib.util
 import itertools
 import json
 import multiprocessing
@@ -238,6 +258,7 @@ FUSED_VS_UNFUSED_TOL = 1e-4  # tests/test_torch_model.py's rtol/atol for the net
 DP_STEPS = 3          # phase 15(a): steps of the world-1 NCCL step held bit for bit against the plain step
 DP_TIMED_STEPS = 20   # ... then timed, each path, in turns (plain, data-parallel, plain)
 DP_GLOO_STEPS = 2     # phase 15(b): f32 steps of two gloo ranks (batch 1 each) against one process at batch 2
+F1_STEP = DP_GLOO_STEPS + 1  # ... and one more, measured against phase 15(b)'s bounds and not gated, as 16(b)'s third
 DP_INFER_FRAMES = 4   # phase 15(c): frames of the sharded infer_batch
 DP_APP_STEPS = 3      # phase 15(d): train_app steps at world 1, one save
 DP_TIMEOUT_S = 120.0  # a rank still alive after this fails the phase
@@ -246,6 +267,18 @@ SP_STEPS = 3          # phase 16(a) and (b): hybrid steps at batch 2
 SP_FRAMES_GLOO = 4    # phase 16(b): frames of make_spatial_infer over two gloo ranks
 SP10_STEPS = 2        # phase 16(c): ntusl_10cm hybrid steps at (1, 2), after one warm-up step
 SP_TIMEOUT_S = 300.0  # a rank of phase 16 still alive after this fails the phase
+# phase 17: tune at the JAX tuner's defaults, (i) the config as shipped, (ii) pack_w on with every other lever
+TUNE_ARGS = dict(mode="both", infer_iters=32, train_iters=12, batch_size=2, margin=0.02)
+TUNE_INFER_WINDOWS, TUNE_TRAIN_WINDOWS = 3, 2  # tune.measure_infer's and measure_train's defaults
+# KITTI frame 000000's calibration (R0_rect, Tr_velo_to_cam, P2), for phase 17(a)
+KITTI_R0_RECT = np.eye(4)
+KITTI_R0_RECT[:3, :3] = [[9.999239e-01, 9.837760e-03, -7.445048e-03], [-9.869795e-03, 9.999421e-01, -4.278459e-03],
+                         [7.402527e-03, 4.351614e-03, 9.999631e-01]]
+KITTI_VELO2CAM = np.array([[7.533745e-03, -9.999714e-01, -6.166020e-04, -4.069766e-03],
+                           [1.480249e-02, 7.280733e-04, -9.998902e-01, -7.631618e-02],
+                           [9.998621e-01, 7.523790e-03, 1.480755e-02, -2.717806e-01], [0.0, 0.0, 0.0, 1.0]])
+KITTI_P2 = np.array([[7.215377e+02, 0.0, 6.095593e+02, 4.485728e+01], [0.0, 7.215377e+02, 1.728540e+02, 2.163791e-01],
+                     [0.0, 0.0, 1.0, 2.745884e-03], [0.0, 0.0, 0.0, 1.0]])
 # the one-process peak of the ntusl_10cm train step at batch 2, bf16, on an
 # H100 at 700 W (PERF.md, phase 14(d))
 ONE_PROCESS_PEAK_10CM = 12_129_428_480
@@ -1907,7 +1940,7 @@ def dp_step_record(trainer, state, loss) -> dict:
                 grads={n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()})
 
 
-def dp_compare(got: list[dict], want: list[dict], lr: float, elementwise: bool = True) -> dict:
+def dp_compare(got: list[dict], want: list[dict], lr: float, elementwise: bool = True, start: int = 1) -> dict:
     """Steps of one run against another. The first step at phase 8's
     tolerances: loss terms rtol 1e-5, gradients within 1e-4 of each
     tensor's largest, parameters within 1e-6 where the gradient is above
@@ -1927,15 +1960,16 @@ def dp_compare(got: list[dict], want: list[dict], lr: float, elementwise: bool =
     one-process step's own gradients move by up to ~1e-2 of a tensor's
     largest element, but under 1e-3 of its norm, when only the order of its
     two samples changes (PERF.md, phase 15; 15(b) measures it in each
-    run). Returns the worst of each, relative to its bound (a check fails
-    above 1), and the tensor where it is."""
+    run). `start`: the step number of got[0]. Returns the worst of each,
+    relative to its bound (a check fails above 1), and the tensor where it
+    is."""
     worst: dict[str, tuple[float, str]] = collections.defaultdict(lambda: (0.0, ""))
 
     def note(kind: str, ratio: float, where: str) -> None:
         if ratio > worst[kind][0]:
             worst[kind] = (ratio, where)
 
-    for k, (g, w) in enumerate(zip(got, want), 1):
+    for k, (g, w) in enumerate(zip(got, want), start):
         rtol = 1e-5 if k == 1 else 1e-4
         for key, v in w["loss"].items():
             note("loss", abs(g["loss"][key] - v) / (rtol * abs(v) + 1e-12), f"{key}, step {k}")
@@ -1957,6 +1991,16 @@ def dp_compare(got: list[dict], want: list[dict], lr: float, elementwise: bool =
     return dict(worst)
 
 
+def step_ratios(got: dict, want: dict, lr: float, k: int) -> dict:
+    """Step k's ratios to phase 15(b)'s bounds for that step (`dp_compare`,
+    gradients by norm, which it compares at step 1 only): measured, never
+    gated."""
+    worst = dp_compare([got], [want], lr, elementwise=False, start=k)
+    worst["grads by norm"] = max(((got["grads"][n] - g).norm().item() / (1e-2 * g.norm().item() + 1e-30), n)
+                                 for n, g in want["grads"].items())
+    return worst
+
+
 def dp_gloo_child(rank: int, out_dir: str) -> None:
     """Phase 15(b) and (c), rank `rank` of two gloo ranks that share cuda:0
     (NCCL refuses two ranks on one card). (b) DP_GLOO_STEPS f32 steps of
@@ -1965,9 +2009,10 @@ def dp_gloo_child(rank: int, out_dir: str) -> None:
     rank 0 runs the one-process step at batch 2, and again with its two
     samples swapped, and holds both runs against the first (`dp_compare`:
     the runs against each other elementwise, against the one process by
-    norm). (c) `make_sharded_infer` of DP_INFER_FRAMES frames, two a rank,
-    held by rank 0 against `Detector.infer_batch` of all four in one
-    process."""
+    norm). Every run takes one step more, F1_STEP, whose ratios to the
+    bounds are measured and not gated. (c) `make_sharded_infer` of
+    DP_INFER_FRAMES frames, two a rank, held by rank 0 against
+    `Detector.infer_batch` of all four in one process."""
     import hashlib
 
     import torch.distributed as dist
@@ -2004,17 +2049,19 @@ def dp_gloo_child(rank: int, out_dir: str) -> None:
             for c in counters.values():
                 c.launches = 0
             records, times = [], []
-            for _ in range(DP_GLOO_STEPS):
+            for i in range(F1_STEP):
                 t0 = time.perf_counter()
                 state, loss, _ = step(state, local)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
                 records.append(dp_step_record(trainer, state, loss))
-            last = records[-1]
+                if i + 1 == DP_GLOO_STEPS:
+                    launches = {k: c.launches for k, c in counters.items()}
+            last = records[DP_GLOO_STEPS - 1]
             digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in [*last["sd"].values(), *last["moments"]]))
             runs[name] = records
-            result[name] = dict(ms=times, launches={k: c.launches for k, c in counters.items()},
-                                digest=digest.hexdigest(), losses=[r["loss"]["loss"] for r in records])
+            result[name] = dict(ms=times[:DP_GLOO_STEPS], launches=launches, digest=digest.hexdigest(),
+                                losses=[r["loss"]["loss"] for r in records[:DP_GLOO_STEPS]])
             del trainer, state
         if rank == 0:
             one = {}
@@ -2022,19 +2069,21 @@ def dp_gloo_child(rank: int, out_dir: str) -> None:
                 trainer = Trainer(cfg32)
                 state = trainer.init_state(SEED)
                 one[name] = []
-                for _ in range(DP_GLOO_STEPS):
+                for _ in range(F1_STEP):
                     state, loss, _ = trainer.train_step(state, TrainBatch(*(a[order] for a in batch)))
                     one[name].append(dp_step_record(trainer, state, loss))
                 del trainer
-            want, lr = one["one process"], state.lr
-            result["one process"] = dict(losses=[r["loss"]["loss"] for r in want])
-            swapped = one["one process, samples swapped"]
-            result["swapped"] = dict(by_norm=dp_compare(swapped, want, lr, elementwise=False),
-                                     elementwise=dp_compare(swapped, want, lr))
+            lr, n = state.lr, DP_GLOO_STEPS
+            want, swapped = one["one process"], one["one process, samples swapped"]
+            result["one process"] = dict(losses=[r["loss"]["loss"] for r in want[:n]])
+            result["swapped"] = dict(by_norm=dp_compare(swapped[:n], want[:n], lr, elementwise=False),
+                                     elementwise=dp_compare(swapped[:n], want[:n], lr))
             for name, records in runs.items():
-                result[name]["vs one process"] = dp_compare(records, want, lr, elementwise=False)
-            result["runs agree"] = dp_compare(runs["rank 1 on the plain versions"], runs["kernels on both ranks"],
-                                              lr)
+                result[name]["vs one process"] = dp_compare(records[:n], want[:n], lr, elementwise=False)
+            result["runs agree"] = dp_compare(runs["rank 1 on the plain versions"][:n],
+                                              runs["kernels on both ranks"][:n], lr)
+            result["f1"] = {f"{name}, step {F1_STEP}": step_ratios(records[n], want[n], lr, F1_STEP)
+                            for name, records in [*runs.items(), ("one process, samples swapped", swapped)]}
             del state, want, one, swapped
         del runs
 
@@ -2094,11 +2143,12 @@ def run_ranks(procs, what: str, timeout: float = DP_TIMEOUT_S) -> None:
                 p.join(10)
 
 
-def run_data_parallel(card: str, base: dict) -> dict:
+def run_data_parallel(card: str, base: dict) -> tuple[dict, dict]:
     """Phase 15: (a) and (d) in one process, then (b) and (c) in two, each
     group's ranks spawned with a file:// rendezvous in a temporary
     directory; prints every result beside phase 7's numbers in `base` and
-    checks them → the launches of each path per rank, for the kernels line."""
+    checks them → the launches of each path per rank, for the kernels line,
+    and (b)'s ungated F1_STEP ratios."""
     ctx = multiprocessing.get_context("spawn")
     root = Path(tempfile.mkdtemp(prefix="det3d-dp-"))
     try:
@@ -2174,6 +2224,9 @@ def run_data_parallel(card: str, base: dict) -> dict:
         check(r[kernels_run]["launches"] == want_k, f"(b) rank {r['rank']} launches {r[kernels_run]['launches']}")
     check(r0[plain_run]["launches"] == want_k, f"(b) rank 0 launches {r0[plain_run]['launches']}")
     check(not any(r1[plain_run]["launches"].values()), f"(b) rank 1 on plain launched {r1[plain_run]['launches']}")
+    for name, worst in r0["f1"].items():
+        print(f"[{card}] (b) F1, measured and not gated: {name} vs one process, each over phase 15(b)'s bound for "
+              f"that step: {fmt(worst)}")
 
     print(f"[{card}] (c) make_sharded_infer over two gloo ranks, {DP_INFER_FRAMES} frames of {N_POINTS} points, "
           f"f32: detections {r0['infer']['shape']} on every rank; vs Detector.infer_batch at batch "
@@ -2191,7 +2244,7 @@ def run_data_parallel(card: str, base: dict) -> dict:
         "(c) rank 0": r0["infer"]["launches"],
         "(c) rank 1": r1["infer"]["launches"],
         "(d) app, 3 steps": app["launches"],
-    }
+    }, r0["f1"]
 
 
 # --- phase 16: the spatial modes (each group of ranks in processes of its own) ---
@@ -2493,6 +2546,7 @@ def spatial_gloo_child(rank: int, out_dir: str) -> None:
             result["train"]["vs one process"] = dp_compare(records[:DP_GLOO_STEPS], want[:DP_GLOO_STEPS], lr,
                                                            elementwise=False)
             result["train"]["vs one process, every step"] = dp_compare(records, want, lr, elementwise=False)
+            result["train"]["f1"] = step_ratios(records[F1_STEP - 1], want[F1_STEP - 1], lr, F1_STEP)
             del want
         del trainer, state, step, records
         torch.cuda.empty_cache()
@@ -2620,6 +2674,10 @@ def run_spatial(card: str, base: dict) -> dict:
           f"{fmt(worst)}; over all {SP_STEPS} (measured, not held: later steps start from weights Adam's first "
           f"update moved ±lr apart): {fmt(r0['train']['vs one process, every step'])}")
     check(all(v <= 1.0 for v, _ in worst.values()), f"(b) spatial step vs one process: {worst}")
+    print(f"[{card}] (b) F1, measured and not gated, each over phase 15(b)'s bound for step {F1_STEP}: the (1, 2) "
+          f"hybrid step {F1_STEP} vs one process: {fmt(r0['train']['f1'])}")
+    for name, worst in base["f1"].items():
+        print(f"[{card}] (b) F1, beside it from phase 15(b): {name} vs one process: {fmt(worst)}")
     for r in (r0, r1):
         run = r["10cm"]
         print(f"[{card}] (c) rank {r['rank']}, ntusl_10cm make_spatial_train (1, 2) bf16 batch 2: ms/step "
@@ -2636,6 +2694,195 @@ def run_spatial(card: str, base: dict) -> dict:
         launches[f"(b) infer, rank {r['rank']}, {SP_FRAMES_GLOO} frames"] = r["infer"]["launches"]
         launches[f"(b) train, rank {r['rank']}, {SP_STEPS} steps"] = r["train"]["launches"]
         launches[f"(c) 10 cm train, rank {r['rank']}, {SP10_STEPS} steps"] = r["10cm"]["launches"]
+    return launches
+
+
+# --- phase 17: the viewer's device pieces and tune ---
+
+
+def geometry_cases(gen: np.random.RandomState) -> dict:
+    """Seeded float32 inputs of the nine 3D-box and camera functions of
+    `ops/geometry.py` → {name: (fn(device) → output, atol)}, at KITTI's
+    calibration: boxes as tests/test_geometry.py draws them, lidar points
+    in front of the camera and around it, axis-aligned boxes with points on
+    their faces."""
+    from det3d_tpu_torch.ops import geometry as G
+
+    n = 4096
+    boxes = np.concatenate([gen.uniform(-50, 50, (n, 2)), gen.uniform(-2, 2, (n, 1)), gen.uniform(0.5, 8, (n, 3)),
+                            gen.uniform(-np.pi, np.pi, (n, 1))], 1).astype(np.float32)
+    anchors = np.concatenate([gen.uniform(-50, 50, (n, 2)), gen.uniform(-2, 2, (n, 1)), gen.uniform(0.5, 8, (n, 3)),
+                              gen.uniform(-np.pi, np.pi, (n, 1))], 1).astype(np.float32)
+    points = np.concatenate([gen.uniform(-10, 60, (20_000, 1)), gen.uniform(-30, 30, (20_000, 1)),
+                             gen.uniform(-3, 2, (20_000, 1)), gen.uniform(0, 1, (20_000, 1))], 1).astype(np.float32)
+    aligned = np.array([[0, 0, 0, 4, 2, 2, 0], [3.5, -2.25, -1.5, 1.5, 0.75, 1.25, 0]], np.float32)
+    faces = np.array([[x + dx, y + dy, z + dz, 0.5] for x, y, z, l, w, h, _ in aligned
+                      for dx, dy, dz in [(0, 0, 0), (l / 2, 0, 0), (0, -w / 2, 0), (0, 0, h / 2), (0, 0, -h / 2)]],
+                     np.float32)
+    near = np.concatenate([boxes[:64], aligned])  # few pairs: a flag decided by the last bit flips rarely
+    near[:64, :2] = gen.uniform(-8, 8, (64, 2))
+    in_pts = np.concatenate([points[:2000] * [0.2, 0.4, 1, 1], faces]).astype(np.float32)
+    cam = np.concatenate([gen.uniform(-20, 20, (n, 2)), gen.uniform(2, 70, (n, 1))], 1).astype(np.float32)
+    cal = (KITTI_R0_RECT, KITTI_VELO2CAM)
+
+    def on(a, device):
+        return torch.from_numpy(a).to(device)
+
+    def corners(d):
+        unit = G.unit_corners_3d((0.5, 0.5, 0.0), d, torch.float32)
+        return G.center_to_corner_box3d(on(boxes[:, :3], d), on(boxes[:, 3:6], d), on(boxes[:, 6], d), unit)
+
+    cam_pts = G.lidar_to_camera(on(points, "cpu"), *cal).numpy()
+    cam_boxes = G.box_lidar_to_camera(on(boxes, "cpu"), *cal).numpy()
+    return {
+        "center_to_corner_box3d": (corners, 1e-4),
+        "box_lidar_to_camera": (lambda d: G.box_lidar_to_camera(on(boxes, d), *cal), 1e-4),
+        "project_to_image": (lambda d: G.project_to_image(on(cam, d), KITTI_P2), 1e-4),
+        "lidar_to_camera": (lambda d: G.lidar_to_camera(on(points, d), *cal), 1e-4),
+        "camera_to_lidar": (lambda d: G.camera_to_lidar(on(cam_pts, d), *cal), 1e-3),
+        "box_camera_to_lidar": (lambda d: G.box_camera_to_lidar(on(cam_boxes, d), *cal), 1e-3),
+        "box_encode": (lambda d: G.box_encode(on(boxes, d), on(anchors, d)), 1e-4),
+        "points_in_rbbox": (lambda d: G.points_in_rbbox(on(in_pts, d), on(near, d)), 0),
+        "corners_to_frustum_mask": (lambda d: G.corners_to_frustum_mask(on(points, d), [0.0, 0.0, 1242.0, 375.0],
+                                                                         KITTI_P2, *cal), 0),
+    }
+
+
+def run_viewer_pieces(cfg, card: str) -> None:
+    """Phase 17(a): the nine geometry functions on the card against the CPU
+    (rtol 1e-5 and the atol beside each, tests/test_torch_geometry_camera.py's;
+    the masks equal), the viewer's voxel overlay (`SceneViewer.voxel_coors`,
+    the port's voxelizer) on the card equal to the CPU's on a 100k-point
+    frame; then a BEV frame and a 3D frame rendered on the card where
+    matplotlib is installed, and a line saying which it was."""
+    from det3d_tpu_torch.data.synthetic import sample_scene, synthetic_cloud
+    from det3d_tpu_torch.viewer.app import SceneViewer
+
+    for name, (fn, atol) in geometry_cases(np.random.RandomState(SEED + 17)).items():
+        got, want = fn("cuda").cpu(), fn("cpu")
+        check(got.shape == want.shape and got.dtype == want.dtype, f"17(a) {name}: {got.shape} {got.dtype}")
+        if got.dtype == torch.bool:
+            check(torch.equal(got, want), f"17(a) {name}: {int((got != want).sum())} flags differ")
+            print(f"[{card}] (a) {name}: card equal to the CPU ({int(want.sum())} of {want.numel()} true)")
+            continue
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=1e-5, atol=atol), f"17(a) {name}: max abs diff {err:.3e}")
+        print(f"[{card}] (a) {name} {tuple(got.shape)}: card vs CPU max abs diff {err:.3e} (atol {atol}, rtol 1e-5)")
+    cloud = synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + 170)[:N_POINTS]
+    viewer = SceneViewer(cfg)
+    coors = viewer.voxel_coors(cloud)
+    check(np.array_equal(coors, SceneViewer(cfg, device="cpu").voxel_coors(cloud)), "17(a) voxel overlay differs")
+    print(f"[{card}] (a) voxel overlay of a {N_POINTS}-point frame on the card: {int((coors[:, 0] >= 0).sum())} "
+          f"pillars, coordinates equal to the CPU's")
+    if importlib.util.find_spec("matplotlib") is None:
+        print(f"[{card}] (a) matplotlib is not installed: no BEV or 3D frame rendered (the renders are host-side; "
+              "every check above ran)")
+        return
+    from det3d_tpu_torch.viewer.render import BEVRenderer
+    from det3d_tpu_torch.viewer.render3d import render_scene_3d
+
+    scene = sample_scene(cfg, np.random.RandomState(SEED + 171))
+    gt = scene["gt_boxes"]
+    dt = np.concatenate([gt[: len(gt) // 2] + np.float32([0.3, 0.2, 0, 0, 0, 0, 0.05]),
+                         gt[-2:] + np.float32([6, 6, 0, 0, 0, 0, 0])])  # matches and two false positives
+    scores = np.linspace(0.9, 0.3, len(dt))
+    root = Path(tempfile.mkdtemp(prefix="det3d-view-"))
+    try:
+        dr = cfg.detection_range
+        bev = (BEVRenderer((dr[0], dr[1], dr[3], dr[4]), device=viewer.device).points(scene["points"])
+               .detections_vs_gt(gt, dt, scores).voxel_grid(viewer.voxel_coors(scene["points"]), cfg.voxel_size,
+                                                            cfg.detection_offset).save(root / "bev.png"))
+        view3d = render_scene_3d(scene["points"], gt, dt, scores, root / "3d.png", device=viewer.device)
+        sizes = [bev.stat().st_size, view3d.stat().st_size]
+        check(min(sizes) > 10_000, f"17(a) render sizes {sizes}")
+        print(f"[{card}] (a) matplotlib installed: a BEV frame ({sizes[0]} bytes, FP/FN match and voxel overlay on "
+              f"the card) and a 3D frame ({sizes[1]} bytes) rendered")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_tune(card: str) -> dict:
+    """Phase 17(b) and (c): `tune` of configs/ntusl_20cm.json at full width
+    on the card at the JAX tuner's defaults, (i) as shipped (dense: pack_w
+    measured, the five packed-only levers skipped) and (ii) with pack_w on
+    and every other lever measured; each run's trials (device ms and host
+    ms), its choices and tuned JSON, which must load and build a
+    `Detector`; every kernel's launches over each run, the counters set to
+    0 just before it and read just after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from det3d_tpu_torch import tune as T
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.pipeline import Detector
+
+    # the tuner's device time: its raw-event sum, and the parsed events' sum of the same trace
+    det = Detector(load_config("configs/ntusl_20cm.json", max_points=120_000)).init_weights(SEED)
+    pts = torch.from_numpy(synthetic_cloud(det.cfg.max_points, N_POINTS, seed=SEED + 172)).cuda()
+    det.infer(pts, N_POINTS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            det.infer(pts, N_POINTS)
+        torch.cuda.synchronize()
+    raw = T.device_span_ms(prof)
+    parsed = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
+    check(abs(raw - parsed) <= 1e-3 * parsed, f"17(b) the tuner's device time {raw} ms, the parsed trace's {parsed}")
+    print(f"[{card}] (b) device time of 3 frames from one trace: the tuner's raw events {raw:.4f} ms, the parsed "
+          f"events {parsed:.4f} ms")
+    del det, pts, prof
+    counters = train_counters(layouts=True)
+    others = tuple(n for n, _, _, _ in T.LEVERS if n != "pack_w")
+    runs = (("(i) as shipped", {}, None), ("(ii) pack_w on", {"pack_w": True}, others))
+    root = Path(tempfile.mkdtemp(prefix="det3d-tune-"))
+    launches = {}
+    try:
+        for i, (name, overrides, levers) in enumerate(runs):
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.time()
+            report = T.tune("configs/ntusl_20cm.json", out_path=str(root / f"tuned-{i}.json"), only_levers=levers,
+                            config_overrides=overrides, device="cuda", **TUNE_ARGS)
+            torch.cuda.synchronize()
+            launches[name] = {k: c.launches for k, c in counters.items()}
+            print(f"[{card}] (b) {name}: {time.time() - t0:.1f} s; timed by {report['timed_by']}")
+            trials = {m: v["trials"] for m, v in report["modes"].items()}
+            for mode, mode_trials in trials.items():
+                for t in mode_trials:
+                    check(t["device_ms"] is not None and t["ms"] == t["device_ms"], f"17(b) {name} trial {t}")
+                    print(f"[{card}] (b) {name} {mode} {t['levers'] or 'baseline'}: device {t['device_ms']:.4f} ms, "
+                          f"host {t['host_ms']:.4f} ms a {'frame' if mode == 'infer' else 'step'}")
+            print(f"[{card}] (b) {name}: chosen {report['chosen']}; skipped {report['skipped']}")
+            tuned = json.loads(Path(report["out"]).read_text())
+            print(f"[{card}] (b) {name}: tuned JSON {json.dumps(tuned)}")
+            check(tuned["_tuned_on"] == torch.cuda.get_device_name(0), f"17(b) _tuned_on {tuned['_tuned_on']}")
+            cfg_t = load_config(report["out"])
+            check(all(getattr(cfg_t, k) == v for k, v in report["chosen"].items()), f"17(b) {name}: choices lost")
+            det = Detector(cfg_t).init_weights(SEED)
+            d = det.infer(torch.from_numpy(synthetic_cloud(cfg_t.max_points, N_POINTS, seed=SEED + 172)).cuda(),
+                          N_POINTS)
+            check(bool(torch.isfinite(d.boxes).all()), f"17(b) {name}: the tuned config's detector")
+            del det, d
+            packed = overrides.get("pack_w") or report["chosen"].get("pack_w") is True
+            skipped = {s["lever"]: s["reason"] for s in report["skipped"]}
+            want = {} if packed else {k: T.PACKED_ONLY_REASON for k in T.PACKED_ONLY}
+            check(skipped == want, f"17(b) {name}: skipped {skipped}, expected {want}")
+            n_infer, n_train = (len(trials.get(m, [])) for m in ("infer", "train"))
+            frames = n_infer * (1 + 2 * TUNE_INFER_WINDOWS * TUNE_ARGS["infer_iters"])
+            steps = n_train * (1 + 2 * TUNE_TRAIN_WINDOWS * TUNE_ARGS["train_iters"])
+            got = launches[name]
+            print(f"[{card}] (c) {name}: launches over the run ({n_infer} infer trials, {frames} frames; {n_train} "
+                  f"train trials, {steps} steps): {got}")
+            check(got["nms"] == frames and got["matcher_gt_max"] == got["matcher_assign"] == got["fence"] == steps,
+                  f"17(c) {name}: launches {got}")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ii = launches["(ii) pack_w on"]
+    check(ii["blocked_fwd"] > 0 and ii["blocked_bwd"] > 0, f"17(c) the blocked pair did not launch in (ii): {ii}")
+    idle = [k for k in counters if not any(n[k] for n in launches.values())]
+    check(not idle, f"17(c) kernels that tune launched no time: {idle}")
     return launches
 
 
@@ -2908,10 +3155,15 @@ def main() -> int:
 
     phase("15. data parallelism (ntusl_20cm: world 1 under NCCL, two gloo ranks on the one card)")
     torch.cuda.empty_cache()
-    dp_launches = run_data_parallel(card, step_base)
+    dp_launches, dp_f1 = run_data_parallel(card, step_base)
 
     phase("16. spatial modes (ntusl_20cm unless stated: world 1 under NCCL, two gloo ranks on the one card)")
-    spatial_launches = run_spatial(card, dict(step_base, frame_ms=frame_ms, frame_peak=frame_peak))
+    spatial_launches = run_spatial(card, dict(step_base, frame_ms=frame_ms, frame_peak=frame_peak, f1=dp_f1))
+
+    phase("17. the viewer's device pieces and tune (ntusl_20cm, bf16, at full width)")
+    torch.cuda.empty_cache()
+    run_viewer_pieces(cfg, card)
+    tune_launches = run_tune(card)
 
     kernels = [
         {
@@ -2978,13 +3230,14 @@ def main() -> int:
                 "scatter_to_bev_s2d_blocked": "blocked_fwd", "scatter_to_bev_s2d_blocked_bwd": "blocked_bwd"}
     graph = deploy["graph"]["per_frame"]  # None where the profiler saw no kernel inside the graph
     print(f"[{card}] calls per frame of each kernel inside the graph (profiler): {graph}")
-    # launches over phase 12 (both apps); calls per frame inside phase 13's graph; phase 14's and 15's paths
+    # launches over phase 12 (both apps); calls per frame inside phase 13's graph; phases 14-17's paths
     for k in kernels:
         k["app_launches"] = app_launches[app_keys[k["name"]]]
         k["graph_launches_per_frame"] = None if graph is None else graph[k["name"]]
         k["option_launches"] = {path: n[app_keys[k["name"]]] for path, n in options["launches"].items()}
         k["dp_launches"] = {path: n.get(app_keys[k["name"]], 0) for path, n in dp_launches.items()}
         k["spatial_launches"] = {path: n.get(app_keys[k["name"]], 0) for path, n in spatial_launches.items()}
+        k["tune_launches"] = {path: n[app_keys[k["name"]]] for path, n in tune_launches.items()}
     phase(None)
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

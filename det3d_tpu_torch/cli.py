@@ -10,6 +10,9 @@
     python -m det3d_tpu_torch import-weights --config ... --torch-ckpt FILE.pth --out DIR [--no-optimizer]
     python -m det3d_tpu_torch export-weights --config ... --checkpoint DIR --out FILE.pth
     python -m det3d_tpu_torch create-info --root DATA_ROOT [--waymo]
+    python -m det3d_tpu_torch view   --config ... --info data_info.pkl [--dt dt.pkl] [--frames A:B] [--out DIR]
+                                     [--mode bev|3d] [--image] [--interactive]
+    python -m det3d_tpu_torch tune   --config ... [--out FILE] [--mode infer|train|both] [--levers a,b] [--report FILE]
 
     torchrun --nproc-per-node N -m det3d_tpu_torch train|infer ...   (data-parallel on cards 0..N-1)
     torchrun --nproc-per-node N -m det3d_tpu_torch infer --spatial | serve --spatial | train --spatial-shards S
@@ -32,8 +35,10 @@ network along x over the world's ranks (`make_spatial_infer`); `train
 --spatial-shards S` trains on a (world/S) x S data x spatial grid
 (`make_spatial_train`); `serve` runs under `torchrun` with `--spatial`
 only. Without `torchrun` every command runs in this one process, and
-`--spatial` in a group of this process alone. Not offered yet: view and
-tune (ROADMAP).
+`--spatial` in a group of this process alone. `view` renders frames with
+matplotlib (the `viewer` extra), its voxel overlay, FP/FN match and camera
+projection on `--device`; `tune` A/Bs the layout levers on `--device` and
+writes `<config>_torch_tuned.json` unless `--out` names another file.
 """
 
 from __future__ import annotations
@@ -131,6 +136,42 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--waymo", action="store_true")
     p.add_argument("--num-features", type=int, default=4)
 
+    p = sub.add_parser("view", help="render BEV scene frames (reference viewer.py)")
+    add_common(p)
+    p.add_argument("--info", default="data_info.pkl")
+    p.add_argument("--dt", default=None)
+    p.add_argument("--frames", default="0:1", help="start:stop frame slice")
+    p.add_argument("--out", default="shots/")
+    p.add_argument("--anchors", action="store_true")
+    p.add_argument("--voxels", action="store_true")
+    p.add_argument("--mode", choices=("bev", "3d"), default="bev",
+                   help="3d: software-projected orbit-camera scene renders (the headless stand-in for the "
+                   "reference's GL scene navigation, viewer/glwidget.py)")
+    p.add_argument("--azimuth", type=float, default=-60.0, help="3d camera azimuth in degrees")
+    p.add_argument("--elevation", type=float, default=35.0)
+    p.add_argument("--distance", type=float, default=90.0)
+    p.add_argument("--orbit", type=int, default=0, metavar="N",
+                   help="with --mode 3d: render an N-view azimuth sweep per frame (turntable) instead of the "
+                   "single --azimuth view")
+    p.add_argument("--image", action="store_true",
+                   help="also render the camera-image panel with projected 3D boxes (requires img_path + calib "
+                   "in the info)")
+    p.add_argument("--interactive", action="store_true",
+                   help="open a keyboard-driven viewer window instead of batch export (←/→ frames, a anchors, "
+                   "v voxels, s screenshot, q quit; needs a GUI matplotlib backend)")
+
+    p = sub.add_parser("tune", help="A/B the config's layout levers on the device and write a tuned config "
+                       "(the analogue of TensorRT's build-time tactic tuning, reference rpn_builder.py:108-130)")
+    add_common(p)
+    p.add_argument("--out", default=None, help="tuned JSON path (default: <config>_torch_tuned.json)")
+    p.add_argument("--mode", choices=("infer", "train", "both"), default="both")
+    p.add_argument("--iters", type=int, default=32, help="inference window length")
+    p.add_argument("--train-iters", type=int, default=12)
+    p.add_argument("--batch-size", type=int, default=2, help="train-step batch")
+    p.add_argument("--margin", type=float, default=0.02, help="relative win required to adopt a lever flip")
+    p.add_argument("--levers", default=None, help="comma-separated lever subset (default: all)")
+    p.add_argument("--report", default=None, help="also dump the trial report as JSON")
+
     args = ap.parse_args(argv)
 
     if args.cmd == "create-info":
@@ -219,6 +260,21 @@ def _run(args, cfg, device, mesh) -> None:
 
         step = export_torch_checkpoint(args.checkpoint, cfg, args.out)
         print(f"exported step {step}: {args.checkpoint} -> {args.out} (reference-layout .pth)")
+    elif args.cmd == "view":
+        _view(args, cfg, device)
+    elif args.cmd == "tune":
+        import json
+        from pathlib import Path
+
+        from det3d_tpu_torch.tune import tune
+
+        overrides = {} if args.max_points is None else {"max_points": args.max_points}
+        report = tune(args.config, out_path=args.out, mode=args.mode, infer_iters=args.iters,
+                      train_iters=args.train_iters, batch_size=args.batch_size, margin=args.margin,
+                      only_levers=tuple(args.levers.split(",")) if args.levers else None,
+                      config_overrides=overrides, device=device)
+        if args.report:
+            Path(args.report).write_text(json.dumps(report, indent=1) + "\n")
     else:
         import pickle
 
@@ -230,6 +286,30 @@ def _run(args, cfg, device, mesh) -> None:
             gt_annos = pickle.load(f)
         _, s = get_official_eval_result(gt_annos, dt_annos, list(cfg.detect_class), args.range, device=device)
         print(s)
+
+
+def _view(args, cfg, device) -> None:
+    from det3d_tpu_torch.viewer.app import SceneViewer
+
+    viewer = SceneViewer(cfg, info_path=args.info, dt_path=args.dt, device=device)
+    start, stop = (int(v) for v in args.frames.split(":"))
+    if args.interactive:
+        if args.mode == "3d" or args.orbit:
+            raise SystemExit("view --interactive is BEV-only; --mode 3d/--orbit are batch-export options (drop "
+                             "--interactive to use them)")
+        from det3d_tpu_torch.viewer.app import InteractiveViewer
+
+        InteractiveViewer(viewer, start=start, out_dir=args.out).run()
+        return
+    camera = None
+    if args.mode == "3d":
+        from det3d_tpu_torch.viewer.render3d import OrbitCamera
+
+        camera = OrbitCamera(args.azimuth, args.elevation, args.distance)
+    paths = viewer.export_frames(range(start, min(stop, len(viewer))), args.out, show_anchors=args.anchors,
+                                 show_voxels=args.voxels, image=args.image, mode=args.mode, camera=camera,
+                                 orbit=args.orbit)
+    print(f"wrote {len(paths)} frames → {args.out}")
 
 
 if __name__ == "__main__":

@@ -185,15 +185,16 @@ def _moments_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: int, packed: bool)
 
 def _in_moments(x: torch.Tensor, packed: bool = False):
     """Per-(sample, channel) float32 mean and rsqrt(var + 1e-3) of an NCHW
-    map, from single-pass sums; and the element count per channel."""
-    xf = x.float()
+    map, from single-pass sums; and the element count per channel. A
+    float64 map keeps float64 (a reference computation's precision)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     return _moments_from_sums(xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3)), x.shape[2] * x.shape[3], packed)
 
 
 def _reduce_cc(a: torch.Tensor, packed: bool, n: int) -> torch.Tensor:
     """Per-(sample, channel) float32 mean of an NCHW map over n elements,
     with the packed parity merge (the JAX package's `_reduce_cc`)."""
-    s = a.float().sum(dim=(2, 3))
+    s = a.to(torch.promote_types(a.dtype, torch.float32)).sum(dim=(2, 3))
     if packed:
         s = _parity_sum(s).repeat(1, 2)
     return s / n

@@ -1,8 +1,8 @@
-"""Box geometry used by decoding, target assignment and the on-device
-global augmentation (PyTorch).
+"""Box geometry used by decoding, target assignment, the on-device global
+augmentation and the viewer (PyTorch).
 
-Counterpart of the decode, encode and augmentation surface of the JAX
-package's `ops/geometry.py` (reference: framework/box_np_ops.py). Box convention:
+Counterpart of the JAX package's `ops/geometry.py` (reference:
+framework/box_np_ops.py), the camera transforms included. Box convention:
 ``[x, y, z, l, w, h, yaw]`` with z the bottom of the box; decode shifts to
 and from the z-center internally (reference: framework/box_np_ops.py:406-423).
 The float32 operations keep the JAX functions' order, so the target
@@ -17,6 +17,9 @@ import torch
 
 # clockwise 2D unit-corner layout (reference: framework/box_np_ops.py:122-153)
 _CORNERS2D = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0))
+# the 8 corners of a 3D box, in the JAX package's order
+_CORNERS3D = ((0.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.0, 1.0, 1.0), (0.0, 1.0, 0.0),
+              (1.0, 0.0, 0.0), (1.0, 0.0, 1.0), (1.0, 1.0, 1.0), (1.0, 1.0, 0.0))
 
 
 def limit_period(val: torch.Tensor, offset: float = 0.5, period: float = math.pi) -> torch.Tensor:
@@ -107,9 +110,17 @@ def unit_corners(origin: float, device: torch.device, dtype: torch.dtype) -> tor
     return torch.tensor(_CORNERS2D, dtype=dtype, device=device) - origin
 
 
+def unit_corners_3d(origin, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The (8, 3) unit corners less `origin` (a float or an (x, y, z)
+    triple; lidar boxes take (0.5, 0.5, 0.0), their z the bottom), for
+    `center_to_corner_box3d`, made once and held as `unit_corners`'s are."""
+    return torch.tensor(_CORNERS3D, dtype=dtype, device=device) - torch.tensor(origin, dtype=dtype, device=device)
+
+
 def corners_nd(dims: torch.Tensor, unit: torch.Tensor) -> torch.Tensor:
-    """(N, 2) box dims → (N, 4, 2) relative corner offsets, clockwise;
-    `unit` is `unit_corners(origin, dims.device, dims.dtype)`."""
+    """(N, 2) or (N, 3) box dims → (N, 4, 2) or (N, 8, 3) relative corner
+    offsets; `unit` is `unit_corners(origin, dims.device, dims.dtype)` or
+    `unit_corners_3d(...)`."""
     return dims[..., None, :] * unit
 
 
@@ -119,6 +130,16 @@ def center_to_corner_box2d(centers, dims, angles, unit: torch.Tensor) -> torch.T
     corners = corners_nd(dims, unit)
     if angles is not None:
         corners = rotation_2d(corners, angles)
+    return corners + centers[..., None, :]
+
+
+def center_to_corner_box3d(centers, dims, angles, unit: torch.Tensor, axis: int = 2) -> torch.Tensor:
+    """(N,3) centers + (N,3) dims (+ yaw about `axis`, or None) → (N,8,3)
+    corners (reference: framework/box_torch_ops.py:302-326); `unit` is
+    `unit_corners_3d(origin, ...)`."""
+    corners = corners_nd(dims, unit)
+    if angles is not None:
+        corners = rotation_3d_in_axis(corners, angles, axis=axis)
     return corners + centers[..., None, :]
 
 
@@ -161,6 +182,12 @@ def iou_matrix(boxes: torch.Tensor, query_boxes: torch.Tensor, eps: float = 0.0)
     return torch.where(inter > 0, inter / union, 0.0)
 
 
+def box_encode(boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Regression targets of gt boxes against anchors, both (..., 7) →
+    (..., 7): `box_encode_transposed` on the un-transposed layout."""
+    return box_encode_transposed(boxes.movedim(-1, 0), anchors.movedim(-1, 0)).movedim(0, -1)
+
+
 def box_encode_transposed(boxes_t: torch.Tensor, anchors_t: torch.Tensor) -> torch.Tensor:
     """Regression targets of gt boxes against anchors, both (7, N) → (7, N)
     (reference framework/box_np_ops.py:366-382): xy over the anchor's BEV
@@ -195,3 +222,91 @@ def box_decode(box_encodings: torch.Tensor, anchors: torch.Tensor) -> torch.Tens
     rg = rt + ra
     zg = zg - hg / 2
     return torch.cat([xg, yg, zg, lg, wg, hg, rg], dim=-1)
+
+
+# --- point-in-box tests, camera <-> lidar transforms (create_info and the viewer) ---
+
+
+def points_in_rbbox(points: torch.Tensor, boxes: torch.Tensor, z_axis: int = 2,
+                    origin=(0.5, 0.5, 0.5)) -> torch.Tensor:
+    """points (N, >=3) against 3D boxes (K, 7) → (N, K) bool membership,
+    as the reference's live `points_in_rbbox` (framework/box_np_ops.py:
+    460-468): z taken with origin 0.5 (the stored z the box's center) and
+    points on a face excluded; `origin=(0.5, 0.5, 0.0)` for the
+    bottom-anchored membership."""
+    unit = unit_corners(0.5, boxes.device, boxes.dtype)
+    corners = center_to_corner_box2d(boxes[:, :2], boxes[:, 3:5], boxes[:, 6], unit)
+    in_bev = points_in_convex_polygon(points[:, :2], corners)
+    z0 = boxes[:, 2] - boxes[:, 5] * origin[2]
+    z1 = z0 + boxes[:, 5]
+    pz = points[:, None, z_axis]
+    return in_bev & (pz > z0[None, :]) & (pz < z1[None, :])
+
+
+def _homogeneous(points: torch.Tensor) -> torch.Tensor:
+    if points.shape[-1] == 3:
+        return torch.cat([points, points.new_ones((points.shape[0], 1))], dim=-1)
+    return points
+
+
+def _like(m, points: torch.Tensor) -> torch.Tensor:
+    """A calibration matrix (array or tensor) on the points' device and dtype."""
+    return torch.as_tensor(m, dtype=points.dtype, device=points.device)
+
+
+def camera_to_lidar(points: torch.Tensor, r_rect, velo2cam) -> torch.Tensor:
+    """Camera-frame points (N, 3 or 4) → lidar frame (N, 3), through
+    inv((r_rect @ velo2cam).T) (reference: framework/box_np_ops.py:114-119).
+    A float32 inverse differs in its last bits between LAPACK builds."""
+    points = _homogeneous(points)
+    t = _like(r_rect, points) @ _like(velo2cam, points)
+    return (points @ torch.linalg.inv(t.T))[..., :3]
+
+
+def box_camera_to_lidar(data: torch.Tensor, r_rect, velo2cam) -> torch.Tensor:
+    """Camera-frame [x, y, z, l, h, w, r] boxes → lidar [x, y, z, w, l, h, r]
+    (reference: framework/box_np_ops.py:106-111)."""
+    xyz = camera_to_lidar(data[:, 0:3], r_rect, velo2cam)
+    l, h, w, r = data[:, 3:4], data[:, 4:5], data[:, 5:6], data[:, 6:7]
+    return torch.cat([xyz, w, l, h, r], dim=1)
+
+
+def lidar_to_camera(points: torch.Tensor, r_rect, velo2cam) -> torch.Tensor:
+    """Lidar-frame points (N, 3 or 4) → camera frame (N, 3), the inverse of
+    `camera_to_lidar` (reference: framework/box_np_ops.py:1088-1094)."""
+    points = _homogeneous(points)
+    return (points @ (_like(r_rect, points) @ _like(velo2cam, points)).T)[..., :3]
+
+
+def box_lidar_to_camera(data: torch.Tensor, r_rect, velo2cam) -> torch.Tensor:
+    """Lidar [x, y, z, w, l, h, r] boxes → camera [x, y, z, l, h, w, r], the
+    inverse of `box_camera_to_lidar` (reference framework/box_np_ops.py:
+    1097-1105)."""
+    xyz = lidar_to_camera(data[:, 0:3], r_rect, velo2cam)
+    w, l, h, r = data[:, 3:4], data[:, 4:5], data[:, 5:6], data[:, 6:7]
+    return torch.cat([xyz, l, h, w, r], dim=1)
+
+
+def project_to_image(points_3d: torch.Tensor, proj_mat) -> torch.Tensor:
+    """Camera-frame points (..., 3) → image plane (..., 2) through a 3x4 or
+    4x4 projection matrix, homogeneous column 1: the JAX package's
+    projection, which keeps the matrix's translation (KITTI P2's camera
+    baseline) where the reference's pads zeros (framework/box_np_ops.py:
+    1088-1096)."""
+    pts = torch.cat([points_3d, points_3d.new_ones(points_3d.shape[:-1] + (1,))], dim=-1)
+    p = _like(proj_mat, points_3d)
+    if p.shape == (4, 4):
+        p = p[:3]
+    cam = pts @ p.T
+    return cam[..., :2] / cam[..., 2:3]
+
+
+def corners_to_frustum_mask(points: torch.Tensor, bbox, proj_mat, r_rect, velo2cam) -> torch.Tensor:
+    """(N,) bool: the lidar points inside the camera frustum of an image box
+    [xmin, ymin, xmax, ymax], with positive depth (the remove-outside-points
+    pattern, reference framework/box_np_ops.py:988-1007)."""
+    cam = lidar_to_camera(points[:, :3], r_rect, velo2cam)
+    img = project_to_image(cam, proj_mat)
+    b = _like(bbox, points)
+    return ((cam[:, 2] > 0) & (img[:, 0] >= b[0]) & (img[:, 0] <= b[2])
+            & (img[:, 1] >= b[1]) & (img[:, 1] <= b[3]))

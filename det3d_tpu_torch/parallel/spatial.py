@@ -154,7 +154,7 @@ def _bc(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 class _SpatialInstanceNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, n_global):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         c = x.shape[1]
         sums = mesh.all_reduce_(torch.cat([xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3))], dim=1))
         mean = sums[:, :c] / n_global
@@ -170,7 +170,8 @@ class _SpatialInstanceNorm(torch.autograd.Function):
         c = x.shape[1]
         inv_c = _bc(inv, x)
         xhat = (x - _bc(mean, x)) * inv_c
-        sums = ctx.mesh.all_reduce_(torch.cat([g.float().sum(dim=(2, 3)), (g * xhat).float().sum(dim=(2, 3))], dim=1))
+        acc = torch.promote_types(g.dtype, torch.float32)
+        sums = ctx.mesh.all_reduce_(torch.cat([g.to(acc).sum(dim=(2, 3)), (g * xhat).to(acc).sum(dim=(2, 3))], dim=1))
         m_g, m_gx = sums[:, :c] / ctx.n, sums[:, c:] / ctx.n
         dx = inv_c * (g - _bc(m_g, g) - xhat * _bc(m_gx, g))
         return dx.to(x.dtype), None, None
@@ -178,9 +179,10 @@ class _SpatialInstanceNorm(torch.autograd.Function):
 
 def spatial_instance_norm(x: torch.Tensor, mesh, n_global: int) -> torch.Tensor:
     """InstanceNorm (no affine, eps 1e-3) of the map whose slabs the ranks
-    hold, on this rank's slab x (B, C, h, W): float32 [Σx, Σx²] summed over
-    the group and divided by `n_global` (the whole map's H·W), the
-    normalisation in x's dtype; the backward sums [Σg, Σg·x̂] the same way."""
+    hold, on this rank's slab x (B, C, h, W): float32 [Σx, Σx²] (float64
+    for a float64 slab) summed over the group and divided by `n_global` (the
+    whole map's H·W), the normalisation in x's dtype; the backward sums
+    [Σg, Σg·x̂] the same way."""
     return _SpatialInstanceNorm.apply(x, mesh, n_global)
 
 

@@ -176,7 +176,7 @@ def rank_session(rank: int, world: int, init: str, out_dir: str, jobs: list) -> 
     mesh = pm.make_mesh(device="cpu", rank=rank, world_size=world, init_method=init)
     try:
         for name, kind, kwargs in jobs:
-            result = JOBS[kind](mesh, **kwargs)
+            result = (kind if callable(kind) else JOBS[kind])(mesh, **kwargs)
             with open(Path(out_dir) / f"{name}-{rank}.pkl", "wb") as f:
                 pickle.dump(result, f)
         mesh.barrier()  # no rank leaves while another still works
@@ -185,9 +185,9 @@ def rank_session(rank: int, world: int, init: str, out_dir: str, jobs: list) -> 
 
 
 def run_group(world: int, tmp: Path, jobs: list) -> dict:
-    """Run `jobs` ([(name, JOBS key, kwargs)]) on `world` spawned gloo ranks
-    → {name: [result of rank r]}. A rank that fails or outlives the join
-    timeout fails the test."""
+    """Run `jobs` ([(name, JOBS key or a module-level function, kwargs)]) on
+    `world` spawned gloo ranks → {name: [result of rank r]}. A rank that
+    fails or outlives the join timeout fails the test."""
     tmp.mkdir(parents=True, exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=rank_session, args=(r, world, f"file://{tmp}/rendezvous", str(tmp), jobs))

@@ -145,10 +145,23 @@ def test_package_imports_no_jax_fresh_process():
         "det3d_tpu_torch.data.dataset, det3d_tpu_torch.data.prefetcher, det3d_tpu_torch.data.create_info, "
         "det3d_tpu_torch.data.native_loader, det3d_tpu_torch.ops.rotated_iou, det3d_tpu_torch.eval.ap, "
         "det3d_tpu_torch.apps.train_app, det3d_tpu_torch.apps.infer_app, det3d_tpu_torch.cli, "
-        "det3d_tpu_torch.__main__, det3d_tpu_torch.parallel.mesh, chip_smoke\n"
+        "det3d_tpu_torch.__main__, det3d_tpu_torch.parallel.mesh, det3d_tpu_torch.tune, det3d_tpu_torch.viewer, "
+        "det3d_tpu_torch.viewer.render3d, det3d_tpu_torch.viewer.app, chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r})\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
     )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_matplotlib_is_imported_by_the_viewer_only_fresh_process():
+    """The card machine may lack matplotlib: the package, its CLI and
+    tuner, chip_smoke.py and the viewer's device pieces (`viewer.app`)
+    import it nowhere; the renderers do, when they are imported."""
+    code = ("import sys, det3d_tpu_torch, det3d_tpu_torch.cli, det3d_tpu_torch.tune, det3d_tpu_torch.pipeline, "
+            "det3d_tpu_torch.viewer.app, chip_smoke\nassert 'matplotlib' not in sys.modules\n"
+            "from det3d_tpu_torch.viewer import BEVRenderer\nsys.exit(0 if 'matplotlib' in sys.modules else 1)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
