@@ -45,7 +45,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      (16k pillars x 64 channels; batch 1 and 2): the s2d scatter in H-major
      and W-major order, the blocked-halo s2d scatter (8 blocks, halo (4, 3))
      and both backwards, bit-equal in f32 and bf16, each timed against its
-     bytes bound, its plain version and zeros + index_put_;
+     bytes bound, its plain version and zeros + index_put_ (the dense
+     backward: a gather; the blocked one: embedding_bag's sum); the blocked
+     backward also beside the kernel it replaced
+     (experiments/blocked_bwd_per_piece.cu, old, new, new, old), at the
+     20 cm shape and at ntusl_10cm's blocked train shape (8 blocks of 100
+     + 7 rows, 20k pillars, batch 2);
  10. packed inference at full width: ntusl_20cm with pack_w, then with
      pack_w + block0_blocked (bf16, 20 frames each): ms/frame, peak memory,
      stage breakdown, launches (the s2d or the blocked scatter once a
@@ -54,7 +59,10 @@ Phases, each printed as it runs; any failure exits non-zero:
  11. the packed train step at full width: ntusl_20cm with pack_w and its
      shipped block0_blocked_train + late_blocked_train (bf16, batch 2, 20
      steps: ms/step, peak memory, falling loss, the blocked scatter and its
-     backward once a step, breakdown), the packed step without blocking
+     backward once a step, breakdown; the piece width its blocked
+     backward takes on the step's real cotangent, and that kernel's own
+     span in the step's profiler trace beside the kernel it replaced, in
+     turns), the packed step without blocking
      (the s2d scatter and its backward once a step), and one f32 packed +
      blocked step with the kernels against one with the plain versions;
  12. the applications at full width: a dataset of 8 train and 8 eval
@@ -160,6 +168,16 @@ Phases, each printed as it runs; any failure exits non-zero:
      `Detector` that detects; (c) every kernel's launches over each run,
      equal to its trials' frames and steps, the blocked pair non-zero in
      (ii), none zero over both. Each kernel row gains `tune_launches`.
+ 18. cell-id-ordered voxelization at full width (ntusl_20cm, bf16):
+     `Detector(cfg, fcfs=False)` over 8 frames through `detect` (4 of 12k
+     points, under the 16k pillar cap, 4 of 100k, over it), the scatter
+     and NMS launched once a frame; against `fcfs=True` frame by frame:
+     under the cap the same pillar set and detections (golden tolerances;
+     bit-equality printed), over it each order's own selection (the first
+     16k cells to occur; the 16k lowest cell ids), their overlap printed;
+     the voxelize stage's host ms (median of 16 calls each, in turns) and
+     device ms (profiler) of both orders. Each kernel row gains
+     `cellid_launches`.
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
@@ -172,6 +190,9 @@ two commits in one call, in turns).
 from __future__ import annotations
 
 import collections
+import contextlib
+import ctypes
+import functools
 import importlib.util
 import itertools
 import json
@@ -267,6 +288,8 @@ SP_STEPS = 3          # phase 16(a) and (b): hybrid steps at batch 2
 SP_FRAMES_GLOO = 4    # phase 16(b): frames of make_spatial_infer over two gloo ranks
 SP10_STEPS = 2        # phase 16(c): ntusl_10cm hybrid steps at (1, 2), after one warm-up step
 SP_TIMEOUT_S = 300.0  # a rank of phase 16 still alive after this fails the phase
+CELLID_FRAMES = 8             # phase 18: frames of Detector(fcfs=False), half under the pillar cap, half over
+CELLID_UNDER_POINTS = 12_000  # ~11k pillars at 20 cm, under its 16 000
 # phase 17: tune at the JAX tuner's defaults, (i) the config as shipped, (ii) pack_w on with every other lever
 TUNE_ARGS = dict(mode="both", infer_iters=32, train_iters=12, batch_size=2, margin=0.02)
 TUNE_INFER_WINDOWS, TUNE_TRAIN_WINDOWS = 3, 2  # tune.measure_infer's and measure_train's defaults
@@ -855,13 +878,116 @@ def layout_inputs(b: int, v: int, c: int, grid_xy, n_valid: int, dtype, gen: tor
     return feats.cuda(), coors.cuda()
 
 
-def check_layout_scatters(grid_xy, v: int, c: int, nblk: int, halo) -> dict:
+@functools.cache
+def _per_piece_lib() -> ctypes.CDLL:
+    from det3d_tpu_torch.kernels import build
+
+    lib = build.load("blocked_bwd_per_piece")
+    fn = lib.det3d_blocked_bwd_per_piece
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def blocked_bwd_per_piece(grad: torch.Tensor, coors: torch.Tensor, halo) -> torch.Tensor:
+    """The blocked backward's kernel as it was before its redesign
+    (det3d_tpu_torch/experiments/blocked_bwd_per_piece.cu: a thread per
+    piece, 64-bit divisions), on the shipped wrapper's arguments; timed
+    beside it, on no path."""
+    b, nblk, rtot, ny2, c4 = grad.shape
+    nx2 = nblk * (rtot - halo[0] - halo[1])
+    dfeats = torch.empty((b, coors.shape[1], c4 // 4), dtype=grad.dtype, device=grad.device)
+    sb, sj, sr, sy, _ = grad.stride()
+    err = _per_piece_lib().det3d_blocked_bwd_per_piece(
+        grad.data_ptr(), coors.data_ptr(), dfeats.data_ptr(), b, coors.shape[1], c4 // 4,
+        int(grad.dtype == torch.bfloat16), 2 * nx2, 2 * ny2, nblk, halo[0], halo[1], sb, sj, sr, sy,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"blocked_bwd_per_piece.cu failed with CUDA error {err}")
+    return dfeats
+
+
+def blocked_grad(b: int, c: int, nblk: int, rtot: int, ny2: int, dtype, gen: torch.Generator) -> torch.Tensor:
+    """A blocked cotangent (b, nblk, rtot, ny2, 4c) as block0's entry
+    convolution returns it: channels-last (b·nblk, 4c, rtot, ny2), viewed."""
+    g = torch.randn((b * nblk, 4 * c, rtot, ny2), generator=gen).to(dtype).cuda()
+    return g.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1).unflatten(0, (b, nblk))
+
+
+@contextlib.contextmanager
+def blocked_bwd_as(fn):
+    """`fn` in place of the blocked backward's wrapper, which the autograd op
+    looks up at each call."""
+    from det3d_tpu_torch.kernels import scatter_cuda
+
+    shipped = scatter_cuda.scatter_to_bev_s2d_blocked_bwd_cuda
+    scatter_cuda.scatter_to_bev_s2d_blocked_bwd_cuda = fn
+    try:
+        yield
+    finally:
+        scatter_cuda.scatter_to_bev_s2d_blocked_bwd_cuda = shipped
+
+
+def time_blocked_bwd(label: str, grid_xy, v: int, c: int, nblk: int, halo, n_valid: int, dtype,
+                     gen: torch.Generator, b: int = TRAIN_BATCH) -> dict:
+    """The redesigned blocked backward and the kernel it replaced, each bit
+    for bit against the plain version, then timed in turns (old, new, new,
+    old) beside the plain version, the library's one call and the bytes
+    bound: the coordinates, the kept rows and their halo copies, the dfeats
+    write. All warm: 30 calls on one input, whose copies stay in L2. The
+    library call is `embedding_bag(mode="sum")` over the flattened
+    cotangent, a bag of each pillar's copy rows (own, above, below; empty
+    for a dropped slot): the same sum, rounded once where the kernel rounds
+    after each add, so it is held to the plain version within 2^-6 of three
+    times the largest |cotangent| in bf16 and 1e-6 of it in f32."""
+    from det3d_tpu_torch.kernels import scatter_cuda as sc
+
+    _, coors = layout_inputs(b, v, c, grid_xy, n_valid, dtype, gen)
+    _, rtot = sc.blocked_rows(grid_xy, nblk, halo)
+    ny2 = grid_xy[1] // 2
+    g = blocked_grad(b, c, nblk, rtot, ny2, dtype, gen)
+    want = sc.scatter_to_bev_s2d_blocked_bwd_plain(g, coors, halo)
+    new = lambda: sc.scatter_to_bev_s2d_blocked_bwd_cuda(g, coors, halo)
+    old = lambda: blocked_bwd_per_piece(g, coors, halo)
+    for name, fn in (("new", new), ("old", old)):
+        got = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(want)), f"blocked bwd ({name} kernel) {label} {dtype} differs from plain")
+    bi, y2, phase, places = sc._blocked_places(coors, grid_xy, nblk, halo)
+    present = torch.stack([p for p, _, _ in places], -1)
+    flat = torch.stack([(((bi * nblk + blk) * rtot + row) * ny2 + y2) * 4 + phase for _, blk, row in places], -1)
+    bags, sizes = flat[present], present.sum(-1).flatten()
+    offsets, table = torch.cumsum(sizes, 0) - sizes, g.view(-1, c)
+    library = lambda: torch.nn.functional.embedding_bag(bags, table, offsets, mode="sum").view(b, v, c)
+    lib_err = (library().float() - want.float()).abs().max().item()
+    lib_tol = (2 ** -6 if dtype == torch.bfloat16 else 1e-6) * 3 * g.abs().max().item()
+    check(lib_err <= lib_tol, f"blocked bwd {label} {dtype}: embedding_bag off the plain version by {lib_err}")
+    times = [cuda_ms(fn) for fn in (old, new, new, old)]
+    copies = int(present.sum())
+    elt = torch.finfo(dtype).bits // 8
+    moved = (copies * c + b * v * c) * elt + b * v * 3 * 4
+    t = dict(ms=(times[1] + times[2]) / 2, old_ms=(times[0] + times[3]) / 2,
+             plain_ms=cuda_ms(lambda: sc.scatter_to_bev_s2d_blocked_bwd_plain(g, coors, halo), iters=10, warmup=2),
+             library_ms=cuda_ms(library), bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+             pieces=sc.blocked_bwd_piece_bytes(g))
+    print(f"blocked bwd {label} {str(dtype):15s} batch {b}, {n_valid} of {v} pillars kept a sample, {copies} copies "
+          f"read: old kernel {times[0]:.4f} / {times[3]:.4f} ms, new {times[1]:.4f} / {times[2]:.4f} ms; "
+          f"bound_ms={t['bound_ms']:.5f} (bytes: {moved}) = {100 * t['bound_ms'] / t['ms']:.1f} % of the new "
+          f"time, {100 * t['bound_ms'] / t['old_ms']:.1f} % of the old (warm, in L2); plain_ms={t['plain_ms']:.4f}; "
+          f"library_ms={t['library_ms']:.4f} (embedding_bag, max abs diff {lib_err:.3e}, tol {lib_tol:.3e}); "
+          f"{t['pieces']}-byte pieces; host ms per call {host_ms(new):.4f}")
+    return t
+
+
+def check_layout_scatters(grid_xy, v: int, c: int, nblk: int, halo, blocked10=None) -> dict:
     """The s2d and blocked scatters and their backwards against their plain
     versions, bit for bit, in f32 and bf16 at batch 1 and 2 (phase 9); then
     their times at the main path's shapes: the s2d scatter at batch 1 (packed
     inference), the blocked scatter, both backwards at batch 2 (the train
-    step). Bounds: each input read once, each output written once (the
-    backwards read only the kept rows and their halo copies)."""
+    step), the blocked backward beside the kernel it replaced, and, with
+    `blocked10` = (grid, pillars, nblk, halo) of the 10 cm configuration, the
+    blocked backward at those shapes too. Bounds: each input read once, each
+    output written once (the backwards read only the kept rows and their
+    halo copies)."""
     from det3d_tpu_torch.kernels import scatter_cuda as sc
 
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -928,13 +1054,8 @@ def check_layout_scatters(grid_xy, v: int, c: int, nblk: int, halo) -> dict:
                 library = lambda: g5[idx]
                 moved = (kept * c + b * v * c) * elt + b * coors_bytes
             else:
-                g = torch.randn((b * nblk, 4 * c, rtot, ny2), generator=gen).to(dtype).cuda()
-                g = g.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1).unflatten(0, (b, nblk))
-                copies = sum(int(p.sum()) for p, _, _ in sc._blocked_places(coors, grid_xy, nblk, halo)[3])
-                fn = lambda: sc.scatter_to_bev_s2d_blocked_bwd_cuda(g, coors, halo)
-                plain = lambda: sc.scatter_to_bev_s2d_blocked_bwd_plain(g, coors, halo)
-                library = None  # the halo sum needs a gather and a scatter-add: no one-call equivalent
-                moved = (copies * c + b * v * c) * elt + b * coors_bytes
+                result[key][dtype] = time_blocked_bwd("20 cm", grid_xy, v, c, nblk, halo, 12_000, dtype, gen, b)
+                continue
             t = dict(ms=cuda_ms(fn), plain_ms=cuda_ms(plain, iters=10, warmup=2),
                      library_ms=None if library is None else cuda_ms(library),
                      bound_ms=moved / HBM_BYTES_PER_S * 1e3)
@@ -943,6 +1064,11 @@ def check_layout_scatters(grid_xy, v: int, c: int, nblk: int, halo) -> dict:
                   f"library_ms={lib} bound_ms={t['bound_ms']:.5f} (bytes: {moved}); "
                   f"host ms per call {host_ms(fn):.4f}")
             result[key][dtype] = t
+    if blocked10 is not None:
+        grid10, v10, nblk10, halo10 = blocked10
+        result["blocked_bwd_10cm"] = {dtype: time_blocked_bwd("10 cm", grid10, v10, c, nblk10, halo10,
+                                                              v10 * 3 // 4, dtype, gen)
+                                      for dtype in (torch.float32, torch.bfloat16)}
     return result
 
 
@@ -1133,7 +1259,7 @@ def profile_device_time(fn, n: int) -> tuple[float, list[tuple[str, float]]] | N
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
     if not by_name:
         return None
-    return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
 def use_plain_scatters(model) -> None:
@@ -2886,6 +3012,92 @@ def run_tune(card: str) -> dict:
     return launches
 
 
+def cell_id_frames(cfg) -> list[tuple[str, np.ndarray]]:
+    """Phase 18's frames: CELLID_FRAMES // 2 `synthetic_cloud`s of
+    CELLID_UNDER_POINTS points, under the 20 cm pillar cap, then as many of
+    N_POINTS, over it."""
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
+
+    half = CELLID_FRAMES // 2
+    return ([("under the cap", synthetic_cloud(cfg.max_points, CELLID_UNDER_POINTS, seed=SEED + 40 + i))
+             for i in range(half)]
+            + [("over the cap", synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + 50 + i)) for i in range(half)])
+
+
+def cell_ids(coors: torch.Tensor, voxel_num, grid) -> np.ndarray:
+    """The linear cell ids of a frame's first `voxel_num` pillar slots."""
+    nx, ny, nz = grid
+    c = coors[:int(voxel_num)].long().cpu().numpy()
+    return c[:, 0] * (ny * nz) + c[:, 1] * nz + c[:, 2]
+
+
+def run_cell_id_order(cfg, card: str) -> dict:
+    """Phase 18: `Detector(cfg, fcfs=False)` at full width, its 8 frames
+    through `detect` with the scatter and NMS counters set to 0 just before
+    and read just after; against `fcfs=True` frame by frame: under the cap
+    the same pillars (slots aside) and the same detections, over it each
+    order's own selection (fcfs=True: the first `max_voxels` cells to
+    occur; fcfs=False: the `max_voxels` lowest cell ids); the voxelize
+    stage's ms and device ms of both orders, in turns."""
+    from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
+    from det3d_tpu_torch.ops.voxelize import voxelize
+    from det3d_tpu_torch.pipeline import Detector
+
+    frames = cell_id_frames(cfg)
+    by_order = {fcfs: Detector(cfg, fcfs=fcfs).init_weights(SEED) for fcfs in (True, False)}
+    det = by_order[False]
+    check(not det.module.fcfs and by_order[True].module.fcfs, "the detectors' slot orders")
+    counters = {"scatter": scatter_cuda.counter, "nms": nms_cuda.counter}
+    run = run_frames(det, [frames[0][1]] + [p for _, p in frames], counters)
+    print_run(card, f"Detector(fcfs=False), {run['n']} frames", run)
+    check(run["launches"] == {"scatter": run["n"], "nms": run["n"]}, f"fcfs=False launches {run['launches']}")
+    spec, grid = det.module.spec, (det.module.voxel_size, det.module.grid_offset, det.module.grid_size)
+    every = spec._replace(max_voxels=cfg.max_points)  # a cap no frame reaches: every occupied cell
+    for i, (kind, pts_np) in enumerate(frames):
+        padded, n = det.pad_points(pts_np)
+        pts = torch.from_numpy(padded).cuda()
+        with torch.no_grad():
+            vox = {f: voxelize(pts, int(n), spec, grid, fcfs=f) for f in (True, False)}
+            occupied = cell_ids(*voxelize(pts, int(n), every, grid)[1::2], spec.grid_size)
+            got = {f: by_order[f].infer(pts, int(n)) for f in (True, False)}
+        ids = {f: cell_ids(v.coors, v.voxel_num, spec.grid_size) for f, v in vox.items()}
+        same_set = np.array_equal(np.sort(ids[True]), np.sort(ids[False]))
+        if len(occupied) <= spec.max_voxels:
+            check(kind == "under the cap", f"frame {i}: {len(occupied)} pillars, {kind}")
+            check(same_set and np.array_equal(ids[False], np.sort(occupied)), f"frame {i}: the pillar sets differ")
+            assert_detections_close(got[False], got[True], f"frame {i}, fcfs=False vs fcfs=True")
+            equal = all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
+            print(f"frame {i} ({kind}): {len(occupied)} pillars, the same set in both orders; detections "
+                  f"bit-equal={equal}")
+        else:
+            check(kind == "over the cap", f"frame {i}: {len(occupied)} pillars, {kind}")
+            check(np.array_equal(ids[True], occupied[:spec.max_voxels]), f"frame {i}: fcfs=True's selection")
+            check(np.array_equal(ids[False], np.sort(occupied)[:spec.max_voxels]),
+                  f"frame {i}: fcfs=False's selection")
+            check(all(bool(torch.isfinite(t).all()) for t in got[False][:2]), f"frame {i}: non-finite detections")
+            shared = len(np.intersect1d(ids[True], ids[False]))
+            print(f"frame {i} ({kind}): {len(occupied)} pillars, {spec.max_voxels} kept by each order, "
+                  f"{shared} by both; each order's own selection")
+    host, device = {True: [], False: []}, {True: [], False: []}
+    clouds = [(torch.from_numpy(p).cuda(), int(n)) for p, n in (det.pad_points(c) for _, c in frames)]
+    for fcfs in (True, False, False, True):
+        for pts, n in clouds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            voxelize(pts, n, spec, grid, fcfs=fcfs)
+            torch.cuda.synchronize()
+            host[fcfs].append((time.perf_counter() - t0) * 1e3)
+        pts, n = clouds[-1]
+        traced = profile_device_time(functools.partial(voxelize, pts, n, spec, grid, fcfs=fcfs), 10)
+        device[fcfs].append(None if traced is None else traced[0])
+    for fcfs in (True, False):
+        dev = "not measured" if None in device[fcfs] else " / ".join(f"{d:.4f}" for d in device[fcfs])
+        print(f"[{card}] voxelize fcfs={fcfs}: host ms median {statistics.median(host[fcfs]):.3f} (min "
+              f"{min(host[fcfs]):.3f}, max {max(host[fcfs]):.3f}) over {len(host[fcfs])} calls; device ms of a "
+              f"{N_POINTS}-point frame (torch.profiler, 10 calls, two runs) {dev}")
+    return {"detect, fcfs=False": run["launches"]}
+
+
 def small_config():
     """A 32x32-grid geometry with the default 9 anchors per location."""
     from det3d_tpu_torch.config import load_config
@@ -2924,7 +3136,8 @@ def main() -> int:
 
     phase("2. build")
     t0 = time.time()
-    logs = build.build_all(tuple(build.EXTRA_FLAGS) + tuple(build.HOST_SOURCES))
+    logs = build.build_all(tuple(build.EXTRA_FLAGS) + tuple(build.HOST_SOURCES)
+                           + tuple(build.EXPERIMENT_SOURCES))
     for name, log in logs.items():
         print(f"--- {name}.cu (ptxas -v)")
         print("\n".join(line for line in log.splitlines() if "ptxas" in line or "error" in line.lower()))
@@ -3039,7 +3252,7 @@ def main() -> int:
         step_base["step_device"] = f"{busy:.3f} ms"
         print(f"device time per step (torch.profiler, 3 steps): {busy:.3f} ms = "
               f"{100 * busy / step_ms:.1f}% of the {step_ms:.3f} ms median step")
-        for name, ms in top:
+        for name, ms in top[:12]:
             print(f"  {ms:8.3f} ms  {name[:100]}")
     del trainer, state
 
@@ -3050,7 +3263,10 @@ def main() -> int:
     from det3d_tpu_torch.models.pointpillars import Layout, block0_blocking
 
     nblk, halo = block0_blocking(grid_xy)
-    layout_k = check_layout_scatters(grid_xy, cfg.max_voxels, 64, nblk, halo)
+    cfg10 = load_config("configs/ntusl_10cm.json")
+    grid10 = tuple(cfg10.grid_size[:2])
+    layout_k = check_layout_scatters(grid_xy, cfg.max_voxels, 64, nblk, halo,
+                                     blocked10=(grid10, cfg10.max_voxels, *block0_blocking(grid10)))
 
     phase("10. packed inference at full width (ntusl_20cm + pack_w, bf16)")
     counters = train_counters(layouts=True)
@@ -3129,12 +3345,35 @@ def main() -> int:
         for stage, ms in train_stage_breakdown(trainer, state, batch, 5).items():
             print(f"  {stage:36s} {ms:.3f}")
         if layout.block0_blocked:
-            traced = profile_device_time(lambda: trainer.train_step(state, batch), 3)
-            if traced is not None:
-                print(f"{name}: device time per step (torch.profiler, 3 steps): {traced[0]:.3f} ms = "
-                      f"{100 * traced[0] / run['ms']:.1f}% of the median step")
-                for op, ms in traced[1][:8]:
-                    print(f"  {ms:8.3f} ms  {op[:100]}")
+            # the cotangent the step hands the blocked backward: which piece width it takes
+            seen, shipped = [], scatter_cuda.scatter_to_bev_s2d_blocked_bwd_cuda
+
+            def recording(g, c, halo_):
+                seen.append((tuple(g.shape), g.stride(), scatter_cuda.blocked_bwd_piece_bytes(g)))
+                return shipped(g, c, halo_)
+
+            with blocked_bwd_as(recording):
+                trainer.train_step(state, batch)
+            check(len(seen) == 1, f"{name}: {len(seen)} blocked backward calls in one step")
+            print(f"{name}: the blocked backward's cotangent {seen[0][0]}, strides {seen[0][1]}: "
+                  f"{seen[0][2]}-byte pieces")
+            # the kernel's own span inside the step, where the cotangent was
+            # just written: the shipped kernel and the one it replaced, in turns
+            spans = {"new": [], "old": []}
+            for kernel in ("new", "old", "new", "old"):
+                with blocked_bwd_as(shipped if kernel == "new" else blocked_bwd_per_piece):
+                    traced = profile_device_time(lambda: trainer.train_step(state, batch), 3)
+                if traced is None:
+                    break
+                span = sum(ms for op, ms in traced[1] if "gather_rows_blocked" in op)
+                spans[kernel].append(span)
+                print(f"{name}: device time per step with the {kernel} blocked backward (torch.profiler, 3 steps): "
+                      f"{traced[0]:.3f} ms = {100 * traced[0] / run['ms']:.1f}% of the median step; the kernel's "
+                      f"own span {span * 1e3:.2f} us a step" + ("" if span else " (no gather_rows_blocked span)"))
+                if kernel == "new" and len(spans["new"]) == 1:
+                    for op, ms in traced[1][:8]:
+                        print(f"  {ms:8.3f} ms  {op[:100]}")
+            run["blocked_bwd_in_step_ms"] = {k: v or None for k, v in spans.items()}
         del trainer, state
     compare_train_steps(cfg32.replace(pack_w=True), batch)
 
@@ -3164,6 +3403,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_viewer_pieces(cfg, card)
     tune_launches = run_tune(card)
+
+    phase("18. cell-id-ordered voxelization (Detector(fcfs=False), ntusl_20cm, bf16, at full width)")
+    cellid_launches = run_cell_id_order(cfg, card)
 
     kernels = [
         {
@@ -3224,6 +3466,13 @@ def main() -> int:
             "max_abs_err": layout_k[key]["max_abs_err"], "bound_by": "bytes",
             **{k: layout_k[key][torch.bfloat16][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         })
+    # the blocked backward beside the kernel it replaced, at the 10 cm train
+    # shape, and its own span inside phase 11's step
+    row = next(k for k in kernels if k["name"] == "scatter_to_bev_s2d_blocked_bwd")
+    row["old_ms"] = layout_k["blocked_bwd"][torch.bfloat16]["old_ms"]
+    row["at_10cm"] = {k: layout_k["blocked_bwd_10cm"][torch.bfloat16][k]
+                      for k in ("ms", "old_ms", "bound_ms", "library_ms")}
+    row["in_step_ms"] = step_runs["packed + blocked (shipped train levers)"]["blocked_bwd_in_step_ms"]
     app_keys = {"scatter_to_bev": "scatter_fwd", "nms_keep": "nms", "scatter_to_bev_bwd": "scatter_bwd",
                 "matcher_gt_max": "matcher_gt_max", "matcher_assign": "matcher_assign", "fence_copy": "fence",
                 "scatter_to_bev_s2d": "s2d_fwd", "scatter_to_bev_s2d_bwd": "s2d_bwd",
@@ -3238,6 +3487,8 @@ def main() -> int:
         k["dp_launches"] = {path: n.get(app_keys[k["name"]], 0) for path, n in dp_launches.items()}
         k["spatial_launches"] = {path: n.get(app_keys[k["name"]], 0) for path, n in spatial_launches.items()}
         k["tune_launches"] = {path: n[app_keys[k["name"]]] for path, n in tune_launches.items()}
+        k["cellid_launches"] = {path: n.get({"scatter_to_bev": "scatter", "nms_keep": "nms"}.get(k["name"]), 0)
+                                for path, n in cellid_launches.items()}
     phase(None)
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -49,16 +49,19 @@ def config_json(cfg: Config) -> str:
     return json.dumps(d, indent=1)
 
 
-def export_detector(cfg: Config, *, checkpoint: str | None = None, out_dir: str | Path, device=None) -> Path:
+def export_detector(cfg: Config, *, checkpoint: str | None = None, out_dir: str | Path, device=None,
+                    fcfs: bool = True) -> Path:
     """Export `cfg`'s detector with the weights of `checkpoint` (a model
     directory's `latest.pth` or a `.pth` file), or `init_weights(0)`, to
-    `out_dir` on `device` ("cuda" unless the caller names the CPU)."""
+    `out_dir` on `device` ("cuda" unless the caller names the CPU); `fcfs`
+    is the voxelizer's slot order (`Detector(fcfs=...)`), part of the
+    program."""
     from det3d_tpu_torch.pipeline import Detector
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     device = resolve_device(device)
-    det = Detector(cfg, device)
+    det = Detector(cfg, device, fcfs=fcfs)
     if checkpoint:
         from det3d_tpu_torch.train.checkpoint import load_latest_state
 

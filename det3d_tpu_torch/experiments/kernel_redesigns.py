@@ -1,4 +1,4 @@
-"""Old against new for the two redesigned kernels, in one run on one card.
+"""Old against new for the redesigned kernels, in one run on one card.
 
     python -m det3d_tpu_torch.experiments.kernel_redesigns
 
@@ -23,6 +23,16 @@ longer launches.
     in turns, warm and after an L2 flush, the library's contiguous clone, and
     the transpose kernel at other tile sizes than `copy_plan` picks.
 
+  * The blocked backward (`gather_rows_blocked`, csrc/scatter.cu): the
+    kernel it replaced (`experiments/blocked_bwd_per_piece.cu`, a thread
+    per 16-byte piece) beside it, in turns, at the 20 cm train shape
+    (batch 2, 12 000 of 16 000 pillars a sample) and at the 10 cm one
+    (`ntusl_10cm.json`'s blocked train layout, 15 000 of 20 000), in f32
+    and bf16, warm and after an L2 flush, beside a one-element fill (the
+    least any launch costs); and csrc/scatter.cu built with
+    `BLOCKED_BWD_PDL=0`, which launches it in stream order in place of as a
+    programmatic dependent of the kernel before it.
+
 Every time is a device time from CUDA events (`chip_smoke.cuda_ms`,
 `chip_smoke.single_call_ms`); the card's name and power limit are printed
 first.
@@ -44,12 +54,14 @@ from det3d_tpu_torch.kernels import matcher_cuda as mc
 HERE = Path(__file__).parent
 
 
-def start_build(source: Path, tag: str, defines=()) -> tuple[Path, subprocess.Popen]:
+def start_build(source: Path, tag: str, defines=(),
+                flags=build.EXTRA_FLAGS["nms"]) -> tuple[Path, subprocess.Popen]:
     """Start `nvcc` on `source` with the NMS and matcher libraries' flags
-    (exact float32: no contraction, IEEE division) into `_build/lib<tag>.so`."""
+    (exact float32: no contraction, IEEE division) or `flags` into
+    `_build/lib<tag>.so`."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = build.BUILD_DIR / f"lib{tag}.so"
-    cmd = [build.nvcc_path(), *build._COMMON_FLAGS, *build.EXTRA_FLAGS["nms"], *(f"-D{d}" for d in defines),
+    cmd = [build.nvcc_path(), *build._COMMON_FLAGS, *flags, *(f"-D{d}" for d in defines),
            "-o", str(out), str(source)]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
@@ -212,6 +224,55 @@ def fence_old_and_new() -> None:
               f"{cs.single_call_ms(tiled, flush):.4f} ms after an L2 flush")
 
 
+def blocked_old_and_new() -> None:
+    """The blocked backward before and after its redesign, and launched in
+    stream order, at the 20 cm and 10 cm train shapes."""
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.kernels import scatter_cuda as sc
+    from det3d_tpu_torch.models.pointpillars import block0_blocking
+
+    stream_order = bind_scatter(finish_build(*start_build(build.CSRC / "scatter.cu", "scatter_stream_order",
+                                                          ("BLOCKED_BWD_PDL=0",), flags=())))
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    one = torch.empty(1, device="cuda")
+    print(f"blocked bwd: a one-element fill, the least a launch costs in this timing: {cs.cuda_ms(one.zero_):.4f} ms "
+          f"warm, {cs.single_call_ms(one.zero_, flush):.4f} ms as a single call")
+    gen = torch.Generator().manual_seed(cs.SEED + 5)
+    for path, kept in (("configs/ntusl_20cm.json", 12_000), ("configs/ntusl_10cm.json", 15_000)):
+        cfg = load_config(path)
+        grid = tuple(cfg.grid_size[:2])
+        nblk, halo = block0_blocking(grid)
+        _, rtot = sc.blocked_rows(grid, nblk, halo)
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"{path.split('/')[-1]} {str(dtype)}"
+            t = cs.time_blocked_bwd(label, grid, cfg.max_voxels, 64, nblk, halo, kept, dtype, gen)
+            _, coors = cs.layout_inputs(cs.TRAIN_BATCH, cfg.max_voxels, 64, grid, kept, dtype, gen)
+            g = cs.blocked_grad(cs.TRAIN_BATCH, 64, nblk, rtot, grid[1] // 2, dtype, gen)
+            old = lambda: cs.blocked_bwd_per_piece(g, coors, halo)
+            new = lambda: sc.scatter_to_bev_s2d_blocked_bwd_cuda(g, coors, halo)
+            single = [cs.single_call_ms(fn, flush) for fn in (old, new, new, old)]
+            print(f"  single calls after an L2 flush: old {single[0]:.4f} / {single[3]:.4f} ms, "
+                  f"new {single[1]:.4f} / {single[2]:.4f} ms (bound {t['bound_ms']:.5f})")
+            want = new()
+            shipped = sc._lib
+            sc._lib = lambda: stream_order
+            try:
+                cs.check(torch.equal(cs.bits(new()), cs.bits(want)), "the stream-order launch differs")
+                variant = cs.cuda_ms(new)
+            finally:
+                sc._lib = shipped
+            print(f"  launched in stream order (no programmatic dependent launch): {variant:.4f} ms "
+                  f"(as shipped, right after: {cs.cuda_ms(new):.4f})")
+
+
+def bind_scatter(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A variant of csrc/scatter.cu bound as `scatter_cuda._lib` binds it."""
+    fn = lib.det3d_scatter_to_bev_s2d_blocked_bwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 # variants of csrc/matcher.cu by its compile-time switches: blocks per sample
 # of each pass, and pass 2's stores with or without the streaming hint
 MATCHER_VARIANTS = {
@@ -320,7 +381,7 @@ def matcher_old_and_new(cfg) -> None:
               f"{base[0]:.4f}, {base[1]:.4f})")
 
 
-def main(which=("nms", "fence", "matcher")) -> int:
+def main(which=("nms", "fence", "matcher", "blocked")) -> int:
     if not torch.cuda.is_available():
         print("kernel_redesigns: no CUDA device", file=sys.stderr)
         return 2
@@ -329,7 +390,12 @@ def main(which=("nms", "fence", "matcher")) -> int:
     from det3d_tpu_torch.pipeline import Detector
 
     print("nvidia-smi:", cs.card_line())
-    logs = build.build_all(("nms", "fence", "matcher"))
+    logs = build.build_all(("nms", "fence", "matcher", "scatter", *build.EXPERIMENT_SOURCES))
+    if "blocked" in which:
+        for name in ("scatter", *build.EXPERIMENT_SOURCES):
+            print("\n".join(line for line in logs[name].splitlines() if "gather_rows_blocked" in line
+                            or "registers" in line))
+        blocked_old_and_new()
     cfg = load_config("configs/ntusl_20cm.json", max_points=120_000)
     if "matcher" in which:
         print("\n".join(line for line in logs["matcher"].splitlines() if "registers" in line or "Compiling" in line))
@@ -350,4 +416,4 @@ def main(which=("nms", "fence", "matcher")) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(tuple(sys.argv[1:]) or ("nms", "fence", "matcher")))
+    sys.exit(main(tuple(sys.argv[1:]) or ("nms", "fence", "matcher", "blocked")))

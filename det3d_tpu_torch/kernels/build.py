@@ -28,6 +28,10 @@ BUILD_DIR = Path(__file__).parent / "_build"
 # host C++ libraries: name -> source
 HOST_SOURCES = {"pointcloud_loader": Path(__file__).resolve().parents[2] / "runtime" / "pointcloud_loader.cc"}
 _HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
+# CUDA sources of the experiments: kernels that the package replaced, kept
+# to be timed beside their successors; name -> source, built as the kernels
+EXPERIMENT_SOURCES = {"blocked_bwd_per_piece": Path(__file__).resolve().parents[1] / "experiments"
+                      / "blocked_bwd_per_piece.cu"}
 
 # Hopper only: `sm_90a` keeps wgmma/setmaxnreg available to later kernels.
 _COMMON_FLAGS = (
@@ -79,6 +83,8 @@ def _recipe(name: str) -> tuple[Path, tuple[str, ...]]:
     """(source, flags) of one library."""
     if name in HOST_SOURCES:
         return HOST_SOURCES[name], _HOST_FLAGS
+    if name in EXPERIMENT_SOURCES:
+        return EXPERIMENT_SOURCES[name], _COMMON_FLAGS
     return CSRC / f"{name}.cu", _COMMON_FLAGS + EXTRA_FLAGS[name]
 
 

@@ -50,7 +50,12 @@
 // version's order, (own + above) + below, always adding (0 where a
 // neighbour holds no copy) and rounding to the type after each add, so it
 // is bit-equal to the plain gather in bf16 too (no multiply, nothing to
-// contract).
+// contract). At the train shapes its whole grid fits in one wave and its
+// bytes take ~2.4 us at the memory rate, so its time is latency: the
+// launch, the coordinate load, then the copies' loads, then the store. So
+// it is launched as a programmatic dependent of the kernel before it, its
+// blocks cover whole rows with no 64-bit division, and each thread loads
+// all copies of its piece at once (`gather_rows_blocked` below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,35 +163,78 @@ struct alignas(sizeof(T) * N) Piece {
   T v[N];
 };
 
+// Read-only loads of a piece, by its width: the cotangent is read once,
+// through the non-coherent cache.
+template <typename P>
+__device__ __forceinline__ P load_piece(const P* p) {
+  P out;
+  if constexpr (sizeof(P) == 16) {
+    *reinterpret_cast<uint4*>(&out) = __ldg(reinterpret_cast<const uint4*>(p));
+  } else if constexpr (sizeof(P) == 4) {
+    *reinterpret_cast<unsigned*>(&out) = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else {
+    *reinterpret_cast<unsigned short*>(&out) = __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  return out;
+}
+
+// The blocked backward is launched as a programmatic dependent of the
+// kernel before it (Hopper: its blocks may be dispatched once every block of
+// the kernel ahead of it in the stream has exited, and wait with
+// `griddepcontrol.wait`, before their first load, until that kernel has
+// finished and its writes are visible; the launch latency, 40 % of the old
+// kernel's time, overlaps the other kernel's tail). Nothing is read or
+// written before the wait, so whatever wrote the cotangent or the
+// coordinates, however recently, is seen. BLOCKED_BWD_PDL=0 launches it in
+// stream order, for experiments/kernel_redesigns.py to time the two.
+#ifndef BLOCKED_BWD_PDL
+#define BLOCKED_BWD_PDL 1
+#endif
+constexpr int kBlockedBwdThreads = 256;
+
+// The blocked backward. Block (px, py): px threads cover a row's pieces
+// (looping where a row has more than 32), py rows side by side, so a warp
+// reads and writes whole neighbouring rows; the batch is the grid's y. No
+// division but the one by rb (32-bit): every index is a row or a piece of
+// one sample, the sample's base the only 64-bit product. A thread loads its
+// row's coordinates, makes all copies' addresses, then loads every copy
+// together (predicated: a copy the row lacks is a 0 that costs no load), so
+// its three loads are in flight behind one coordinate load's latency.
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlockedBwdThreads)
 gather_rows_blocked(const char* __restrict__ grad,      // (B, nblk, rtot, ny2, 4C), channel stride 1
                     const int32_t* __restrict__ coors,  // (B*V, 3)
-                    Piece<T, N>* __restrict__ dfeats,   // (B*V, vecs_per_row)
-                    int64_t total_vecs, int vecs_per_row, int V, int nx, int ny, int nblk, int rb,
-                    int ht, int hb, int64_t sb, int64_t sj, int64_t sr, int64_t sy, int64_t row_bytes) {
-  int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total_vecs) return;
-  int64_t row = t / vecs_per_row;
-  int piece = (int)(t - row * vecs_per_row);
-  int x = coors[row * 3 + 0];
-  int y = coors[row * 3 + 1];
-  Piece<T, N> out{};
-  if (x >= 0 && x < nx && y >= 0 && y < ny) {
-    int r = x >> 1;
-    int j0 = r / rb, off = r - j0 * rb;
-    const char* base = grad + (row / V) * sb + (y >> 1) * sy + ((x & 1) * 2 + (y & 1)) * row_bytes;
-    auto at = [&](int j, int local_row) {
-      return reinterpret_cast<const Piece<T, N>*>(base + j * sj + local_row * sr)[piece];
-    };
-    out = at(j0, off + ht);
-    Piece<T, N> above{}, below{};  // zeros where the neighbour holds no copy
-    if (off < hb && j0 > 0) above = at(j0 - 1, off + rb + ht);
-    if (off >= rb - ht && j0 < nblk - 1) below = at(j0 + 1, off - rb + ht);
+                    Piece<T, N>* __restrict__ dfeats,   // (B*V, pieces)
+                    int V, int pieces, int nx, int ny, int nblk, int rb, int ht, int hb, int64_t sb,
+                    int64_t sj, int64_t sr, int64_t sy, int64_t row_bytes) {
+  using P = Piece<T, N>;
+#if BLOCKED_BWD_PDL
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+  const int b = blockIdx.y;
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  if (row >= V) return;
+  const int32_t* c = coors + ((int64_t)b * V + row) * 3;
+  const int x = __ldg(c), y = __ldg(c + 1);
+  const bool in = x >= 0 && x < nx && y >= 0 && y < ny;
+  const int r = in ? x >> 1 : 0;
+  const int j0 = r / rb, off = r - j0 * rb;
+  const char* base = grad + b * sb + (in ? (y >> 1) * sy + ((x & 1) * 2 + (y & 1)) * row_bytes : 0);
+  const bool has_above = in && off < hb && j0 > 0, has_below = in && off >= rb - ht && j0 < nblk - 1;
+  const P* own_src = reinterpret_cast<const P*>(base + j0 * sj + (off + ht) * sr);
+  const P* above_src = reinterpret_cast<const P*>(base + (j0 - 1) * sj + (off + rb + ht) * sr);
+  const P* below_src = reinterpret_cast<const P*>(base + (j0 + 1) * sj + (off - rb + ht) * sr);
+  P* out = dfeats + ((int64_t)b * V + row) * pieces;
+  for (int piece = threadIdx.x; piece < pieces; piece += blockDim.x) {
+    P own{}, above{}, below{};
+    if (in) own = load_piece(own_src + piece);
+    if (has_above) above = load_piece(above_src + piece);
+    if (has_below) below = load_piece(below_src + piece);
+    P sum;
 #pragma unroll
-    for (int i = 0; i < N; ++i) out.v[i] = add_round(add_round(out.v[i], above.v[i]), below.v[i]);
+    for (int i = 0; i < N; ++i) sum.v[i] = add_round(add_round(own.v[i], above.v[i]), below.v[i]);
+    out[piece] = sum;
   }
-  dfeats[t] = out;
 }
 
 inline unsigned blocks_for(int64_t total) { return (unsigned)((total + kThreads - 1) / kThreads); }
@@ -230,13 +278,25 @@ template <typename T, int N>
 cudaError_t launch_blocked_bwd(const void* grad, const int32_t* coors, void* dfeats, int B, int V,
                                int row_bytes, int nx, int ny, int nblk, int ht, int hb, int64_t sb,
                                int64_t sj, int64_t sr, int64_t sy, cudaStream_t stream) {
-  int vecs_per_row = row_bytes / (int)sizeof(Piece<T, N>);
-  int64_t total = (int64_t)B * V * vecs_per_row;
-  if (total == 0) return cudaSuccess;
-  gather_rows_blocked<T, N><<<blocks_for(total), kThreads, 0, stream>>>(
-      static_cast<const char*>(grad), coors, static_cast<Piece<T, N>*>(dfeats), total, vecs_per_row, V,
-      nx, ny, nblk, (nx >> 1) / nblk, ht, hb, sb, sj, sr, sy, row_bytes);
-  return cudaGetLastError();
+  int pieces = row_bytes / (int)sizeof(Piece<T, N>);
+  if ((int64_t)B * V * pieces == 0) return cudaSuccess;
+  int px = pieces < 32 ? pieces : 32;
+  dim3 block(px, kBlockedBwdThreads / px);
+  dim3 grid((unsigned)((V + block.y - 1) / block.y), (unsigned)B);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.stream = stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attribute[0].val.programmaticStreamSerializationAllowed = BLOCKED_BWD_PDL;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&config, gather_rows_blocked<T, N>,
+                                       static_cast<const char*>(grad), coors, static_cast<Piece<T, N>*>(dfeats), V,
+                                       pieces, nx, ny, nblk, (nx >> 1) / nblk, ht, hb, sb, sj, sr, sy,
+                                       (int64_t)row_bytes);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // The widest piece that divides a row and keeps every pointer, stride and
@@ -278,6 +338,16 @@ int gather_impl(const void* grad, const void* coors, void* dfeats, int B, int V,
     case 4: return (int)launch_bwd<uint32_t, kLayout>(grad, c, dfeats, B, V, row_bytes, nx, ny, sb, sx, sy, stream);
     default: return (int)launch_bwd<uint16_t, kLayout>(grad, c, dfeats, B, V, row_bytes, nx, ny, sb, sx, sy, stream);
   }
+}
+
+// The piece width in bytes the blocked backward takes: 16 where the row and
+// every pointer and stride (in bytes) are 16-byte multiples, else one
+// element.
+int blocked_bwd_piece_bytes(const void* grad, const void* dfeats, int row_bytes, int elem_bytes, int64_t sb,
+                            int64_t sj, int64_t sr, int64_t sy) {
+  uintptr_t addresses = reinterpret_cast<uintptr_t>(grad) | reinterpret_cast<uintptr_t>(dfeats) |
+                        (uintptr_t)sb | (uintptr_t)sj | (uintptr_t)sr | (uintptr_t)sy;
+  return piece_bytes(row_bytes, addresses) == 16 ? 16 : elem_bytes;
 }
 
 }  // namespace
@@ -357,9 +427,7 @@ extern "C" int det3d_scatter_to_bev_s2d_blocked_bwd(const void* grad, const void
   sj *= elem_bytes;
   sr *= elem_bytes;
   sy *= elem_bytes;
-  uintptr_t addresses = reinterpret_cast<uintptr_t>(grad) | reinterpret_cast<uintptr_t>(dfeats) |
-                        (uintptr_t)sb | (uintptr_t)sj | (uintptr_t)sr | (uintptr_t)sy;
-  bool wide = piece_bytes(row_bytes, addresses) == 16;
+  bool wide = blocked_bwd_piece_bytes(grad, dfeats, row_bytes, elem_bytes, sb, sj, sr, sy) == 16;
   if (is_bf16)
     return wide ? (int)launch_blocked_bwd<uint16_t, 8>(grad, c, dfeats, B, V, row_bytes, nx, ny, nblk, ht, hb,
                                                        sb, sj, sr, sy, stream)
@@ -369,4 +437,14 @@ extern "C" int det3d_scatter_to_bev_s2d_blocked_bwd(const void* grad, const void
                                                   sj, sr, sy, stream)
               : (int)launch_blocked_bwd<float, 1>(grad, c, dfeats, B, V, row_bytes, nx, ny, nblk, ht, hb, sb,
                                                   sj, sr, sy, stream);
+}
+
+// The piece width in bytes that `det3d_scatter_to_bev_s2d_blocked_bwd`
+// takes for these arguments (strides in elements): 16, or the element size.
+extern "C" int det3d_scatter_to_bev_s2d_blocked_bwd_piece_bytes(const void* grad, const void* dfeats, int C,
+                                                                int is_bf16, int64_t sb, int64_t sj,
+                                                                int64_t sr, int64_t sy) {
+  int elem_bytes = is_bf16 ? 2 : 4;
+  return blocked_bwd_piece_bytes(grad, dfeats, C * elem_bytes, elem_bytes, sb * elem_bytes, sj * elem_bytes,
+                                 sr * elem_bytes, sy * elem_bytes);
 }

@@ -121,6 +121,9 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = ptrs + ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.det3d_scatter_to_bev_s2d_blocked_bwd_piece_bytes
+    fn.argtypes = ptrs[:2] + [i32] * 2 + [i64] * 4
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -422,6 +425,17 @@ def scatter_to_bev_s2d_blocked_bwd_cuda(grad_canvas: torch.Tensor, coors: torch.
         raise RuntimeError(f"scatter.cu blocked s2d backward failed with CUDA error {err}")
     blocked_bwd_counter.launches += 1
     return dfeats
+
+
+def blocked_bwd_piece_bytes(grad_canvas: torch.Tensor) -> int:
+    """The piece width in bytes that `scatter_to_bev_s2d_blocked_bwd_cuda`
+    launches its kernel with for `grad_canvas`, as csrc/scatter.cu picks it:
+    16, or one element where the cotangent's pointer or strides are not
+    16-byte aligned (its dfeats, a fresh allocation, always is)."""
+    sb, sj, sr, sy, _ = grad_canvas.stride()
+    return _lib().det3d_scatter_to_bev_s2d_blocked_bwd_piece_bytes(
+        grad_canvas.data_ptr(), 0, grad_canvas.shape[-1] // 4, int(grad_canvas.dtype == torch.bfloat16),
+        sb, sj, sr, sy)
 
 
 def _s2d_fake(f, c, nx, ny, w_major):

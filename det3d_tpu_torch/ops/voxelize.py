@@ -1,8 +1,9 @@
 """Pillar voxelization on the device (PyTorch, static shapes, no host sync).
 
-Counterpart of the JAX package's `ops/voxelize.voxelize` with `fcfs=True`
-(reference: framework/voxel_generator.py:82-106). The outputs — `voxels`,
-`coors`, `num_points_per_voxel`, `voxel_num` — are bit-identical to it:
+Counterpart of the JAX package's `ops/voxelize.voxelize` (reference:
+framework/voxel_generator.py:82-106), in both of its slot orders. The
+outputs — `voxels`, `coors`, `num_points_per_voxel`, `voxel_num` — are
+bit-identical to it. With `fcfs=True` (the default, the reference's order):
 
   1. every point gets a linear cell id; out-of-range and padding points get
      a sentinel that sorts last;
@@ -14,6 +15,21 @@ Counterpart of the JAX package's `ops/voxelize.voxelize` with `fcfs=True`
      (reference-identical pillar selection when `max_voxels` binds);
   4. a reverse cumulative min over head positions bounds each segment, and
      one gather fills the dense `(max_voxels, max_num_points, C)` buffer.
+
+With `fcfs=False` the slots follow cell-id order, one sort fewer:
+
+  1. as above, one stable sort of the cell ids, the sentinel last;
+  2. segment heads as above; a running max of the head positions gives each
+     point's segment start (its place in its pillar), a running sum of the
+     heads its pillar's slot;
+  3. three scatters — the points, each kept head's coordinates and a count
+     per kept point — write the buffers; a dropped row (an invalid point,
+     a pillar past `max_voxels`, a point past `max_num_points`) goes to a
+     sentinel row past the end, which is cut off.
+
+When `max_voxels` binds, this order keeps the pillars of the lowest cell
+ids, not the first to occur; under the cap both orders keep the same
+pillars with the same points, in other slots.
 
 Known, documented divergence (kept from the JAX package): when the pillar
 cap binds, the reference stops consuming points entirely at the first
@@ -84,7 +100,7 @@ def point_cell_coords(points: torch.Tensor, grid):
 
 
 def voxelize(points: torch.Tensor, num_points: torch.Tensor | int, spec: VoxelizerSpec,
-             grid) -> VoxelizedFrame:
+             grid, *, fcfs: bool = True) -> VoxelizedFrame:
     """Bin a padded point cloud into dense pillar buffers.
 
     Args:
@@ -94,6 +110,9 @@ def voxelize(points: torch.Tensor, num_points: torch.Tensor | int, spec: Voxeliz
       spec: static voxelization parameters.
       grid: the grid's (voxel size, offset, size) tensors on the points'
         device, `grid_tensors(spec, points.device)`.
+      fcfs: pillar slots in first-occurrence order (the reference's pillar
+        selection under the `max_voxels` cap) at the cost of a second sort;
+        with `fcfs=False` slots follow cell-id order.
     """
     n, c = points.shape
     if n < spec.max_voxels:
@@ -117,6 +136,8 @@ def voxelize(points: torch.Tensor, num_points: torch.Tensor | int, spec: Voxeliz
     prev = torch.cat([sid.new_full((1,), -1), sid[:-1]])
     head = (sid != prev) & svalid                 # first point of each pillar
     voxel_num = torch.clamp(head.sum(dtype=torch.int32), max=mv)
+    if not fcfs:
+        return _cell_id_ordered(spoints, coor[order], svalid, head, pos, voxel_num, spec)
 
     # first-occurrence slot order: heads keyed by their arrival index sort
     # to the front; the sort's indices are the heads' sorted positions
@@ -151,3 +172,25 @@ def voxelize(points: torch.Tensor, num_points: torch.Tensor | int, spec: Voxeliz
     keep = slot[None, :] < counts[:, None]
     voxels = torch.where(keep[..., None], spoints[rows], 0.0)
     return VoxelizedFrame(voxels, coors, counts, voxel_num)
+
+
+def _cell_id_ordered(spoints, scoor, svalid, head, pos, voxel_num, spec: VoxelizerSpec) -> VoxelizedFrame:
+    """The `fcfs=False` buffers from the cell-sorted points: slot = the
+    pillar's rank in cell-id order, place = the point's arrival rank in its
+    pillar (the stable sort kept arrival order); rows that no slot keeps
+    land on a sentinel row past the end, cut off after each scatter."""
+    c = spoints.shape[1]
+    mv, mp = spec.max_voxels, spec.max_num_points
+    seg_start = torch.cummax(torch.where(head, pos, -1), 0).values
+    place = pos - seg_start
+    slot = torch.cumsum(head, 0) - 1                  # -1 before the first head
+    keep = svalid & (slot < mv) & (place < mp)
+    flat = torch.where(keep, slot * mp + place, mv * mp)
+    voxels = spoints.new_zeros((mv * mp + 1, c))
+    voxels[flat] = spoints
+    head_slot = torch.where(head & (slot < mv), slot, mv)
+    coors = scoor.new_full((mv + 1, 3), -1)
+    coors[head_slot] = scoor
+    counts = torch.zeros(mv + 1, dtype=torch.int32, device=spoints.device)
+    counts.index_add_(0, torch.where(keep, slot, mv), torch.ones_like(slot, dtype=torch.int32))
+    return VoxelizedFrame(voxels[:mv * mp].reshape(mv, mp, c), coors[:mv], counts[:mv], voxel_num)

@@ -49,12 +49,15 @@ class DetectorModule(nn.Module):
     `forward(points (max_points, C), num_points)` is one frame →
     (boxes, scores, valid), the fields of `Detections`; `forward_batch` is B
     frames through the network at batch B and one NMS call. `spatial`: a
-    `parallel.spatial.SpatialPlan`, the network split over its group."""
+    `parallel.spatial.SpatialPlan`, the network split over its group.
+    `fcfs`: the voxelizer's slot order (`ops.voxelize.voxelize`), a
+    constant of the module that an export bakes in."""
 
     def __init__(self, cfg: Config, anchor_set: AnchorSet, params: PostProcessParams | None, device,
-                 spatial=None):
+                 spatial=None, fcfs: bool = True):
         super().__init__()
         self.spatial = spatial
+        self.fcfs = fcfs
         self.spec = VoxelizerSpec.from_config(cfg)
         self.grid_xy = (cfg.grid_size[0], cfg.grid_size[1])
         self.mask_shape = (anchor_set.num_channels, *cfg.feature_map_size[:2])
@@ -75,7 +78,8 @@ class DetectorModule(nn.Module):
 
     def preprocess(self, points: torch.Tensor, num_points) -> tuple[VoxelizedFrame, torch.Tensor]:
         """Voxelize + anchor occupancy mask (nch, fx, fy)."""
-        frame = voxelize(points, num_points, self.spec, (self.voxel_size, self.grid_offset, self.grid_size))
+        frame = voxelize(points, num_points, self.spec, (self.voxel_size, self.grid_offset, self.grid_size),
+                         fcfs=self.fcfs)
         return frame, self.anchors_mask(frame.coors)
 
     def anchors_mask(self, coors: torch.Tensor) -> torch.Tensor:
@@ -116,15 +120,18 @@ class Detector:
     """Owns the `DetectorModule` (the model and its weights included) on
     one device, and the host conveniences around it. `spatial`: a spatial
     group (`parallel.mesh.make_spatial_mesh`) over which each frame's
-    network is split; the dense network only (`PointPillars.check_spatial`)."""
+    network is split; the dense network only (`PointPillars.check_spatial`).
+    `fcfs`: pillar slots in first-occurrence order (the reference's
+    selection when `max_voxels` binds), or with `fcfs=False` in cell-id
+    order, one sort fewer (the JAX package's `Detector(cfg, fcfs=...)`)."""
 
-    def __init__(self, cfg: Config, device=None, *, postprocess_params: PostProcessParams | None = None,
-                 spatial=None):
+    def __init__(self, cfg: Config, device=None, *, fcfs: bool = True,
+                 postprocess_params: PostProcessParams | None = None, spatial=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.anchor_set: AnchorSet = build_anchors(cfg)
         plan = None if spatial is None else SpatialPlan.of(spatial, cfg.grid_size[0])
-        self.module = DetectorModule(cfg, self.anchor_set, postprocess_params, self.device, plan)
+        self.module = DetectorModule(cfg, self.anchor_set, postprocess_params, self.device, plan, fcfs)
         if plan is not None:
             self.module.model.check_spatial()
         self.spatial = plan

@@ -52,6 +52,7 @@ from det3d_tpu_torch.apps.train_app import train
 from det3d_tpu_torch.data.synthetic import write_split
 from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.train.checkpoint import read_checkpoint
+from test_torch_tmpdirs import removed, tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -76,7 +77,8 @@ def runs(tmp_path_factory):
     jinf = jax_infer(jcfg, checkpoint=str(jdir), synthetic=True, num_frames=3, exact_topk=True)
     tinf = infer(tcfg, checkpoint=str(tmp / "jax_step2.pth"), synthetic=True, num_frames=3, breakdown=True,
                  out_path=str(tmp / "dt.pkl"), device="cpu")
-    return dict(jcfg=jcfg, tcfg=tcfg, tmp=tmp, summary=summary, jinf=jinf, tinf=tinf)
+    yield dict(jcfg=jcfg, tcfg=tcfg, tmp=tmp, summary=summary, jinf=jinf, tinf=tinf)
+    removed(tmp)
 
 
 def test_train_writes_the_checkpoints(runs):

@@ -32,6 +32,7 @@ from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.train import checkpoint as ck
 from det3d_tpu_torch.train.trainer import Trainer, host_batch
 from det3d_tpu_torch.weights import variables_to_state_dict
+from test_torch_tmpdirs import removed, tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -82,7 +83,8 @@ def jax_run(cfgs, tmp_path_factory):
     JaxCheckpointManager(tmp / "jax").save(jax.device_get(state1))
     pth = tmp / "exported.pth"
     assert export_torch_checkpoint(tmp / "jax", jcfg, pth) == 1
-    return dict(state1=state1, pth=pth, step2=pu.jax_train_step(jcfg, scenes(jcfg, 1), state=state1))
+    yield dict(state1=state1, pth=pth, step2=pu.jax_train_step(jcfg, scenes(jcfg, 1), state=state1))
+    removed(tmp)
 
 
 def test_jax_checkpoint_restores_in_the_port(cfgs, jax_run):

@@ -41,6 +41,7 @@ from det3d_tpu_torch.deploy.torch_interop import export_torch_checkpoint, import
 from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
 from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.train.checkpoint import read_checkpoint
+from test_torch_tmpdirs import removed, tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -130,7 +131,8 @@ def artifacts(tmp_path_factory):
     tcfg = pu.to_torch_cfg(jcfg)
     port_dir = texport.export_detector(tcfg, checkpoint=str(root / "bridged.pth"), out_dir=root / "port",
                                        device="cpu")
-    return dict(root=root, jcfg=jcfg, tcfg=tcfg, jrunner=jrunner, sd=sd, port_dir=port_dir)
+    yield dict(root=root, jcfg=jcfg, tcfg=tcfg, jrunner=jrunner, sd=sd, port_dir=port_dir)
+    removed(root)
 
 
 def test_artifact_holds_the_kernel_ops(artifacts):

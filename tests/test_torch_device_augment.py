@@ -34,6 +34,7 @@ from det3d_tpu_torch import cli
 from det3d_tpu_torch.data import augment as taug
 from det3d_tpu_torch.ops import geometry as tgeo
 from det3d_tpu_torch.train.trainer import Trainer, augment_seed, host_batch
+from test_torch_tmpdirs import tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -745,11 +745,21 @@ def test_blocked_kernel_bit_equal(cuda, dtype, shape):
     assert torch.equal(_bits(got), _bits(want))
 
 
+# the blocked backward's cases beyond BLOCKED_SHAPES: every cell of the grid
+# holds a pillar, so every halo row of every block has copies to add
+BLOCKED_BWD_SHAPES = BLOCKED_SHAPES[:2] + [(2, 1920, 16, (48, 40), 1920, 3), BLOCKED_SHAPES[2]]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("layout", ["contiguous", "strided"])
-@pytest.mark.parametrize("shape", BLOCKED_SHAPES[:2])
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "narrow"])
+@pytest.mark.parametrize("shape", BLOCKED_BWD_SHAPES)
 def test_blocked_bwd_kernel_bit_equal(cuda, dtype, layout, shape):
+    """Bit-equal to the plain version: at the 20 cm train shape, on an odd
+    channel count, with every halo row occupied, with every slot empty; on
+    a contiguous cotangent, on a padded row stride, and on a y stride of an
+    odd element count; in the piece width the wrapper reports (one element
+    for the odd stride and for 10-channel rows, else 16 bytes)."""
     b, v, c, grid, n_valid, nblk = shape
     _, coors = scatter_case(b, v, c, grid, n_valid, seed=n_valid + 3)
     co = torch.from_numpy(coors).to(cuda)
@@ -757,8 +767,12 @@ def test_blocked_bwd_kernel_bit_equal(cuda, dtype, layout, shape):
     shape5 = (b, nblk, rtot, grid[1] // 2, 4 * c)
     if layout == "contiguous":
         g = torch.randn(shape5, device=cuda).to(dtype)
-    else:  # a channels_last conv gradient at batch b·nblk, seen as blocks, with a padded row stride
+    elif layout == "strided":  # a channels_last conv gradient at batch b·nblk, seen as blocks, with a padded row stride
         g = torch.randn(b, nblk, rtot + 1, grid[1] // 2, 4 * c, device=cuda).to(dtype)[:, :, :rtot]
+    else:
+        g = torch.randn(b, nblk, rtot, grid[1] // 2, 4 * c + 1, device=cuda).to(dtype)[..., :4 * c]
+    wide = layout != "narrow" and c * g.element_size() % 16 == 0
+    assert scatter_cuda.blocked_bwd_piece_bytes(g) == (16 if wide else g.element_size())
     before = scatter_cuda.blocked_bwd_counter.launches
     got = scatter_cuda.scatter_to_bev_s2d_blocked_bwd_cuda(g, co, (4, 3))
     want = scatter_cuda.scatter_to_bev_s2d_blocked_bwd_plain(g, co, (4, 3))

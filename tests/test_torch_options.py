@@ -42,6 +42,7 @@ from det3d_tpu_torch.train.checkpoint import CheckpointManager
 from det3d_tpu_torch.train.trainer import Trainer, host_batch
 from test_torch_model import _inputs, _variables
 from test_torch_pipeline import GOLDEN_DIR, NEAR_TIES, assert_detections_match
+from test_torch_tmpdirs import tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

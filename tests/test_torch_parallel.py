@@ -4,7 +4,11 @@ CPU: gloo groups of 2 and 4 ranks, each a process started by
 temporary directory (no port, so parallel test workers never collide).
 The ranks run every job of a group in one session, and import this module
 by name, which imports no JAX: only the tests that compare with the JAX
-package import it.
+package import it. A rank writes each job's result to a pickle that
+`run_group` deletes once it has read it; what is model-sized stays on the
+ranks: a step is compared with its reference on the rank (the same
+assertions; the rank returns the first failure's message), and weights
+that every rank must hold alike travel as digests of their bytes.
 
 Tolerances, each with its reason:
   * the data-parallel step against the one-process step at the global
@@ -31,6 +35,8 @@ Tolerances, each with its reason:
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 import multiprocessing
 import pickle
 import time
@@ -45,6 +51,7 @@ from det3d_tpu_torch.config import load_config
 from det3d_tpu_torch.parallel import mesh as pm
 from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.train.trainer import Trainer, host_batch
+from test_torch_tmpdirs import removed, tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -110,26 +117,73 @@ def step_record(trainer, state, loss, counts) -> dict:
     )
 
 
-def job_steps(mesh, cfg, global_batches, state_dict=None):
+def digest(t: torch.Tensor) -> tuple:
+    """(dtype, shape, SHA-256 of the bytes, finite): equal digests of finite
+    tensors are equal tensors."""
+    t = t.detach().contiguous()
+    finite = bool(torch.isfinite(t).all()) if t.is_floating_point() else True
+    return str(t.dtype), tuple(t.shape), hashlib.sha256(t.numpy().tobytes()).hexdigest(), finite
+
+
+def digests(tensors) -> dict | list:
+    if isinstance(tensors, dict):
+        return {k: digest(v) for k, v in tensors.items()}
+    return [digest(v) for v in tensors]
+
+
+def assert_same_digests(got, want, what: str) -> None:
+    """Two ranks' digests: the same bits, and finite (a NaN is no weight)."""
+    assert got == want, f"{what}: the ranks differ"
+    flat = got.values() if isinstance(got, dict) else got
+    assert all(d[3] for d in flat), f"{what}: not finite"
+
+
+def failure(check, *args) -> str | None:
+    """Run `check(*args)` on the rank: None, or its assertion's message."""
+    try:
+        check(*args)
+    except AssertionError as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def check_one_process(cfg, batch, state_dict, got: dict) -> None:
+    """The first data-parallel step's record against the one-process step at
+    the global batch, computed here from the same weights."""
+    want = one_process_step(cfg, batch, state_dict)
+    assert_step_close(got, want["loss"], want["counts"], want["sd"],
+                      {k: v.numpy() for k, v in want["grads"].items()}, cfg.learning_rate, want["mu"], want["nu"])
+
+
+def job_steps(mesh, cfg, global_batches, state_dict=None, check="one process", first_grads=False):
     """Data-parallel steps over the global batches from seeded (or given)
-    weights: the first step's record and its collectives, then the loss
-    and weights after each step."""
+    weights: the first step checked here by `check(record)` ("one process":
+    against the one-process step; None: not checked) and its collectives,
+    the loss after each step, and digests of the final weights and Adam
+    moments; with `first_grads`, rank 0's gradients of the first step."""
     trainer = Trainer(cfg, device="cpu")
     if state_dict is not None:
         trainer.detector.load_state_dict(state_dict)
     state = pm.replicated(mesh, trainer, trainer.init_state(None if state_dict is not None else 0))
     step = pm.make_sharded_train_step(trainer, mesh)
+    if check == "one process":
+        check = functools.partial(check_one_process, cfg, global_batches[0], state_dict)
     out = {"layout": trainer.model.layout(cfg.batch_size // mesh.world, True), "losses": []}
     for i, batch in enumerate(global_batches):
         before = pm.collective_counts(mesh)
         state, loss, counts = step(state, pm.shard_batch(mesh, batch))
         if i == 0:
-            out["first"] = step_record(trainer, state, loss, counts)
+            first = step_record(trainer, state, loss, counts)
             after = pm.collective_counts(mesh)
             out["collectives"] = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+            out["first_failure"] = None if check is None else failure(check, first)
+            out["first_running_mean"] = first["sd"][BN + "running_mean"]
+            out["first_grads"] = first["grads"] if first_grads and mesh.rank == 0 else None
+            del first
         out["losses"].append(float(loss["loss"]))
-    out["final"] = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    out["final_mu"] = [m.clone() for m in state.mu]
+    sd = trainer.model.state_dict()
+    out["final"], out["final_running_mean"] = digests(sd), sd[BN + "running_mean"].clone()
+    out["final_mu"] = digests(state.mu)
     return out
 
 
@@ -146,13 +200,16 @@ def job_augment(mesh, cfg, batch):
     local = pm.shard_batch(mesh, batch)
     draws = trainer.augment_params(state.step, len(local.points), mesh.rank)
     state, loss, _ = pm.make_sharded_train_step(trainer, mesh)(state, local)
-    return {"draws": draws, "sd": trainer.model.state_dict(), "loss": float(loss["loss"])}
+    return {"draws": draws, "sd": digests(trainer.model.state_dict()), "loss": float(loss["loss"])}
 
 
 def job_app(mesh, cfg, model_dir):
+    """The train app over the group: rank 0's weights whole, every rank's as
+    digests."""
     summary = train_app.train(cfg, max_steps=3, display_step=1, save_step=3, eval_step=3, eval_frames=2,
                               synthetic=True, seed=0, model_dir=model_dir, device="cpu", mesh=mesh)
-    return {"sd": summary["trainer"].model.state_dict(), "mu": summary["state"].mu, "steps": summary["steps"],
+    sd = summary["trainer"].model.state_dict()
+    return {"sd": sd if mesh.rank == 0 else None, "sd_digests": digests(sd), "steps": summary["steps"],
             "saves": len(summary["save_s"]), "evals": len(summary["eval_strs"]),
             "ms_per_step": len(summary["ms_per_step"])}
 
@@ -161,6 +218,10 @@ def job_infer_app(mesh, cfg, batch, frames):
     out = infer_app.infer(cfg, synthetic=True, num_frames=frames, range_thresholds=(80.0,), batch=batch,
                           device="cpu", mesh=mesh)
     return None if out is None else out["dt_annos"]
+
+
+def job_echo(mesh, value):
+    return {"rank": mesh.rank, "world": mesh.world, "value": value}
 
 
 JOBS = {"steps": job_steps, "infer": job_infer, "augment": job_augment, "app": job_app,
@@ -207,12 +268,20 @@ def run_group(world: int, tmp: Path, jobs: list) -> dict:
             if p.is_alive():
                 p.kill()
                 p.join(10)
+    return load_results(tmp, [name for name, _, _ in jobs], world)
+
+
+def load_results(tmp: Path, names: list[str], world: int) -> dict:
+    """{name: [result of rank r]} from the ranks' pickles in `tmp`, each
+    deleted once it is read."""
     out = {}
-    for name, _, _ in jobs:
+    for name in names:
         out[name] = []
         for r in range(world):
-            with open(tmp / f"{name}-{r}.pkl", "rb") as f:
+            path = tmp / f"{name}-{r}.pkl"
+            with open(path, "rb") as f:
                 out[name].append(pickle.load(f))
+            path.unlink()
     return out
 
 
@@ -276,13 +345,16 @@ def world2(tmp_path_factory, jax_sharded):
     jobs = [
         ("steps", "steps", dict(cfg=cfg, global_batches=batches(cfg, N_STEPS))),
         ("jax", "steps", dict(cfg=jax_sharded["tcfg"], global_batches=batches(cfg, 1),
-                              state_dict=jax_sharded["before"])),
+                              state_dict=jax_sharded["before"],
+                              check=functools.partial(check_jax, {k: jax_sharded[k] for k in
+                                                                  ("loss", "counts", "after")}))),
         ("blocked", "steps", dict(cfg=blocked_cfg(), global_batches=batches(blocked_cfg(), 1))),
         ("infer", "infer", dict(cfg=cfg, points=points, num_points=num_points)),
         ("augment", "augment", dict(cfg=cfg, batch=batches(cfg, 1)[0])),
         ("app", "app", dict(cfg=app_cfg, model_dir=str(tmp / "app"))),
     ]
-    return dict(runs=run_group(2, tmp / "group", jobs), tmp=tmp, app_cfg=app_cfg)
+    yield dict(runs=run_group(2, tmp / "group", jobs), tmp=tmp, app_cfg=app_cfg)
+    removed(tmp)
 
 
 @pytest.fixture(scope="module")
@@ -336,6 +408,15 @@ def assert_step_close(got: dict, want_loss, want_counts, want_sd, want_grads, lr
 
 
 # --- no process group needed ---------------------------------------------------
+
+
+def test_run_group_leaves_no_pickles(tmp_path):
+    """Each rank's result comes back and its pickle is gone once read."""
+    out = run_group(2, tmp_path / "group", [("echo", job_echo, dict(value=3)), ("again", "steps", dict(
+        cfg=small_cfg(batch_size=2), global_batches=batches(small_cfg(batch_size=2), 1), check=None))])
+    assert out["echo"] == [{"rank": r, "world": 2, "value": 3} for r in range(2)]
+    assert [run["losses"] for run in out["again"]] == [out["again"][0]["losses"]] * 2
+    assert not list(tmp_path.rglob("*.pkl"))
 
 
 def fake_mesh(rank, world) -> pm.DataMesh:
@@ -464,12 +545,12 @@ def test_world1_step_is_the_plain_step_bit_for_bit(tmp_path):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_dp_step_matches_the_one_process_step(world, world2, world4):
-    cfg = small_cfg(batch_size=GLOBAL_BATCH)
-    want = one_process_step(cfg, batches(cfg, 1)[0])
+    """Checked on each rank (`check_one_process`): `assert_step_close`
+    against the one-process step at the global batch."""
     runs = groups(world2, world4)[world]["steps"]
-    for run in runs:
-        assert_step_close(run["first"], want["loss"], want["counts"], want["sd"],
-                          {k: v.numpy() for k, v in want["grads"].items()}, cfg.learning_rate, want["mu"], want["nu"])
+    assert len(runs) == world
+    for r, run in enumerate(runs):
+        assert run["first_failure"] is None, f"rank {r}: {run['first_failure']}"
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -486,33 +567,38 @@ def test_dp_steps_chain_with_equal_weights_on_every_rank(world, world2, world4):
     for run in runs:
         assert len(run["losses"]) == N_STEPS and np.isfinite(run["losses"]).all()
         assert run["losses"] == runs[0]["losses"]
-        for k, v in run["final"].items():
-            assert torch.equal(v, runs[0]["final"][k]), k
-        for a, b in zip(run["final_mu"], runs[0]["final_mu"]):
-            assert torch.equal(a, b)
-    assert not torch.equal(runs[0]["final"][BN + "running_mean"], runs[0]["first"]["sd"][BN + "running_mean"])
+        assert_same_digests(run["final"], runs[0]["final"], "final weights")
+        assert_same_digests(run["final_mu"], runs[0]["final_mu"], "final first moments")
+    assert not torch.equal(runs[0]["final_running_mean"], runs[0]["first_running_mean"])
+
+
+def check_jax(jax_ref: dict, got: dict) -> None:
+    """A first step's record against JAX's sharded step (`jax_sharded`'s
+    loss, counts and weights after the step)."""
+    for k, v in jax_ref["loss"].items():
+        np.testing.assert_allclose(got["loss"][k], v, rtol=1e-5, err_msg=k)
+    for k, v in jax_ref["counts"].items():
+        np.testing.assert_array_equal(got["counts"][k], v, err_msg=k)
+    for name, want in jax_ref["after"].items():
+        tol = dict(rtol=1e-5, atol=1e-6) if "running" in name else dict(rtol=0, atol=2e-3)
+        np.testing.assert_allclose(got["sd"][name].numpy(), want, err_msg=name, **tol)
 
 
 def test_dp_step_matches_jax_sharded_step(world2, jax_sharded):
     """At tests/test_parallel.py's tolerances (loss rtol 1e-5, parameters
     atol 2e-3), with the metric counts equal and the running statistics
-    rtol 1e-5. Gradients are not held elementwise here: at these JAX
-    weights and this batch the port's one-process step itself moves its
-    gradients by up to 2.5 % of a tensor's largest when the batch is only
-    reordered (float32 rounding of the batch statistics crossing ReLU kinks
-    and InstanceNorms over 2x2 maps), so no summation order is the right
-    one; at the seeded weights of the other tests the same reordering moves
-    them by under 5e-5."""
+    rtol 1e-5, checked on each rank (`check_jax`). Gradients are not held
+    elementwise here: at these JAX weights and this batch the port's
+    one-process step itself moves its gradients by up to 2.5 % of a
+    tensor's largest when the batch is only reordered (float32 rounding of
+    the batch statistics crossing ReLU kinks and InstanceNorms over 2x2
+    maps), so no summation order is the right one; at the seeded weights of
+    the other tests the same reordering moves them by under 5e-5."""
     assert jax_sharded["tcfg"] == small_cfg(batch_size=GLOBAL_BATCH)
-    for run in world2["runs"]["jax"]:
-        got = run["first"]
-        for k, v in jax_sharded["loss"].items():
-            np.testing.assert_allclose(got["loss"][k], v, rtol=1e-5, err_msg=k)
-        for k, v in jax_sharded["counts"].items():
-            np.testing.assert_array_equal(got["counts"][k], v, err_msg=k)
-        for name, want in jax_sharded["after"].items():
-            tol = dict(rtol=1e-5, atol=1e-6) if "running" in name else dict(rtol=0, atol=2e-3)
-            np.testing.assert_allclose(got["sd"][name].numpy(), want, err_msg=name, **tol)
+    runs = world2["runs"]["jax"]
+    assert len(runs) == 2
+    for r, run in enumerate(runs):
+        assert run["first_failure"] is None, f"rank {r}: {run['first_failure']}"
 
 
 def test_blocked_dp_step_matches_the_one_process_step(world2):
@@ -521,11 +607,11 @@ def test_blocked_dp_step_matches_the_one_process_step(world2):
     cfg = blocked_cfg()
     trainer = Trainer(cfg, device="cpu")
     assert not trainer.model.layout(cfg.batch_size, True).block0_blocked
-    want = one_process_step(cfg, batches(cfg, 1)[0])
-    for run in world2["runs"]["blocked"]:
+    runs = world2["runs"]["blocked"]
+    assert len(runs) == 2
+    for r, run in enumerate(runs):
         assert run["layout"].pack_w and run["layout"].block0_blocked
-        assert_step_close(run["first"], want["loss"], want["counts"], want["sd"],
-                          {k: v.numpy() for k, v in want["grads"].items()}, cfg.learning_rate, want["mu"], want["nu"])
+        assert run["first_failure"] is None, f"rank {r}: {run['first_failure']}"
 
 
 def test_sharded_infer_matches_per_frame_infer(world2):
@@ -551,8 +637,7 @@ def test_device_augmented_dp_step_draws_per_rank(world2):
     differ = [not torch.equal(r0["draws"][k], r1["draws"][k]) for k in r0["draws"]]
     assert all(differ), r0["draws"].keys()
     assert r0["loss"] == r1["loss"] and np.isfinite(r0["loss"])
-    for k, v in r0["sd"].items():
-        assert torch.equal(v, r1["sd"][k]), k
+    assert_same_digests(r1["sd"], r0["sd"], "weights after the step")
 
 
 def test_train_app_data_parallel_matches_one_process(world2, tmp_path):
@@ -564,8 +649,9 @@ def test_train_app_data_parallel_matches_one_process(world2, tmp_path):
     assert (r0["saves"], r0["evals"], r0["ms_per_step"]) == (1, 1, 3)
     assert (r1["saves"], r1["evals"], r1["ms_per_step"]) == (0, 0, 0)
     lr = cfg.learning_rate
+    assert r1["sd"] is None
+    assert_same_digests(r1["sd_digests"], digests(r0["sd"]), "the app's weights")
     for k, v in want["trainer"].model.state_dict().items():
-        assert torch.equal(r0["sd"][k], r1["sd"][k]), k
         if k.endswith(("running_mean", "running_var")):
             torch.testing.assert_close(r0["sd"][k], v, rtol=1e-5, atol=1e-6)
         elif v.is_floating_point():

@@ -16,6 +16,7 @@ from det3d_tpu_torch.apps import serve_app
 from det3d_tpu_torch.apps.serve_app import PointCloudServer, ServeStats
 from det3d_tpu_torch.data import native_loader
 from det3d_tpu_torch.pipeline import Detector
+from test_torch_tmpdirs import tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

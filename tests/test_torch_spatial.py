@@ -70,6 +70,7 @@ from det3d_tpu_torch.parallel import mesh as pm
 from det3d_tpu_torch.parallel import spatial as sp
 from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.train.trainer import Trainer, host_batch
+from test_torch_tmpdirs import removed, tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -147,8 +148,14 @@ def job_rpn(mesh, cfg, x, cot):
     lo1, hi1 = plan.rows(1)
     before = dict(mesh.collectives)
     (out * torch.from_numpy(cot[:, :, lo1:hi1])).sum().backward()
-    return dict(out=out.detach(), dx=xs.grad, rows=(lo, hi), fwd=fwd, bwd=delta(before, mesh.collectives),
-                grads={n: p.grad.clone() for n, p in model.rpn.named_parameters()})
+    bwd = delta(before, mesh.collectives)
+    # the weight gradients summed over the ranks (outside the counted
+    # collectives), shipped by rank 0 alone
+    grads = {n: p.grad.clone() for n, p in model.rpn.named_parameters()}
+    for g in grads.values():
+        torch.distributed.all_reduce(g, group=mesh.group)
+    return dict(out=out.detach(), dx=xs.grad, rows=(lo, hi), fwd=fwd, bwd=bwd,
+                grads_summed=grads if mesh.rank == 0 else None)
 
 
 def job_collectives(mesh, x, y, preds, cot):
@@ -202,10 +209,12 @@ def step_record(trainer, state, loss) -> dict:
                 grads={n: p.grad.clone() for n, p in trainer.model.named_parameters()})
 
 
-def job_hybrid(mesh, cfg, dp, sp_, global_batches, state_dict=None, augment=False):
+def job_hybrid(mesh, cfg, dp, sp_, global_batches, state_dict=None, augment=False, first="record"):
     """`make_spatial_train` on a dp x sp grid of the world, a step per
-    global batch: the first step's record and collectives, the losses and
-    the final weights; with `augment`, the device augmentation's draws."""
+    global batch: the first step's collectives and, by `first`, its record
+    ("record"), its check against the one-process step made here
+    ("check", dp 1) or neither (None); the losses and digests of the final
+    weights; with `augment`, the device augmentation's draws."""
     hybrid = pm.make_hybrid_mesh(dp, sp_, device="cpu")
     trainer, step = pm.make_spatial_train(cfg, hybrid, device_global_augment=augment, aug_seed=0)
     if state_dict is not None:
@@ -221,9 +230,15 @@ def job_hybrid(mesh, cfg, dp, sp_, global_batches, state_dict=None, augment=Fals
         if i == 0:
             after = pm.collective_counts(hybrid)
             out["collectives"] = {g: delta(before[g], after[g]) for g in after}
-            out["first"] = dict(step_record(trainer, state, loss), counts={k: v.clone() for k, v in counts.items()})
+            record = dict(step_record(trainer, state, loss), counts={k: v.clone() for k, v in counts.items()})
+            if first == "record":
+                out["first"] = record
+            elif first == "check":
+                want = one_process_steps(cfg, global_batches[:1], state_dict)[0]
+                out["first_failure"] = tp.failure(check_first_hybrid, record, want)
+            del record
         out["losses"].append(float(loss["loss"]))
-    out["final"] = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    out["final"] = tp.digests(trainer.model.state_dict())
     return out
 
 
@@ -236,8 +251,9 @@ def job_infer_app(mesh, cfg, frames):
 def job_train_app(mesh, cfg, model_dir):
     summary = train_app.train(cfg, max_steps=2, display_step=1, save_step=2, eval_step=2, eval_frames=2,
                               synthetic=True, seed=0, model_dir=model_dir, device="cpu", mesh=mesh, spatial_shards=2)
-    return {"sd": summary["trainer"].model.state_dict(), "steps": summary["steps"], "saves": len(summary["save_s"]),
-            "evals": len(summary["eval_strs"])}
+    sd = summary["trainer"].model.state_dict()
+    return {"sd": sd if mesh.rank == 0 else None, "sd_digests": tp.digests(sd), "steps": summary["steps"],
+            "saves": len(summary["save_s"]), "evals": len(summary["eval_strs"])}
 
 
 def job_serve(mesh, cfg, n_frames, replay_dir):
@@ -262,7 +278,7 @@ def job_serve(mesh, cfg, n_frames, replay_dir):
     return {"ran": ran_synthetic, "served": len(stats), "dropped": stats.dropped, "replayed": len(replay)}
 
 
-JOBS = {"rpn": job_rpn, "collectives": job_collectives, "infer": job_infer, "hybrid": job_hybrid, "dp": tp.job_steps,
+JOBS = {"echo": tp.job_echo, "rpn": job_rpn, "collectives": job_collectives, "infer": job_infer, "hybrid": job_hybrid, "dp": tp.job_steps,
         "infer_app": job_infer_app, "train_app": job_train_app, "serve": job_serve}
 
 
@@ -331,13 +347,7 @@ class Group:
                 if p.is_alive():
                     p.kill()
                     p.join(10)
-        out = {}
-        for name, _, _ in self.jobs:
-            out[name] = []
-            for r in range(self.world):
-                with open(self.tmp / f"{name}-{r}.pkl", "rb") as f:
-                    out[name].append(pickle.load(f))
-        return out
+        return tp.load_results(self.tmp, [name for name, _, _ in self.jobs], self.world)
 
 
 # --- inputs and the JAX side ---------------------------------------------------
@@ -442,23 +452,26 @@ def runs(tmp_path_factory):
         ]
 
     two = Group(2, tmp / "two", common_jobs(2) + [
-        ("hybrid12", "hybrid", dict(cfg=small_cfg(batch_size=2), dp=1, sp_=2, global_batches=hybrid_batches(small, 2))),
-        ("dp", "dp", dict(cfg=tcfg, global_batches=hybrid_batches(small, 4, 1))),
+        ("hybrid12", "hybrid", dict(cfg=small_cfg(batch_size=2), dp=1, sp_=2, global_batches=hybrid_batches(small, 2),
+                                    first="check")),
+        ("dp", "dp", dict(cfg=tcfg, global_batches=hybrid_batches(small, 4, 1), check=None, first_grads=True)),
         ("infer_app", "infer_app", dict(cfg=small, frames=2)),
         ("train_app", "train_app", dict(cfg=small_cfg(batch_size=2, learning_rate=LR_APP), model_dir=str(tmp / "app"))),
         ("serve", "serve", dict(cfg=small, n_frames=3, replay_dir=str(replay_dir))),
     ], cli)
     four = Group(4, tmp / "four", common_jobs(4) + [
-        ("hybrid14", "hybrid", dict(cfg=small_cfg(batch_size=2), dp=1, sp_=4, global_batches=hybrid_batches(small, 2))),
+        ("hybrid14", "hybrid", dict(cfg=small_cfg(batch_size=2), dp=1, sp_=4, global_batches=hybrid_batches(small, 2),
+                                    first="check")),
         ("hybrid22", "hybrid", dict(cfg=tcfg, dp=2, sp_=2, global_batches=hybrid_batches(small, 4))),
         ("hybrid_aug", "hybrid", dict(cfg=tcfg, dp=2, sp_=2, global_batches=hybrid_batches(small, 4, 1),
-                                      augment=True)),
+                                      augment=True, first=None)),
     ])
     try:
         jax_out = jax_spatial(jcfg, port_state_dict(), frames(small, 2), scenes(small, 4, seed=10))
     finally:
         by_world = {2: two.results(), 4: four.results()}
-    return dict(by_world=by_world, jax=jax_out, tcfg=jcfg, tmp=tmp)
+    yield dict(by_world=by_world, jax=jax_out, tcfg=jcfg, tmp=tmp)
+    removed(tmp)
 
 
 def fake_mesh(rank, world) -> pm.DataMesh:
@@ -466,6 +479,13 @@ def fake_mesh(rank, world) -> pm.DataMesh:
 
 
 # --- no process group needed ------------------------------------------------------
+
+
+def test_group_leaves_no_pickles(tmp_path):
+    """Each rank's result comes back and its pickle is gone once read."""
+    out = Group(2, tmp_path / "group", [("echo", "echo", dict(value=5))]).results()
+    assert out == {"echo": [{"rank": r, "world": 2, "value": 5} for r in range(2)]}
+    assert not list(tmp_path.rglob("*.pkl"))
 
 
 def test_configs_are_the_jax_tests_configs():
@@ -645,8 +665,9 @@ def test_spatial_rpn_matches_the_one_process_rpn(which, world, runs):
     torch.testing.assert_close(got_out, out, rtol=1e-5, atol=2e-5)
     got_dx = torch.cat([r["dx"] for r in runs], dim=2)
     assert float((got_dx - dx).norm()) <= 1e-2 * float(dx.norm())
+    assert all(r["grads_summed"] is None for r in runs[1:])
     for name, g in grads.items():
-        total = sum(r["grads"][name] for r in runs)
+        total = runs[0]["grads_summed"][name]
         assert float((total - g).norm()) <= 1e-2 * float(g.norm()), name
     for r in runs:
         assert r["fwd"] == {"all_gather": N_CONVS, "all_reduce": N_NORMS}
@@ -726,27 +747,43 @@ def assert_hybrid_close(got: dict, want_loss: dict, want_sd: dict, what: str) ->
             assert float((got["sd"][name] - w).abs().max()) <= 3e-3, f"{what}: {name}"
 
 
+def check_first_hybrid(got: dict, want: dict, dp_grads: dict | None = None, what: str = "") -> None:
+    """A hybrid step's first record against the one-process step's `want`;
+    the gradients that reached Adam (summed over the world, divided by dp)
+    by the norm rule against the one-process step's at dp 1, and at dp 2
+    against the data-parallel step's `dp_grads` and against the one-process
+    step's over all gradients together."""
+    assert_hybrid_close(got, want["loss"], want["sd"], what)
+    for k, v in want["counts"].items():
+        diff = np.abs(got["counts"][k].numpy() - v.numpy())
+        assert diff.max() <= 1, (k, got["counts"][k], v)
+    mine = got["grads"]
+    if dp_grads is None:
+        assert_grads_by_norm(mine, want["grads"])
+    else:
+        assert_grads_by_norm(mine, dp_grads)
+        flat = [torch.cat([g[p].flatten() for p in want["grads"]]) for g in (mine, want["grads"])]
+        assert float((flat[0] - flat[1]).norm()) <= 1e-2 * float(flat[1].norm())
+
+
 @pytest.mark.parametrize("grid,name,batch", [((1, 2), "hybrid12", 2), ((1, 4), "hybrid14", 2),
                                               ((2, 2), "hybrid22", 4)])
 def test_hybrid_step_matches_the_one_process_step(grid, name, batch, runs):
+    """At dp 1 checked on each rank against the one-process step computed
+    there (`check_first_hybrid`); at dp 2 here, against the data-parallel
+    step of the two-rank group too."""
     dp, sp_ = grid
-    cfg = small_cfg(batch_size=batch)
-    want = one_process_steps(cfg, hybrid_batches(small_cfg(), batch))
     runs_, runs = runs, runs["by_world"][dp * sp_][name]
+    assert len(runs) == dp * sp_
+    if dp > 1:
+        want = one_process_steps(small_cfg(batch_size=batch), hybrid_batches(small_cfg(), batch))[0]
+        dp_grads = runs_["by_world"][dp]["dp"][0]["first_grads"]
     for r, run in enumerate(runs):
         assert (run["data_rank"], run["spatial_rank"]) == divmod(r, sp_)
-        assert_hybrid_close(run["first"], want[0]["loss"], want[0]["sd"], f"rank {r}")
-        for k, v in want[0]["counts"].items():
-            diff = np.abs(run["first"]["counts"][k].numpy() - v.numpy())
-            assert diff.max() <= 1, (k, run["first"]["counts"][k], v)
-        # the gradients that reached Adam (summed over the world, divided by dp)
-        mine = run["first"]["grads"]
         if dp == 1:
-            assert_grads_by_norm(mine, want[0]["grads"])
+            assert run["first_failure"] is None, f"rank {r}: {run['first_failure']}"
         else:
-            assert_grads_by_norm(mine, runs_["by_world"][dp]["dp"][0]["first"]["grads"])
-            flat = [torch.cat([g[p].flatten() for p in want[0]["grads"]]) for g in (mine, want[0]["grads"])]
-            assert float((flat[0] - flat[1]).norm()) <= 1e-2 * float(flat[1].norm())
+            check_first_hybrid(run["first"], want, dp_grads, f"rank {r}")
 
 
 @pytest.mark.parametrize("grid,name", [((1, 2), "hybrid12"), ((1, 4), "hybrid14"), ((2, 2), "hybrid22")])
@@ -755,8 +792,7 @@ def test_hybrid_steps_chain_with_equal_weights_on_every_rank(grid, name, runs):
     for run in runs:
         assert len(run["losses"]) == HYBRID_STEPS and np.isfinite(run["losses"]).all()
         assert run["losses"] == runs[0]["losses"]
-        for k, v in run["final"].items():
-            assert torch.equal(v, runs[0]["final"][k]), k
+        tp.assert_same_digests(run["final"], runs[0]["final"], "final weights")
 
 
 def test_hybrid_step_matches_jax_make_spatial_train(runs):
@@ -812,8 +848,9 @@ def test_train_app_spatial_shards_matches_one_process_and_restores(runs, tmp_pat
     r0, r1 = runs["by_world"][2]["train_app"]
     assert r0["steps"] == r1["steps"] == 2
     assert (r0["saves"], r0["evals"]) == (1, 1) and (r1["saves"], r1["evals"]) == (0, 0)
+    assert r1["sd"] is None
+    tp.assert_same_digests(r1["sd_digests"], tp.digests(r0["sd"]), "the app's weights")
     for k, v in want["trainer"].model.state_dict().items():
-        assert torch.equal(r0["sd"][k], r1["sd"][k]), k
         if k.endswith(("running_mean", "running_var")):
             torch.testing.assert_close(r0["sd"][k], v, rtol=1e-5, atol=1e-6)
         elif v.is_floating_point():

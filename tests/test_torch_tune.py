@@ -20,6 +20,7 @@ import torch
 from det3d_tpu_torch import cli
 from det3d_tpu_torch import tune as T
 from det3d_tpu_torch.config import load_config
+from test_torch_tmpdirs import removed, tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -41,7 +42,8 @@ def tiny(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tune")
     path = tmp / "tiny.json"
     path.write_text(json.dumps(TINY))
-    return tmp, path
+    yield tmp, path
+    removed(tmp)
 
 
 @pytest.fixture(scope="module")
