@@ -16,10 +16,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      events, the NMS mask kernel and sweep also apart;
   4. the main path at full width: configs/ntusl_20cm.json (800x800 grid,
      16k pillars x 15 points, 1.44M anchors, bf16) with seeded random
-     weights, ~100k-point frames through `Detector.detect`; every kernel of
-     the path must launch on every frame; the host-card synchronisations of
-     each of three `detect`s, by the line that made each (and its caller
-     outside torch);
+     weights, ~100k-point frames through the eager `detect` (`eager_detect`:
+     pad, `Detector.infer`, annos; `Detector.detect` itself replays
+     `infer_jit`, which phase 19 times, so phases 4-18 time the eager path
+     as before); every kernel of the path must launch on every
+     frame; the host-card synchronisations of each of three `detect`s, by the
+     line that made each (and its caller outside torch);
   5. the full path in float32 with the kernels against the same path with
      the plain versions on the card, and a small geometry on the card
      against the CPU, at the tolerances of tests/test_golden_e2e.py;
@@ -70,8 +72,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      (ntusl_20cm, bf16, batch 2, two prefetcher workers, 6 steps, a
      checkpoint every 3, an in-training eval of 4 frames at step 6): ms/step
      beside phase 7's bare step, the wait for batches, the eval's wall time
-     and its rotated-IoU share, launches (the train kernels once a step, the
-     scatter and NMS once an eval frame); `latest.pth` restored into a fresh
+     and its rotated-IoU share, launches (the app's step and eval are
+     captured graphs: each kernel in the warm-up calls and the capture of
+     its graph); `latest.pth` restored into a fresh
      trainer bit-equal to the live one, and one more step; then
      `infer_app.infer` of the checkpoint over the 8 eval frames through the
      native reader: ms/frame, the pre / net / post breakdown, the mAP
@@ -166,7 +169,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      other lever: each trial's device and host ms, the choices, the
      skipped levers with their reasons, the tuned JSON loaded into a
      `Detector` that detects; (c) every kernel's launches over each run,
-     equal to its trials' frames and steps, the blocked pair non-zero in
+     three a trial (each trial's frame or step is captured once: the
+     warm-up calls and the capture), the blocked pair non-zero in
      (ii), none zero over both. Each kernel row gains `tune_launches`.
  18. cell-id-ordered voxelization at full width (ntusl_20cm, bf16):
      `Detector(cfg, fcfs=False)` over 8 frames through `detect` (4 of 12k
@@ -178,6 +182,28 @@ Phases, each printed as it runs; any failure exits non-zero:
      the voxelize stage's host ms (median of 16 calls each, in turns) and
      device ms (profiler) of both orders. Each kernel row gains
      `cellid_launches`.
+ 19. the compiled entry points (ntusl_20cm unless stated), each one
+     captured CUDA graph over static buffers: (a) `Detector.infer_jit`
+     bit-equal to `infer` on 8 frames, kernels per replay (profiler), ms,
+     device ms and busy share of `detect` through it against the eager one
+     (in turns), syncs, peak, one capture; (b) 10 captured f32 dense steps
+     (`Trainer.train_step_jit`, batch 2) bit-equal to 10 eager steps from
+     `init_weights(0)`, cuDNN deterministic (losses, counts, parameters,
+     running statistics, moments after every step); then bf16 eager and
+     captured in turns: ms/step (median of 20 after 3), device ms, busy
+     share, syncs, peak allocated and reserved, the first call's seconds,
+     kernels per step; (c) the packed + blocked step (`pack_w` with the
+     shipped blocked train levers), 5 steps bit-equal, its kernels per
+     replay; (d) `Trainer.eval_step_jit` equal to eager `infer` on the
+     trainer's model on 4 frames after 3 captured steps, after 10 and after
+     a `load_state_dict`; (e) the device-augmented step, 3 steps bit-equal;
+     (f) `train_app.train(synthetic=True)`, `infer_app.infer` at batch 1 and
+     4 and `serve_synthetic` at 10 Hz through the captured paths; (g)
+     ntusl_10cm's captured step, 3 steps: ms, device ms, peak. Each kernel
+     row gains `jit_launches_per_call` (kernels per replay of each graph,
+     from the profiler; a replay runs no wrapper, so the counters move only
+     in the warm-up calls and the capture: phases 12, 13, 14(c) and 17 count
+     those for the apps and the tuner, which run the captured paths).
 The last lines are the kernels table (JSON), the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
@@ -276,6 +302,10 @@ R1_STEPS = 3
 BATCH4 = 4           # ... and ntusl_20cm train steps at batch 4
 BATCH4_STEPS = 5
 FUSED_VS_UNFUSED_TOL = 1e-4  # tests/test_torch_model.py's rtol/atol for the network's outputs
+DENSE_JIT_STEPS = 10   # phase 19(b): captured f32 steps held bit for bit against eager ones
+BLOCKED_JIT_STEPS = 5  # phase 19(c): the same for the packed + blocked step
+AUG_JIT_STEPS = 3      # phase 19(e): the same for the device-augmented step
+CAPTURE_LAUNCHES = 3  # a captured call's wrapper launches: utils/graphs.WARMUP_CALLS warm-up calls + the capture
 DP_STEPS = 3          # phase 15(a): steps of the world-1 NCCL step held bit for bit against the plain step
 DP_TIMED_STEPS = 20   # ... then timed, each path, in turns (plain, data-parallel, plain)
 DP_GLOO_STEPS = 2     # phase 15(b): f32 steps of two gloo ranks (batch 1 each) against one process at batch 2
@@ -292,7 +322,6 @@ CELLID_FRAMES = 8             # phase 18: frames of Detector(fcfs=False), half u
 CELLID_UNDER_POINTS = 12_000  # ~11k pillars at 20 cm, under its 16 000
 # phase 17: tune at the JAX tuner's defaults, (i) the config as shipped, (ii) pack_w on with every other lever
 TUNE_ARGS = dict(mode="both", infer_iters=32, train_iters=12, batch_size=2, margin=0.02)
-TUNE_INFER_WINDOWS, TUNE_TRAIN_WINDOWS = 3, 2  # tune.measure_infer's and measure_train's defaults
 # KITTI frame 000000's calibration (R0_rect, Tr_velo_to_cam, P2), for phase 17(a)
 KITTI_R0_RECT = np.eye(4)
 KITTI_R0_RECT[:3, :3] = [[9.999239e-01, 9.837760e-03, -7.445048e-03], [-9.869795e-03, 9.999421e-01, -4.278459e-03],
@@ -407,6 +436,26 @@ def host_ms(fn, iters: int = 30) -> float:
     ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
     return ms
+
+
+def eager_detect(det):
+    """`Detector.detect` as phases 4-18 time it: pad, the eager
+    `Detector.infer`, annos. `Detector.detect` itself goes through the
+    captured `infer_jit`, which phase 19 times; these phases keep their
+    history."""
+    from det3d_tpu_torch.postprocess import to_annos
+
+    def detect(points: np.ndarray) -> dict:
+        padded, n = det.pad_points(points)
+        return to_annos(det.cfg, det.infer(torch.from_numpy(padded).to(det.device), int(n)))
+
+    return detect
+
+
+def eager_serve_infer(det):
+    """A `PointCloudServer`'s `infer_fn` on the eager `Detector.infer` (the
+    live server's default is `infer_jit`, which phase 19 serves)."""
+    return lambda points, n: det.infer(torch.from_numpy(points).to(det.device), int(n))
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -578,15 +627,17 @@ def stage_breakdown(det, frames) -> dict[str, float]:
 
 
 def device_time(det, frames) -> tuple[float, list[tuple[str, float]]] | None:
-    """Device time per `Detector.detect` frame from a torch.profiler trace
-    (sum of the card's kernel, memset and memcpy spans), and the top device
-    ops by time per frame; None when the trace holds no device events."""
+    """Device time per eager `detect` frame (`eager_detect`) from a
+    torch.profiler trace (sum of the card's kernel, memset and memcpy
+    spans), and the top device ops by time per frame; None when the trace
+    holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    detect = eager_detect(det)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for pts_np in frames:
-            det.detect(pts_np)
+            detect(pts_np)
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
     for e in prof.events():
@@ -1074,10 +1125,11 @@ def check_layout_scatters(grid_xy, v: int, c: int, nblk: int, halo, blocked10=No
 
 @torch.no_grad()
 def run_frames(det, frames, counters) -> dict:
-    """`Detector.detect` over `frames` after one warm-up frame, with every
-    counter set to 0 just before and read just after: ms/frame, peak
-    memory, launches."""
-    det.detect(frames[0])
+    """The eager `detect` (`eager_detect`) over `frames` after one warm-up
+    frame, with every counter set to 0 just before and read just after:
+    ms/frame, peak memory, launches."""
+    detect = eager_detect(det)
+    detect(frames[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -1085,7 +1137,7 @@ def run_frames(det, frames, counters) -> dict:
     times, detections = [], []
     for pts_np in frames[1:]:
         t0 = time.perf_counter()
-        annos = det.detect(pts_np)
+        annos = detect(pts_np)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         detections.append(len(annos["score"]))
@@ -1216,7 +1268,7 @@ def count_syncs(fn) -> list[str]:
 
 def detect_syncs(tree: str, n_frames: int = 20) -> int:
     """`chip_smoke.py --detect-syncs TREE`: the host-card synchronisations
-    of one `Detector.detect` (configs/ntusl_20cm.json, bf16, seeded
+    of one eager `detect` (`eager_detect`; configs/ntusl_20cm.json, bf16, seeded
     weights, 100 000-point frames) and its ms/frame (median over
     `n_frames` frames after a warm-up call) with the port of the checkout at TREE:
     this one, or an earlier commit unpacked into a git-ignored directory.
@@ -1233,8 +1285,9 @@ def detect_syncs(tree: str, n_frames: int = 20) -> int:
     cfg = load_config(root / "configs" / "ntusl_20cm.json", max_points=120_000)
     det = Detector(cfg).init_weights(SEED)
     frames = [synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + i)[:N_POINTS] for i in range(n_frames)]
-    times = host_ms_per_frame(det.detect, frames)
-    syncs = [count_syncs(lambda: det.detect(f)) for f in frames[:3]]
+    detect = eager_detect(det)
+    times = host_ms_per_frame(detect, frames)
+    syncs = [count_syncs(lambda: detect(f)) for f in frames[:3]]
     ms = statistics.median(times)
     print(f"[{card_line()}] {root}: host-card syncs in each of 3 detects {[len(x) for x in syncs]} "
           f"({', '.join(syncs[0])}); ms/frame median {ms:.3f} (min {min(times):.3f}, max {max(times):.3f}) "
@@ -1380,10 +1433,13 @@ def run_apps(cfg, counters, bare_step_ms: float, root: Path) -> tuple[dict, dict
               f"{[round(v * 1e3, 1) for v in summary['save_s']]} ms; the window of steps 3-4 holds the save at 3")
         print(f"train_app: in-training eval ({APP_EVAL_FRAMES} frames) {summary['eval_s'][0]:.3f} s wall, of which "
               f"_frame_overlaps (rotated IoU on the card, bev + 3d) {sum(overlaps_s):.3f} s in {len(overlaps_s)} calls")
-        print(f"train_app launches over {APP_STEPS} steps and {APP_EVAL_FRAMES} eval frames: {train_launches}")
+        print(f"train_app launches over {APP_STEPS} steps and {APP_EVAL_FRAMES} eval frames (captured: the "
+              f"warm-up calls and the capture of each graph): {train_launches}")
+        # the app's step and eval are captured graphs: the wrappers
+        # launch in their warm-up calls and capture only, once each graph
         want = {k: 0 for k in counters}
-        want.update({name: APP_STEPS for name in TRAIN_COUNTERS})
-        want.update(scatter_fwd=APP_STEPS + APP_EVAL_FRAMES, nms=APP_EVAL_FRAMES)
+        want.update({name: CAPTURE_LAUNCHES for name in TRAIN_COUNTERS})
+        want.update(scatter_fwd=2 * CAPTURE_LAUNCHES, nms=CAPTURE_LAUNCHES)
         check(train_launches == want, f"train_app launches {train_launches}, expected {want}")
 
         names = sorted(p.name for p in model_dir.iterdir())
@@ -1414,8 +1470,8 @@ def run_apps(cfg, counters, bare_step_ms: float, root: Path) -> tuple[dict, dict
               f"the first; breakdown ms (median of 10) "
               f"{ {k: round(v * 1e3, 3) for k, v in out['stages'].items()} }")
         print(f"infer_app launches over {APP_FRAMES} frames and the breakdown: {infer_launches}")
-        want = {k: 0 for k in counters}
-        want.update(scatter_fwd=APP_FRAMES + 1 + BREAKDOWN_CALLS, nms=APP_FRAMES + BREAKDOWN_CALLS)
+        want = {k: 0 for k in counters}  # one captured frame graph, then the breakdown's eager stages
+        want.update(scatter_fwd=CAPTURE_LAUNCHES + 1 + BREAKDOWN_CALLS, nms=CAPTURE_LAUNCHES + BREAKDOWN_CALLS)
         check(infer_launches == want, f"infer_app launches {infer_launches}, expected {want}")
         check(len(out["eval_strs"]) == 3 and all("Metric: 3d" in e for e in out["eval_strs"]), "mAP strings")
         for a in out["dt_annos"]:
@@ -1659,10 +1715,11 @@ def run_deploy(cfg, det, root: Path, card: str) -> dict:
     result, clouds = export_and_replay(cfg, det, root, card, "artifact")
     for c in counters.values():
         c.launches = 0
-    live_times = host_ms_per_frame(det.detect, clouds)
+    detect = eager_detect(det)
+    live_times = host_ms_per_frame(detect, clouds)
     live_launches = {k: c.launches for k, c in counters.items()}
-    live_per_frame, live_device, _ = profiled_frames(det.detect, clouds)
-    live_syncs = count_syncs(lambda: det.detect(clouds[0]))
+    live_per_frame, live_device, _ = profiled_frames(detect, clouds)
+    live_syncs = count_syncs(lambda: detect(clouds[0]))
     live_ms = statistics.median(live_times)
     busy = "not measured" if live_device is None else f"{live_device:.3f} ms ({100 * live_device / live_ms:.1f} % busy)"
     print(f"[{card}] live detect: ms/frame median {live_ms:.3f} (min {min(live_times):.3f}, max {max(live_times):.3f}); "
@@ -1674,7 +1731,7 @@ def run_deploy(cfg, det, root: Path, card: str) -> dict:
     for c in counters.values():
         c.launches = 0
     stats = serve_app.serve_synthetic(cfg, frames=SERVE_FRAMES, hz=SERVE_HZ,
-                                      server=serve_app.PointCloudServer(cfg, detector=det))
+                                      server=serve_app.PointCloudServer(cfg, infer_fn=eager_serve_infer(det)))
     serve_launches = {k: c.launches for k, c in counters.items()}
     print(f"[{card}] serve_synthetic, live detector, {SERVE_HZ} Hz: {latency_line(stats)}; launches {serve_launches}")
     check(stats.submitted == SERVE_FRAMES and len(stats) + stats.dropped == SERVE_FRAMES, "live serve counts")
@@ -1682,7 +1739,7 @@ def run_deploy(cfg, det, root: Path, card: str) -> dict:
     result["serve_live"] = dict(latencies=list(stats), submitted=stats.submitted, dropped=stats.dropped)
 
     replay = serve_app.serve_replay(cfg, str(root / "eval" / "velodyne"), hz=REPLAY_HZ, frames=REPLAY_FRAMES, loop=True,
-                                    server=serve_app.PointCloudServer(cfg, detector=det))
+                                    server=serve_app.PointCloudServer(cfg, infer_fn=eager_serve_infer(det)))
     print(f"[{card}] serve_replay of phase 12's eval .bin frames, loop, {REPLAY_HZ} Hz: {latency_line(replay)}")
     check(replay.submitted == REPLAY_FRAMES and len(replay) + replay.dropped == REPLAY_FRAMES, "replay counts")
 
@@ -1698,9 +1755,8 @@ def run_deploy(cfg, det, root: Path, card: str) -> dict:
             runs[dtype, batch] = r
             print(f"[{card}] infer_app {dtype} batch {batch}: {r['avg_ms']:.3f} ms/frame over {r['timed_frames']} "
                   f"timed frames; launches {r['launches']}")
-    chunks = -(-APP_FRAMES // INFER_BATCH)
-    check(runs["bfloat16", INFER_BATCH]["launches"] == {"scatter": chunks, "nms": chunks},
-          f"batch {INFER_BATCH}: one scatter and one NMS call per chunk")
+    check(runs["bfloat16", INFER_BATCH]["launches"] == {"scatter": CAPTURE_LAUNCHES, "nms": CAPTURE_LAUNCHES},
+          f"batch {INFER_BATCH}: one scatter and one NMS call in the warm-up calls and the capture of its graph")
     pairs = list(zip(runs["float32", INFER_BATCH]["dt_annos"], runs["float32", 1]["dt_annos"]))
     thr = det.postprocess.params.nms_iou_threshold
     unmatched = [annos_match(a, b, f"f32 frame {i}, batch {INFER_BATCH} vs 1", thr) for i, (a, b) in enumerate(pairs)]
@@ -1894,7 +1950,7 @@ def run_options(cfg, cfg32, frames, batch, card: str, base: dict, root: Path) ->
                               model_dir=str(root / "model_augmented"), device_augment=True)
     launches["train_app --device-augment"] = {k: c.launches for k, c in counters.items()}
     check(not multiprocessing.active_children(), "the prefetcher's workers outlived the train loop")
-    check(launches["train_app --device-augment"] == train_path_launches(counters, APP_STEPS),
+    check(launches["train_app --device-augment"] == train_path_launches(counters, CAPTURE_LAUNCHES),
           f"train_app --device-augment launches {launches['train_app --device-augment']}")
     waits, app = summary["batch_wait_s"], base["app"]
     print(f"[{card}] train_app --device-augment ({APP_WORKERS} workers, {APP_STEPS} steps, saves at 3 and 6, no "
@@ -2510,8 +2566,9 @@ def spatial_world1_child(out_dir: str) -> None:
             frames_iter = itertools.cycle(clouds)
             result[f"infer {name}"] = spatial_timed(lambda: det.infer(torch.from_numpy(next(frames_iter)).cuda(),
                                                                       N_POINTS), SP_FRAMES_W1, counters, mesh)
-            result[f"infer {name}"].update(syncs=len(count_syncs(lambda: det.detect(clouds[1]))),
-                                           host=host_split(lambda: det.detect(next(frames_iter)), 3))
+            detect = eager_detect(det)
+            result[f"infer {name}"].update(syncs=len(count_syncs(lambda: detect(clouds[1]))),
+                                           host=host_split(lambda: detect(next(frames_iter)), 3))
             del det
         batch = host_batch(cfg, train_scenes(cfg, SEED))
         for name in ("plain", "spatial"):
@@ -2994,12 +3051,13 @@ def run_tune(card: str) -> dict:
             skipped = {s["lever"]: s["reason"] for s in report["skipped"]}
             want = {} if packed else {k: T.PACKED_ONLY_REASON for k in T.PACKED_ONLY}
             check(skipped == want, f"17(b) {name}: skipped {skipped}, expected {want}")
+            # each trial captures its frame or step once: the wrappers
+            # launch in the warm-up calls and the capture, never in a replay
             n_infer, n_train = (len(trials.get(m, [])) for m in ("infer", "train"))
-            frames = n_infer * (1 + 2 * TUNE_INFER_WINDOWS * TUNE_ARGS["infer_iters"])
-            steps = n_train * (1 + 2 * TUNE_TRAIN_WINDOWS * TUNE_ARGS["train_iters"])
+            frames, steps = n_infer * CAPTURE_LAUNCHES, n_train * CAPTURE_LAUNCHES
             got = launches[name]
-            print(f"[{card}] (c) {name}: launches over the run ({n_infer} infer trials, {frames} frames; {n_train} "
-                  f"train trials, {steps} steps): {got}")
+            print(f"[{card}] (c) {name}: launches over the run ({n_infer} infer trials, {n_train} train trials, "
+                  f"each captured once): {got}")
             check(got["nms"] == frames and got["matcher_gt_max"] == got["matcher_assign"] == got["fence"] == steps,
                   f"17(c) {name}: launches {got}")
             torch.cuda.empty_cache()
@@ -3098,6 +3156,349 @@ def run_cell_id_order(cfg, card: str) -> dict:
     return {"detect, fcfs=False": run["launches"]}
 
 
+# --- phase 19: the compiled entry points (captured CUDA graphs) ---
+
+
+def collect_graphs(part: str | None = None) -> None:
+    """Give back what the last part freed: a captured callable goes with
+    its owner, and the graph's pool with it once no output of the graph is
+    alive. With `part`, print what the card still holds as it starts."""
+    torch.cuda.empty_cache()
+    if part is not None:
+        print(f"[{_PHASE['card']}] {part} starts with {torch.cuda.memory_allocated()} bytes allocated, "
+              f"{torch.cuda.memory_reserved()} reserved", flush=True)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+
+
+def step_snapshot(trainer, state, loss, counts) -> dict:
+    """A step's results and the trainer's whole state after it, cloned."""
+    return dict(loss={k: v.clone() for k, v in loss.items()}, counts={k: v.clone() for k, v in counts.items()},
+                model={k: v.clone() for k, v in trainer.model.state_dict().items()},
+                moments=[t.clone() for t in state.mu + state.nu])
+
+
+def differing(a: dict, b: dict) -> list[str]:
+    """The names of the tensors in which two `step_snapshot`s differ by a bit."""
+    out = [f"loss {k}" for k in a["loss"] if not torch.equal(a["loss"][k], b["loss"][k])]
+    out += [f"counts {k}" for k in a["counts"] if not torch.equal(a["counts"][k], b["counts"][k])]
+    out += [k for k in a["model"] if not torch.equal(a["model"][k], b["model"][k])]
+    out += [f"moment {i}" for i, (x, y) in enumerate(zip(a["moments"], b["moments"])) if not torch.equal(x, y)]
+    return out
+
+
+def eager_vs_captured(cfg, batch, steps: int, what: str, card: str, **trainer_kw) -> list[str]:
+    """`steps` eager steps and `steps` captured steps from `init_weights(SEED)`
+    on `batch`, each on a fresh trainer, cuDNN deterministic: after every
+    step the losses, counts, every parameter and running statistic and the
+    moments, bit for bit → what differed (nothing, where the gate holds)."""
+    from det3d_tpu_torch.train.trainer import Trainer
+
+    runs = {}
+    with cudnn_deterministic():
+        for jit in (False, True):
+            trainer = Trainer(cfg, **trainer_kw)
+            state = trainer.init_state(SEED)
+            fn = trainer.train_step_jit if jit else trainer.train_step
+            snaps = []
+            for _ in range(steps):
+                state, loss, counts = fn(state, batch)
+                snaps.append(step_snapshot(trainer, state, loss, counts))
+            if jit:
+                check(trainer.train_step_jit.captures == 1, f"{what}: {trainer.train_step_jit.captures} captures")
+            runs[jit] = snaps
+            del trainer, state, fn
+            collect_graphs()
+    diffs = [differing(a, b) for a, b in zip(runs[False], runs[True])]
+    losses = [round(float(r["loss"]["loss"]), 6) for r in runs[True]]
+    print(f"[{card}] {what}: {steps} captured steps against {steps} eager steps from init_weights({SEED}), cuDNN "
+          f"deterministic: bit-equal after every step {all(not d for d in diffs)} (losses, counts, "
+          f"{len(runs[True][0]['model'])} parameters and buffers, {len(runs[True][0]['moments'])} moments); "
+          f"loss by step {losses}" + ("" if all(not d for d in diffs) else f"; differing {diffs}"))
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall")
+    return [name for d in diffs for name in d]
+
+
+def timed_steps(fn, batch, n: int, warmup: int) -> dict:
+    """ms of `fn(batch)` + synchronize, median over n after `warmup` calls,
+    peak allocated bytes since just before the first call over those
+    allocated then (`live`), the bytes the
+    run still holds reserved after it with the cache emptied (a captured
+    call's graph pool and static buffers, and what the step keeps), the
+    reserve at its start, and the first call's seconds (the capture, for a
+    captured step)."""
+    collect_graphs()
+    start, live = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(warmup - 1):
+        fn(batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return dict(ms=statistics.median(times), min=min(times), max=max(times), first_s=first_s, peak=peak - live,
+                live=live, held=torch.cuda.memory_reserved() - start, start=start)
+
+
+def step_line(card: str, what: str, r: dict) -> str:
+    busy = "not measured" if r["device"] is None else f"{r['device']:.3f} ms ({100 * r['device'] / r['ms']:.1f} % busy)"
+    return (f"[{card}] {what}: ms median {r['ms']:.3f} (min {r['min']:.3f}, max {r['max']:.3f}); device {busy}; "
+            f"host-card syncs {r['syncs']}; peak {r['peak']} bytes allocated over the {r['live']} live at its start; "
+            f"held reserved after the run "
+            f"{r['held']} bytes over the {r['start']} reserved at its start; first call {r['first_s']:.3f} s; kernels "
+            f"per call (profiler) {r['per_call']}")
+
+
+def run_compiled(cfg, frames, batch, card: str, base: dict) -> dict:
+    """Phase 19: `Detector.infer_jit`, `Trainer.train_step_jit` and
+    `Trainer.eval_step_jit` on the card, each one captured CUDA graph.
+    (a) the frame: bit-equal to `infer` on phase 4's 8 frames, kernels per
+    replay, ms, device ms, busy share, syncs, peak, one capture; (b) the
+    dense train step: 10 captured f32 steps bit-equal to 10 eager ones, then
+    bf16 timings of both; (c) the packed + blocked step, 5 steps bit-equal;
+    (d) `eval_step_jit` after 3 captured steps, at the end and after a
+    `load_state_dict` against eager `infer`; (e) the device-augmented step,
+    3 steps bit-equal; (f) the apps through the captured paths; (g)
+    ntusl_10cm's captured step → {path: kernels per replay}."""
+    from det3d_tpu_torch.apps import infer_app, serve_app, train_app
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.models.pointpillars import Layout
+    from det3d_tpu_torch.pipeline import Detector
+    from det3d_tpu_torch.train.trainer import Trainer, host_batch
+    from det3d_tpu_torch.utils import graphs
+
+    check(CAPTURE_LAUNCHES == graphs.WARMUP_CALLS + 1, "CAPTURE_LAUNCHES follows utils/graphs.WARMUP_CALLS")
+    counters = train_counters(layouts=True)
+    per_call = {}
+    train_calls = {k: int(k in ("scatter_to_bev", "scatter_to_bev_bwd", "matcher_gt_max", "matcher_assign",
+                                "fence_copy")) for k in PROFILER_KERNELS}
+
+    # (a) the frame
+    t0 = time.time()
+    collect_graphs("19(a)")
+    start, live = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    det = Detector(cfg).init_weights(SEED)
+    clouds = [f[:N_POINTS] for f in frames[1:DEPLOY_FRAMES + 1]]
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    det.infer_jit(frames[0], N_POINTS)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t1
+    equal = []
+    for f in frames[1:DEPLOY_FRAMES + 1]:
+        got = [t.cpu().numpy() for t in det.infer_jit(f, N_POINTS)]
+        want = [t.cpu().numpy() for t in det.infer(torch.from_numpy(f).cuda(), N_POINTS)]
+        equal.append(all(np.array_equal(g, w) for g, w in zip(got, want)))
+    check(all(equal), f"19(a) infer_jit against infer: bit-equal {equal}")
+    for c in counters.values():
+        c.launches = 0
+    runs = {}
+    for name in ("captured", "eager", "captured", "eager"):
+        fn = det.detect if name == "captured" else eager_detect(det)
+        runs.setdefault(name, []).extend(host_ms_per_frame(fn, clouds))
+    replay_launches = {k: c.launches for k, c in counters.items()}
+    for name in ("captured", "eager"):
+        fn = det.detect if name == "captured" else eager_detect(det)
+        frames_per, device, _ = profiled_frames(fn, clouds)
+        syncs = count_syncs(lambda: fn(clouds[0]))
+        ms = statistics.median(runs[name])
+        if name == "captured":
+            per_call["frame"] = frames_per
+        busy = "not measured" if device is None else f"{device:.3f} ms ({100 * device / ms:.1f} % busy)"
+        print(f"[{card}] (a) detect, {name}: ms/frame median {ms:.3f} (min {min(runs[name]):.3f}, max "
+              f"{max(runs[name]):.3f}, {len(runs[name])} frames in two turns); device {busy}; calls per frame of each "
+              f"kernel (profiler) {frames_per}; host-card syncs per detect {len(syncs)} ({', '.join(syncs)})")
+        check(frames_per is None or frames_per == INFER_CALLS, f"19(a) {name}: kernel calls per frame {frames_per}")
+    peak = torch.cuda.max_memory_allocated() - live
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - start
+    print(f"[{card}] (a) infer_jit bit-equal to infer on {len(equal)} frames; captures {det.infer_jit.captures}; "
+          f"first call (warm-up and capture) {capture_s:.3f} s; peak {peak} bytes allocated over the {live} live "
+          f"at its start, both paths (phase 4's eager frame: {base['frame_peak']}); the detector with its graph holds {held} bytes reserved over the "
+          f"{start} at the start; wrapper launches over the timed frames {replay_launches} (the eager "
+          f"turns only: {2 * (len(clouds) + 1)} each)")
+    check(det.infer_jit.captures == 1, f"19(a) {det.infer_jit.captures} captures")
+    check(replay_launches["scatter_fwd"] == replay_launches["nms"] == 2 * (len(clouds) + 1),
+          f"19(a) a replay ran a wrapper: {replay_launches}")
+    del det
+    collect_graphs()
+    print(f"[{card}] 19(a) took {time.time() - t0:.1f} s")
+
+    # (b) the dense step, and (d) the eval graph inside it
+    t0 = time.time()
+    collect_graphs("19(b)")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    eval_frames = frames[1:5]
+    evals = {}
+
+    def eval_check(trainer, when: str) -> None:
+        # cloned: each call overwrites the last one's buffers
+        got = [[t.clone() for t in trainer.eval_step_jit(f, N_POINTS)] for f in eval_frames]
+        want = [trainer.eval_step(f, N_POINTS) for f in eval_frames]
+        evals[when] = all(all(torch.equal(a, b) for a, b in zip(g, w)) for g, w in zip(got, want))
+
+    diffs = eager_vs_captured(cfg32, batch, DENSE_JIT_STEPS, "(b) dense f32 step", card)
+    check(not diffs, f"19(b) the captured dense f32 step differs from the eager one in {sorted(set(diffs))}")
+
+    with cudnn_deterministic():  # (d): eval_step_jit against eager infer on the trainer's model
+        trainer = Trainer(cfg32)
+        state = trainer.init_state(SEED)
+        for k in range(DENSE_JIT_STEPS):
+            state, _, _ = trainer.train_step_jit(state, batch)
+            if k + 1 == 3:
+                eval_check(trainer, "after 3 captured steps")
+        eval_check(trainer, f"after {DENSE_JIT_STEPS}")
+        trainer.detector.load_state_dict(Detector(cfg32).init_weights(SEED + 1).model.state_dict())
+        eval_check(trainer, "after load_state_dict")
+        state, loss, counts = trainer.train_step_jit(state, batch)
+        check(np.isfinite(float(loss["loss"])), "19(d) the captured step after load_state_dict")
+        del loss, counts  # the graph's outputs: they would keep its pool alive
+        check(trainer.detector.infer_jit.captures == 1 and trainer.train_step_jit.captures == 1,
+              "19(d) one capture of each graph")
+    print(f"[{card}] (d) eval_step_jit equal to eager infer on the trainer's model on {len(eval_frames)} frames: "
+          f"{evals}; one capture each")
+    check(all(evals.values()), f"19(d) {evals}")
+    del trainer, state
+    collect_graphs()
+
+    steps = {}
+    for name in ("eager", "captured", "eager", "captured"):
+        trainer = Trainer(cfg)
+        state = trainer.init_state(SEED)
+        fn = (trainer.train_step_jit if name == "captured" else trainer.train_step)
+        r = timed_steps(lambda b: fn(state, b), batch, TRAIN_STEPS, TRAIN_WARMUP)
+        if name not in steps:
+            traced_per, device, _ = profiled_frames(lambda b: fn(state, b), [batch] * 3)
+            r.update(device=device, per_call=traced_per, syncs=len(count_syncs(lambda: fn(state, batch))))
+            check(traced_per is None or traced_per == train_calls, f"19(b) {name}: kernels per step {traced_per}")
+            steps[name] = r
+        else:
+            steps[name]["turn 2"] = r["ms"]
+        del trainer, state, fn
+        collect_graphs()
+        dropped = torch.cuda.memory_reserved()
+        check(dropped <= r["start"], f"19(b) {name}: a dropped trainer left {dropped} bytes reserved, "
+                                     f"{r['start']} with it alive before its first step")
+        steps[name]["dropped"] = dropped
+    for name, r in steps.items():
+        print(step_line(card, f"(b) dense bf16 step, {name} (second turn {r['turn 2']:.3f} ms; {r['dropped']} bytes "
+                              f"reserved once the trainer is dropped)", r))
+    print(f"[{card}] (b) beside them, phase 7's eager step in this run: {base['step_ms']:.3f} ms, device "
+          f"{base['step_device']}, syncs {base['step_syncs']}, peak {base['step_peak']}")
+    per_call["dense step"] = steps["captured"]["per_call"]
+    print(f"[{card}] 19(b, d) took {time.time() - t0:.1f} s")
+
+    # (c) pack_w + the shipped blocked train levers
+    t0 = time.time()
+    collect_graphs("19(c)")
+    cfg_b = cfg32.replace(pack_w=True)
+    check(Trainer(cfg_b).model.layout(TRAIN_BATCH, True) == Layout(True, True, True), "19(c) packed + blocked")
+    collect_graphs()
+    diffs = eager_vs_captured(cfg_b, batch, BLOCKED_JIT_STEPS, "(c) packed + blocked f32 step", card)
+    check(not diffs, f"19(c) the captured packed + blocked step differs in {sorted(set(diffs))}")
+    trainer = Trainer(cfg.replace(pack_w=True))
+    state = trainer.init_state(SEED)
+    trainer.train_step_jit(state, batch)
+    traced_per, device, names = profiled_frames(lambda b: trainer.train_step_jit(state, b), [batch] * 3)
+    want = {k: int(k in ("scatter_to_bev_s2d_blocked", "scatter_to_bev_s2d_blocked_bwd", "matcher_gt_max",
+                         "matcher_assign", "fence_copy")) for k in PROFILER_KERNELS}
+    print(f"[{card}] (c) packed + blocked bf16 captured step: kernels per replay (profiler) {traced_per}, by the "
+          f"names {names}; device {device} ms a step")
+    check(traced_per is None or traced_per == want, f"19(c) kernels per replay {traced_per}")
+    per_call["packed + blocked step"] = traced_per
+    del trainer, state
+    collect_graphs()
+    print(f"[{card}] 19(c) took {time.time() - t0:.1f} s")
+
+    # (e) the device-augmented step
+    t0 = time.time()
+    collect_graphs("19(e)")
+    diffs = eager_vs_captured(cfg32, batch, AUG_JIT_STEPS, "(e) device-augmented f32 step", card,
+                              device_global_augment=True, aug_seed=SEED)
+    check(not diffs, f"19(e) the captured device-augmented step differs in {sorted(set(diffs))}")
+    print(f"[{card}] 19(e) took {time.time() - t0:.1f} s")
+
+    # (f) the apps through the captured paths
+    t0 = time.time()
+    collect_graphs("19(f)")
+    root = Path(tempfile.mkdtemp(prefix="det3d-jit-"))
+    try:
+        for c in counters.values():
+            c.launches = 0
+        summary = train_app.train(cfg.replace(batch_size=TRAIN_BATCH), max_steps=APP_STEPS, display_step=2,
+                                  save_step=10 ** 9, eval_step=APP_STEPS, eval_frames=APP_EVAL_FRAMES, synthetic=True,
+                                  model_dir=str(root / "model"))
+        app_launches = {k: c.launches for k, c in counters.items()}
+        check(summary["steps"] == APP_STEPS and summary["trainer"].train_step_jit.captures == 1, "19(f) train_app")
+        print(f"[{card}] (f) train --synthetic through train_step_jit: ms/step by window of 2 "
+              f"{[round(v, 3) for v in summary['ms_per_step']]} (the host draws each synthetic scene); waited for "
+              f"batches {[round(w * 1e3, 3) for w in summary['batch_wait_s']]} ms; eval {summary['eval_s'][0]:.3f} s; "
+              f"wrapper launches {app_launches}; beside it, phase 12's app (captured too; a dataset, 2 workers) "
+              f"{[round(v, 3) for v in base['app_ms']]}")
+        want = {k: 0 for k in counters}
+        want.update({name: CAPTURE_LAUNCHES for name in TRAIN_COUNTERS})
+        want.update(scatter_fwd=2 * CAPTURE_LAUNCHES, nms=CAPTURE_LAUNCHES)
+        check(app_launches == want, f"19(f) train_app launches {app_launches}, expected {want}")
+        del summary
+        collect_graphs()
+        avg = {}
+        for b in (1, INFER_BATCH):
+            r = infer_app.infer(cfg, synthetic=True, num_frames=APP_FRAMES, range_thresholds=(80.0,), batch=b)
+            avg[b] = r["avg_ms"]
+            check(len(r["dt_annos"]) == APP_FRAMES and "Metric: 3d" in r["eval_strs"][0], f"19(f) infer batch {b}")
+        print(f"[{card}] (f) infer through infer_jit / infer_batch_jit, synthetic, bf16: ms/frame batch 1 "
+              f"{avg[1]:.3f}, batch {INFER_BATCH} {avg[INFER_BATCH]:.3f}; beside them, phase 13's infer_app (captured "
+              f"too) {base['infer_app']}")
+        collect_graphs()
+        det = Detector(cfg).init_weights(SEED)
+        stats = serve_app.serve_synthetic(cfg, frames=SERVE_FRAMES, hz=SERVE_HZ,
+                                          server=serve_app.PointCloudServer(cfg, detector=det))
+        check(stats.submitted == SERVE_FRAMES and len(stats) + stats.dropped == SERVE_FRAMES, "19(f) serve counts")
+        check(det.infer_jit.captures == 1, "19(f) serve captured once")
+        print(f"[{card}] (f) serve_synthetic through infer_jit, {SERVE_HZ} Hz: {latency_line(stats)}; beside it, "
+              f"phase 13's live eager serve: {base['serve_live']}")
+        del det
+        collect_graphs()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[{card}] 19(f) took {time.time() - t0:.1f} s")
+
+    # (g) ntusl_10cm, captured
+    t0 = time.time()
+    collect_graphs("19(g)")
+    cfg10 = load_config("configs/ntusl_10cm.json", max_points=120_000)
+    trainer = Trainer(cfg10)
+    state = trainer.init_state(SEED)
+    batch10 = host_batch(cfg10, train_scenes(cfg10, SEED))
+    r = timed_steps(lambda b: trainer.train_step_jit(state, b), batch10, R1_STEPS, 1)
+    traced_per, device, _ = profiled_frames(lambda b: trainer.train_step_jit(state, b), [batch10] * 2)
+    r.update(device=device, per_call=traced_per, syncs=len(count_syncs(lambda: trainer.train_step_jit(state, batch10))))
+    print(step_line(card, f"(g) ntusl_10cm captured step, batch 2, bf16 ({R1_STEPS} steps after the capture)", r))
+    check(traced_per is None or traced_per == train_calls, f"19(g) kernels per replay {traced_per}")
+    per_call["10 cm step"] = traced_per
+    del trainer, state
+    collect_graphs()
+    print(f"[{card}] 19(g) took {time.time() - t0:.1f} s")
+    return per_call
+
+
 def small_config():
     """A 32x32-grid geometry with the default 9 anchors per location."""
     from det3d_tpu_torch.config import load_config
@@ -3166,7 +3567,7 @@ def main() -> int:
     print(f"launches on the main path: {launches}")
     for name, n in launches.items():
         check(n == run["n"], f"{name} kernel launched {n} times over {run['n']} frames")
-    syncs = [count_syncs(lambda: det.detect(frames[i])) for i in (1, 2, 3)]
+    syncs = [count_syncs(lambda: eager_detect(det)(frames[i])) for i in (1, 2, 3)]
     print(f"host-card synchronisations in each of 3 detects: {[len(x) for x in syncs]}; in the first: "
           f"{', '.join(f'{k} x{v}' for k, v in sorted(collections.Counter(syncs[0]).items()))}")
     print("stage breakdown, median ms (synchronized after each stage):")
@@ -3407,6 +3808,14 @@ def main() -> int:
     phase("18. cell-id-ordered voxelization (Detector(fcfs=False), ntusl_20cm, bf16, at full width)")
     cellid_launches = run_cell_id_order(cfg, card)
 
+    phase("19. the compiled entry points: infer_jit, train_step_jit, eval_step_jit as CUDA graphs (ntusl_20cm)")
+    live_serve = np.asarray(deploy["serve_live"]["latencies"]) * 1e3
+    jit_per_call = run_compiled(cfg, frames, batch, card, dict(
+        step_base, frame_peak=frame_peak, step_syncs=step_syncs, app_ms=app_stats["ms_per_step"],
+        infer_app={k: round(v, 3) for k, v in deploy["infer"].items()},
+        serve_live=f"p50 {np.percentile(live_serve, 50):.3f} ms, p95 {np.percentile(live_serve, 95):.3f} ms, "
+                   f"dropped {deploy['serve_live']['dropped']}"))
+
     kernels = [
         {
             "name": "scatter_to_bev", "route": "cuda",
@@ -3489,6 +3898,7 @@ def main() -> int:
         k["tune_launches"] = {path: n[app_keys[k["name"]]] for path, n in tune_launches.items()}
         k["cellid_launches"] = {path: n.get({"scatter_to_bev": "scatter", "nms_keep": "nms"}.get(k["name"]), 0)
                                 for path, n in cellid_launches.items()}
+        k["jit_launches_per_call"] = {path: None if n is None else n[k["name"]] for path, n in jit_per_call.items()}
     phase(None)
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

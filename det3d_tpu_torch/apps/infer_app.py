@@ -8,10 +8,12 @@ rotated-IoU matrices computed once and shared across the sweep. Frames of
 a dataset are read by `DetectionDataset.iter_points_native` (the native
 loader's threads where its library builds).
 
-`batch > 1` runs chunks of `batch` frames through `Detector.infer_batch`
-(the network once at that batch, NMS once per chunk), the JAX app's
-`jax.vmap` path on one device; `exported` runs an exported artifact
-(`deploy.runtime.infer_exported`). With a data-parallel `mesh`
+A frame runs through `Detector.infer_jit` (one captured CUDA graph a
+frame on the card), as the JAX app's `det.infer_jit`. `batch > 1` runs
+chunks of `batch` frames through `Detector.infer_batch_jit` (the network
+once at that batch, NMS once per chunk, one graph), the JAX app's
+`jax.jit(jax.vmap(...))` path on one device; `exported` runs an exported
+artifact (`deploy.runtime.infer_exported`). With a data-parallel `mesh`
 (`torchrun ... infer --batch B`), each chunk is sharded over the ranks by
 `parallel/mesh.make_sharded_infer` (each rank's slice through its own
 `infer_batch`, the detections gathered in frame order), over the first
@@ -183,10 +185,11 @@ def infer(
 def _run_frames(det, frames, timers: StageTimers):
     """One frame at a time → (annos, timed seconds, timed frames, the
     first frame)."""
+    infer = det.infer_fn
     dt_annos, total, first = [], 0.0, None
     for i, (pts, n) in enumerate(frames):
         t0 = time.perf_counter()
-        out = block_until_ready(det.infer(torch.from_numpy(pts).to(det.device), int(n)))
+        out = block_until_ready(infer(pts, n))
         dt = time.perf_counter() - t0
         if i == 0:
             first = (pts, n)
@@ -196,7 +199,7 @@ def _run_frames(det, frames, timers: StageTimers):
         dt_annos.append(to_annos(det.cfg, out))
     if len(dt_annos) == 1:
         t0 = time.perf_counter()
-        block_until_ready(det.infer(torch.from_numpy(first[0] + np.float32(1e-3)).to(det.device), int(first[1])))
+        block_until_ready(infer(first[0] + np.float32(1e-3), first[1]))
         total = time.perf_counter() - t0
         timers.add("e2e", total)
     return dt_annos, total, max(len(dt_annos) - 1, 1), first
@@ -210,7 +213,7 @@ def _run_batched(det, frames, batch: int, timers: StageTimers, sharded=None):
     def run(pts, cnt):
         if sharded is not None:
             return sharded(pts, cnt)
-        return det.infer_batch(torch.from_numpy(pts).to(det.device), torch.from_numpy(cnt).to(det.device))
+        return det.infer_batch_jit(pts, cnt)
 
     dt_annos, total, timed, first = [], 0.0, 0, None
     frames = list(frames)

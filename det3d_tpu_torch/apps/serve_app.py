@@ -10,9 +10,9 @@ synthetic scenes at a fixed rate, `serve_replay` from a directory of `.bin`
 frames, and a ROS subscriber would call `server.submit(points)`
 (`make_ros_node`, where `rospy` is installed).
 
-The detector is the live `Detector` (its `infer`, by default) or an
-exported artifact (`infer_fn=ExportedDetector(...).infer`, one CUDA-graph
-replay a frame on the card).
+The detector is the live `Detector` (its `infer_jit`, by default, one
+CUDA-graph replay a frame on the card, as the JAX app's `infer_jit`) or an
+exported artifact (`infer_fn=ExportedDetector(...).infer`, likewise).
 
 `spatial` (a spatial group, `serve --spatial`): each frame's network is
 split along x over the group's ranks (`parallel/mesh.make_spatial_infer`).
@@ -47,7 +47,7 @@ class ServeStats(list):
 class PointCloudServer:
     """Bounded-queue streaming inference (reference ros_node.py:52-83).
     `infer_fn(padded points (max_points, C) numpy, n)` → Detections; by
-    default the live `detector`'s `infer` on its device."""
+    default the live `detector`'s `infer_fn` (its `infer_jit`) on its device."""
 
     def __init__(self, cfg: Config, *, detector=None, queue_size: int = 2, infer_fn=None):
         if detector is None and infer_fn is None:
@@ -91,11 +91,11 @@ class PointCloudServer:
         return self._infer_fn if self._infer_fn is not None else self._live_infer
 
     def _live_infer(self, points: np.ndarray, num_points):
-        det = self.detector
-        return det.infer(torch.from_numpy(points).to(det.device), int(num_points))
+        return self.detector.infer_fn(points, num_points)
 
     def warmup(self) -> None:
-        """One empty frame through the detector (the kernels' build)."""
+        """One empty frame through the detector (the kernels' build; the
+        live detector's capture of its graph)."""
         pts = np.zeros((self.cfg.max_points, self.cfg.num_point_features), np.float32)
         to_annos(self.cfg, self.infer_fn(pts, np.int32(0)))
 

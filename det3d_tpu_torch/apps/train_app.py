@@ -5,9 +5,11 @@ Counterpart of the JAX package's apps/train_app.py (reference
 train.py:23-162): an endless step loop, running precision / recall printed
 every `display_step`, a checkpoint (`latest.pth` + `<step>.pth`) every
 `save_step`, and an in-training evaluation with the official mAP appended
-to `log.txt` every `eval_step`. The step is `Trainer.train_step` on the
-trainer's device: voxelization, the anchor mask and target assignment run
-there, so the host only reads, augments and pads.
+to `log.txt` every `eval_step`. The step is `Trainer.train_step_jit` on
+the trainer's device (one captured CUDA graph a step on the card, the JAX
+app's `train_step_jit`), and the eval `Trainer.eval_step_jit`:
+voxelization, the anchor mask and target assignment run there, so the
+host only reads, augments and pads.
 
 Data sources, with the JAX app's seeds, so that a seed gives its batches:
   * real: info pickles through `DetectionDataset` and `BatchPrefetcher`
@@ -113,9 +115,9 @@ def run_eval(trainer: Trainer, samples, gt_annos, range_thresh: float = 80.0) ->
 
     cfg = trainer.cfg
     dt_annos = []
-    for s in samples:
+    for s in samples:  # the compiled eval forward, as the JAX app's
         pts, n = trainer.detector.pad_points(s["points"])
-        dt_annos.append(to_annos(cfg, trainer.eval_step(pts, n)))
+        dt_annos.append(to_annos(cfg, trainer.eval_step_jit(pts, n)))
     _, eval_str = get_official_eval_result(gt_annos, dt_annos, list(cfg.detect_class), range_thresh,
                                            device=trainer.device)
     return eval_str
@@ -183,7 +185,6 @@ def train(
         state = Trainer.override_lr(restored, cfg.learning_rate)
         if lead:
             print(f"resumed from step {state.step} (lr={cfg.learning_rate})")
-    step_fn = trainer.train_step
     if hybrid is not None:
         state = replicated(hybrid.world, trainer, state)
         step_fn = hybrid_step
@@ -194,6 +195,8 @@ def train(
         step_fn = make_sharded_train_step(trainer, mesh)
         if lead:
             print(f"data-parallel over {world} ranks ({mesh.backend}), {cfg.batch_size // world} samples each")
+    else:
+        step_fn = trainer.train_step_jit  # one captured graph a step on the card, as the JAX app's
 
     metrics = RunningMetrics()
     batches = _batch_iterator(cfg, synthetic, seed, device_augment, shard)
@@ -203,7 +206,10 @@ def train(
     t0 = time.perf_counter()
     step = start = state.step
     # counts and losses stay on the device until display time: a per-step
-    # fetch would make the host wait for the card every step
+    # fetch would make the host wait for the card every step. The captured
+    # step's outputs are its graph's buffers, which the next step
+    # overwrites: the counts are kept as clones (device copies, no sync),
+    # and the loss is read at display time, before the next step
     pending_counts = []
     try:
         while step < max_steps:
@@ -213,7 +219,7 @@ def train(
             state, loss_dict, counts = step_fn(state, batch)
             step += 1
             if lead:
-                pending_counts.append(counts)
+                pending_counts.append({k: v.clone() for k, v in counts.items()})
 
             if lead and step % display_step == 0:
                 for c in pending_counts:

@@ -7,15 +7,16 @@ needs the config (host-side padding and annos) and the kernel ops
 model code: `ExportedDetector` imports neither `models` nor `pipeline`.
 The weights are loaded once and stay on the device.
 
-On the card the runtime runs the program once to warm it up (the kernels'
-build, cuDNN's first calls) and captures it as ONE CUDA graph over static
-buffers: the points (max_points, C) float32, the count () int32 and the
-Detections. `infer` copies a frame into those buffers from pinned host
-memory and replays the graph: one host dispatch per frame, the counterpart
-of the JAX runtime's `jax.jit(deserialize(...).call)`. A capture that
-fails raises; nothing falls back to running the program op by op. On the
-CPU (and with `cuda_graph=False`, to measure what the graph saves) the
-program's module runs op by op.
+On the card the runtime runs the program twice to warm it up (the
+kernels' build, cuDNN's first calls) and captures it as ONE CUDA graph
+over static buffers (`utils.graphs.CapturedCall`): the points
+(max_points, C) float32, the count () int32 and the Detections. `infer`
+copies a frame into those buffers from pinned host memory and replays the
+graph: one host dispatch per frame, the counterpart of the JAX runtime's
+`jax.jit(deserialize(...).call)`. A capture that fails raises; nothing
+falls back to running the program op by op. On the CPU (and with
+`cuda_graph=False`, to measure what the graph saves) the program's module
+runs op by op.
 """
 
 from __future__ import annotations
@@ -32,9 +33,8 @@ from det3d_tpu_torch.deploy.export import CONFIG, PROGRAM
 from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda  # noqa: F401  (register the det3d ops)
 from det3d_tpu_torch.postprocess import Detections, to_annos
 from det3d_tpu_torch.utils.device import resolve_device
+from det3d_tpu_torch.utils.graphs import CapturedCall
 from det3d_tpu_torch.utils.npmath import pad_cloud
-
-WARMUP_CALLS = 2
 
 
 def read_config(artifact_dir: str | Path) -> Config:
@@ -61,31 +61,22 @@ class ExportedDetector:
         if exported_on != {self.device.type}:
             raise ValueError(f"{self.dir} was exported for {sorted(exported_on)}, not {self.device.type}")
         self.module = program.module()
-        self.graph = None
+        self.call = None
         if self.device.type == "cuda" and cuda_graph:
             self._capture()
 
     def _capture(self) -> None:
         """Warm up on a side stream, then capture one CUDA graph of the
-        program over static input and output buffers."""
+        program over static input and output buffers; the runner keeps it
+        only if the capture succeeds."""
         shape = (self.cfg.max_points, self.cfg.num_point_features)
-        self._points = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        self._count = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._host_points = torch.zeros(shape, dtype=torch.float32).pin_memory()
-        self._host_count = torch.zeros((), dtype=torch.int32).pin_memory()
-        self._copied = torch.cuda.Event()
-        with torch.no_grad():
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_CALLS):
-                    self.module(self._points, self._count)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._outputs = self.module(self._points, self._count)
-        self.graph = graph
-        self._copied.record()
+        call = CapturedCall(torch.no_grad()(self.module), self.device)
+        call.capture(torch.zeros(shape), torch.zeros((), dtype=torch.int32))
+        self.call = call
+
+    @property
+    def graph(self) -> torch.cuda.CUDAGraph | None:
+        return None if self.call is None else self.call.graph
 
     def pad_points(self, points: np.ndarray) -> tuple[np.ndarray, np.int32]:
         """Pad/truncate a host point cloud to the static (max_points, C)."""
@@ -97,17 +88,10 @@ class ExportedDetector:
         on the device. Under a CUDA graph the Detections are the graph's
         output buffers, which the next `infer` overwrites."""
         points = torch.as_tensor(points, dtype=torch.float32)
-        if self.graph is None:
-            count = torch.as_tensor(num_points, dtype=torch.int32)
+        count = torch.as_tensor(num_points, dtype=torch.int32)
+        if self.call is None:
             return Detections(*self.module(points.to(self.device), count.to(self.device)))
-        self._copied.synchronize()  # the previous frame's copies have left the pinned buffers
-        self._host_points.copy_(points)
-        self._host_count.fill_(int(num_points))
-        self._points.copy_(self._host_points, non_blocking=True)
-        self._count.copy_(self._host_count, non_blocking=True)
-        self._copied.record()
-        self.graph.replay()
-        return Detections(*self._outputs)
+        return Detections(*self.call(points, count))
 
     def detect(self, points: np.ndarray) -> dict:
         """Host-facing: raw numpy point cloud → annos dict."""

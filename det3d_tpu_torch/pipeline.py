@@ -7,7 +7,11 @@ voxelization, the anchor mask, the network and post-processing run on the
 detector's device with no host round trip until `detect` formats the
 result. PyTorch runs eagerly, so the stages are plain method calls; the two
 CUDA kernels (the BEV scatter of the config's layout, NMS) each launch once
-per frame on the card, or once per batch in `infer_batch`.
+per frame on the card, or once per batch in `infer_batch`. The compiled
+entry points, `infer_jit` and `infer_batch_jit`, capture the same module
+as one CUDA graph (one per batch size) and replay it, the JAX detector's
+`infer_jit` and `jax.jit(jax.vmap(infer))`; `detect` goes through
+`infer_jit`, as the JAX detector's does.
 
 With a spatial group (`Detector(cfg, spatial=mesh)`,
 `parallel/mesh.make_spatial_infer`) the network's scatter, RPN and head
@@ -24,6 +28,8 @@ exported program run the same code.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -36,6 +42,7 @@ from det3d_tpu_torch.ops.voxelize import VoxelizedFrame, VoxelizerSpec, grid_ten
 from det3d_tpu_torch.parallel.spatial import SpatialPlan
 from det3d_tpu_torch.postprocess import Detections, PostProcessor, PostProcessParams, frame_preds, to_annos
 from det3d_tpu_torch.utils.device import resolve_device
+from det3d_tpu_torch.utils.graphs import CapturedCall
 from det3d_tpu_torch.utils.npmath import pad_cloud
 
 __all__ = ["Detector", "DetectorModule", "resolve_device"]
@@ -137,6 +144,7 @@ class Detector:
         self.spatial = plan
         self.model = self.module.model
         self.postprocess = self.module.postprocess
+        self._batch_jits: dict[int, CapturedInfer] = {}
 
     # -- weights -----------------------------------------------------------
     def init_weights(self, seed: int) -> "Detector":
@@ -177,13 +185,66 @@ class Detector:
         runs once at batch B and NMS once for the batch."""
         return Detections(*self.module.forward_batch(points, num_points))
 
+    # -- the compiled entry points -----------------------------------------
+    @functools.cached_property
+    def infer_jit(self) -> "CapturedInfer":
+        """`infer(points, num_points)` as one captured CUDA graph on the
+        card, op by op on the CPU (`utils.graphs.CapturedCall`): the JAX
+        detector's `infer_jit`. It replays the config's scatter and NMS's
+        two launches with the rest of the frame, reads the weights in place
+        (so it sees every update and `load_state_dict`), and returns
+        Detections in its own buffers, which the next call overwrites. A
+        spatial detector's collectives run eagerly: it has no `infer_jit`."""
+        if self.spatial is not None:
+            raise NotImplementedError("a spatial detector is not captured (ROADMAP.md, the sharded paths' "
+                                      "graphs): call infer")
+        return CapturedInfer(self.module.forward, self.device)
+
+    def infer_batch_jit(self, points, num_points) -> Detections:
+        """`infer_batch` as captured CUDA graphs, one per batch size (the JAX
+        app's `jax.jit(jax.vmap(det.infer))`): points (B, max_points, C)
+        and counts (B,), on the host or the device; Detections with a
+        leading frame axis, in the graph's buffers."""
+        b = int(points.shape[0])
+        if b not in self._batch_jits:
+            self._batch_jits[b] = CapturedInfer(self.module.forward_batch, self.device)
+        return self._batch_jits[b](points, num_points)
+
     # -- host conveniences -------------------------------------------------
     def pad_points(self, points: np.ndarray) -> tuple[np.ndarray, np.int32]:
         """Pad/truncate a host point cloud to the static (max_points, C)."""
         return pad_cloud(points, self.cfg.max_points)
 
+    @property
+    def infer_fn(self):
+        """The frame function every caller of a frame uses (`detect`, the
+        infer, serve and train apps' eval): `infer_jit`, or for a spatial
+        detector, whose collectives run eagerly, `infer` on the points moved
+        to its device. Called as `infer_jit` is: (points, num_points) on the
+        host or the device → Detections."""
+        return self.infer_jit if self.spatial is None else self._infer_on_device
+
+    def _infer_on_device(self, points, num_points) -> Detections:
+        return self.infer(torch.as_tensor(points, device=self.device), int(num_points))
+
     def detect(self, points: np.ndarray) -> dict:
-        """Host-facing: raw numpy point cloud → annos dict."""
+        """Host-facing: raw numpy point cloud → annos dict, through
+        `infer_fn` (`infer_jit`, as the JAX detector's `detect`)."""
         padded, n = self.pad_points(points)
-        det = self.infer(torch.from_numpy(padded).to(self.device), int(n))
-        return to_annos(self.cfg, det)
+        return to_annos(self.cfg, self.infer_fn(padded, n))
+
+
+class CapturedInfer:
+    """A detector function of (points, counts) → Detections as a
+    `CapturedCall` under `torch.no_grad()`, the counts as int32 buffers (0-d
+    for one frame, (B,) for a batch)."""
+
+    def __init__(self, fn, device):
+        self.call = CapturedCall(torch.no_grad()(fn), device)
+
+    @property
+    def captures(self) -> int:
+        return self.call.captures
+
+    def __call__(self, points, num_points) -> Detections:
+        return Detections(*self.call(points, torch.as_tensor(num_points, dtype=torch.int32)))

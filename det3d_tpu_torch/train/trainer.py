@@ -10,6 +10,9 @@ statistics, the `TrainState` the optimizer's moments, step and lr, and
 `train_step` returns the state it was given, updated. On the card the
 step launches the matcher's two kernels once (all samples and classes),
 the scatter's forward and backward kernels once each, and the fence once.
+`train_step_jit` is the same step as one captured CUDA graph, replayed
+with one host dispatch (`CapturedTrainStep`; the JAX trainer's jitted,
+donating step), and `eval_step_jit` the detector's captured frame.
 
 `Trainer(device_global_augment=True)` runs the global augmentation
 (flip, rotation, scaling, translation) inside the step on the device, as
@@ -39,7 +42,9 @@ that a spatial group draws one transform.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -56,6 +61,7 @@ from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.postprocess import Detections
 from det3d_tpu_torch.targets import TargetAssignment, make_target_assigner
 from det3d_tpu_torch.train.metrics import binary_counts
+from det3d_tpu_torch.utils.graphs import CapturedCall
 
 MAX_GRAD_NORM = 10.0
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -86,6 +92,45 @@ class TrainState:
 def _bias_correction(decay: float, count: int) -> float:
     # 1 - decay**count in float32, as optax computes it
     return float(np.float32(1.0) - np.power(np.float32(decay), np.float32(count)))
+
+
+def fill_adam_scalars(scalars: list[torch.Tensor], step: int, lr: float) -> None:
+    """Step `step`'s two bias corrections (float32 on the host, as optax
+    computes them) and -lr into three 0-d tensors. `fill_` passes a host
+    scalar as a kernel argument: no copy and no sync, and a captured update
+    reads each step's values from the same tensors."""
+    for t, value in zip(scalars, (_bias_correction(ADAM_B1, step), _bias_correction(ADAM_B2, step), -lr)):
+        t.fill_(value)
+
+
+@torch.no_grad()
+def clip_and_adam(params: list[torch.Tensor], mu: list[torch.Tensor], nu: list[torch.Tensor],
+                  scalars: list[torch.Tensor]) -> None:
+    """Clip the parameters' `.grad` by global norm in optax's form (g if
+    norm < 10 else g / norm * 10, written as g / d * m with d, m = 1 or
+    norm, 10, so no host sync), then Adam with optax's order of operations
+    (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) on the moments in place, then
+    params += update; `scalars` from `fill_adam_scalars`. Device ops only."""
+    bias1, bias2, neg_lr = scalars
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < MAX_GRAD_NORM
+    grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))  # p.grad stays as it was
+    torch._foreach_mul_(grads, torch.where(keep, 1.0, MAX_GRAD_NORM))
+
+    torch._foreach_mul_(mu, ADAM_B1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - ADAM_B1))
+    sq = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(sq, 1 - ADAM_B2)
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_add_(nu, sq)
+    mu_hat = torch._foreach_div(mu, bias1)
+    denom = torch._foreach_div(nu, bias2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, ADAM_EPS)
+    updates = torch._foreach_div(mu_hat, denom)
+    torch._foreach_mul_(updates, neg_lr)
+    torch._foreach_add_(params, updates)
 
 
 def augment_seed(aug_seed: int, step: int, rank: int | None = None) -> int:
@@ -172,15 +217,16 @@ class Trainer:
         yaw = geometry.limit_period(gt_boxes[..., 6:], period=2 * math.pi)
         return points, torch.cat([gt_boxes[..., :6], yaw], dim=-1), gt_valid & keep.reshape(gt_valid.shape)
 
-    def prepare(self, batch: TrainBatch, step: int = 0,
-                rank: int | None = None) -> tuple[VoxelizedFrame, TargetAssignment]:
+    def prepare(self, batch: TrainBatch, step: int = 0, rank: int | None = None,
+                aug: dict | None = None) -> tuple[VoxelizedFrame, TargetAssignment]:
         """(The global augmentation of step `step`, where the trainer applies
-        it, drawn for `rank` in a data-parallel step, then) per sample
-        voxelize + anchor mask, then one target assignment for the stacked
-        batch (trainer.py:124-161 of the JAX package)."""
+        it, drawn for `rank` in a data-parallel step, or with the draws
+        `aug`, then) per sample voxelize + anchor mask, then one target
+        assignment for the stacked batch (trainer.py:124-161 of the JAX
+        package)."""
         points, gt_boxes, gt_valid = batch.points, batch.gt_boxes, batch.gt_valid
         if self.device_global_augment:
-            params = self.augment_params(step, points.shape[0], rank)
+            params = aug if aug is not None else self.augment_params(step, points.shape[0], rank)
             points, gt_boxes, gt_valid = self.device_augment(points, gt_boxes, gt_valid, params)
         frames, masks = [], []
         for i in range(points.shape[0]):
@@ -201,35 +247,38 @@ class Trainer:
         loss_dict = detection_loss(preds, tgt.labels, tgt.bbox_targets, tgt.dir_targets)
         return loss_dict, preds
 
-    @torch.no_grad()
     def apply_gradients(self, state: TrainState) -> TrainState:
-        """Clip by global norm in optax's form (g if norm < 10 else
-        g / norm * 10, written as g / d * m with d, m = 1 or norm, 10, so no
-        host sync), then Adam with optax's order of operations (b1 0.9,
-        b2 0.999, eps 1e-8, eps_root 0), then params += update."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        keep = norm < MAX_GRAD_NORM
-        grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))  # p.grad stays as it was
-        torch._foreach_mul_(grads, torch.where(keep, 1.0, MAX_GRAD_NORM))
-
+        """One optimizer update from the parameters' `.grad`: the state's
+        step advances, its bias corrections and -lr go into three 0-d
+        tensors (`fill_adam_scalars`), then `clip_and_adam` on its moments.
+        The captured step launches the same kernels, its three tensors
+        filled before each replay."""
         state.step += 1
-        torch._foreach_mul_(state.mu, ADAM_B1)
-        torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - ADAM_B1))
-        sq = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(sq, 1 - ADAM_B2)
-        torch._foreach_mul_(state.nu, ADAM_B2)
-        torch._foreach_add_(state.nu, sq)
-        mu_hat = torch._foreach_div(state.mu, _bias_correction(ADAM_B1, state.step))
-        denom = torch._foreach_div(state.nu, _bias_correction(ADAM_B2, state.step))
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, ADAM_EPS)
-        updates = torch._foreach_div(mu_hat, denom)
-        torch._foreach_mul_(updates, -state.lr)
-        torch._foreach_add_(self.params, updates)
+        scalars = [torch.empty((), dtype=self.params[0].dtype, device=self.params[0].device) for _ in range(3)]
+        fill_adam_scalars(scalars, state.step, state.lr)
+        clip_and_adam(self.params, state.mu, state.nu, scalars)
         return state
 
     # -- the step ----------------------------------------------------------
+    def augment_draws(self, step: int, batch, rank: int | None = None) -> dict | None:
+        """The step's global-augmentation parameters where the trainer
+        applies it, else None."""
+        return self.augment_params(step, batch.points.shape[0], rank) if self.device_global_augment else None
+
+    def forward_backward(self, batch: TrainBatch, aug: dict | None = None, mesh=None):
+        """prepare → forward and fence → loss → backward into the
+        parameters' `.grad` (set to None first) → (loss dict, metric
+        counts), on device tensors: the body that the eager and the
+        captured step share."""
+        frames, tgt = self.prepare(batch, aug=aug)
+        loss_dict, preds = self.forward_loss(frames, tgt, mesh)
+        for p in self.params:
+            p.grad = None
+        loss_dict["loss"].backward()
+        with torch.no_grad():
+            metrics = binary_counts(tgt.labels, preds["cls_preds"])
+        return {k: v.detach() for k, v in loss_dict.items()}, metrics
+
     def train_step(self, state: TrainState, batch: TrainBatch, mesh=None):
         """One optimizer step → (state, loss dict, metric counts). With
         `mesh` (a `parallel.mesh.DataMesh`), the per-rank body of a
@@ -241,14 +290,8 @@ class Trainer:
         hybrid step (see the module docstring)."""
         data = mesh.data if isinstance(mesh, HybridMesh) else mesh
         batch = self.to_device(batch)
-        frames, tgt = self.prepare(batch, state.step, None if data is None else data.rank)
-        loss_dict, preds = self.forward_loss(frames, tgt, data)
-        for p in self.params:
-            p.grad = None
-        loss_dict["loss"].backward()
-        with torch.no_grad():
-            metrics = binary_counts(tgt.labels, preds["cls_preds"])
-        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        aug = self.augment_draws(state.step, batch, None if data is None else data.rank)
+        loss_dict, metrics = self.forward_backward(batch, aug, data)
         if isinstance(mesh, HybridMesh):
             pmean_gradients(self.params, mesh.world, mesh.dp)
         elif mesh is not None:
@@ -258,6 +301,13 @@ class Trainer:
         self.apply_gradients(state)
         return state, loss_dict, metrics
 
+    @functools.cached_property
+    def train_step_jit(self) -> "CapturedTrainStep":
+        """`train_step(state, batch)` as one captured CUDA graph on the card
+        (op by op on the CPU): the JAX trainer's `jax.jit(train_step,
+        donate_argnums=(0,))`. See `CapturedTrainStep`."""
+        return CapturedTrainStep(self)
+
     # -- eval forward (for the in-training eval loop) -----------------------
     def eval_step(self, points, num_points) -> Detections:
         """Inference of one padded frame (max_points, C) on the trainer's
@@ -265,6 +315,78 @@ class Trainer:
         takes its mode from `train=`, never from `module.training`, so an
         eval between two steps leaves the next step as it was."""
         return self.detector.infer(torch.as_tensor(points, device=self.device), int(num_points))
+
+    @property
+    def eval_step_jit(self):
+        """The compiled eval forward: the detector's `infer_fn`, its
+        `infer_jit` (the JAX trainer's `eval_step_jit`, trainer.py:254-266;
+        a spatial trainer's eager `infer`). The graph reads the parameters
+        and running statistics in place, so it sees every update of the
+        train step, eager or captured."""
+        return self.detector.infer_fn
+
+
+class CapturedTrainStep:
+    """`Trainer.train_step_jit`: `train_step(state, batch)` without a mesh,
+    as one `utils.graphs.CapturedCall` over static buffers — the batch's
+    upload, `prepare`, forward and fence, the loss, the backward into the
+    parameters' `.grad` (graph-pool tensors after the capture) and the clip
+    and Adam on the moments — with the live model's parameters and running
+    statistics read and updated in place.
+
+    The graph owns the moments of the first state it is given: a state
+    whose moments are other tensors (a restored checkpoint, `init_state`)
+    is copied into them in place and never recaptured, as JAX's donated
+    state is chained forward; the returned state holds the owned moments.
+    The step count and lr stay on the host: before each replay the step's
+    bias corrections and -lr are filled into three 0-d device tensors, and
+    with `device_global_augment` the step's draws are made outside the
+    graph (`Trainer.augment_params`, a generator seeded per step) and
+    copied into static inputs. The loss dict and metric counts are the
+    graph's buffers, overwritten by the next call."""
+
+    def __init__(self, trainer: Trainer):
+        # the trainer caches this callable: a strong reference back would
+        # make a cycle that keeps the graph's pool until the collector runs
+        self._trainer = weakref.ref(trainer)
+        self.mu: list[torch.Tensor] | None = None
+        self.nu: list[torch.Tensor] | None = None
+        self.call: CapturedCall | None = None
+        self.scalars = [torch.zeros((), dtype=trainer.params[0].dtype, device=trainer.device) for _ in range(3)]
+
+    @property
+    def captures(self) -> int:
+        return 0 if self.call is None else self.call.captures
+
+    def __call__(self, state: TrainState, batch: TrainBatch, mesh=None):
+        t = self._trainer()
+        if mesh is not None or t.detector.spatial is not None:
+            raise NotImplementedError("train_step_jit runs one process: a data-parallel or spatial step is not "
+                                      "captured yet (ROADMAP.md, the sharded steps' graphs); call train_step with "
+                                      "the mesh")
+        if self.call is None:
+            self.mu, self.nu = state.mu, state.nu
+            body = functools.partial(_captured_body, self._trainer, self.mu, self.nu, self.scalars)
+            self.call = CapturedCall(body, t.device, preserve=[*t.params, *t.model.buffers(), *self.mu, *self.nu])
+        elif not all(a is b for a, b in zip(state.mu + state.nu, self.mu + self.nu)):
+            with torch.no_grad():
+                for owned, given in zip(self.mu + self.nu, state.mu + state.nu):
+                    owned.copy_(given)
+            state = dataclasses.replace(state, mu=self.mu, nu=self.nu)
+        aug = t.augment_draws(state.step, batch)
+        state.step += 1
+        fill_adam_scalars(self.scalars, state.step, state.lr)
+        loss_dict, metrics = self.call(TrainBatch(*batch), *(() if aug is None else (aug,)))
+        return state, loss_dict, metrics
+
+
+def _captured_body(trainer_ref, mu, nu, scalars, batch: TrainBatch, aug: dict | None = None):
+    """The captured step's function: it holds no `CapturedTrainStep`, so
+    the callable and its graph go as soon as the trainer does."""
+    trainer = trainer_ref()
+    loss_dict, metrics = trainer.forward_backward(batch, aug)
+    clip_and_adam(trainer.params, mu, nu, scalars)
+    return loss_dict, metrics
 
 
 def _no_fence(x: torch.Tensor) -> torch.Tensor:

@@ -4,12 +4,12 @@ write a tuned config JSON.
 The port's counterpart of the JAX package's tune.py, with its six levers,
 their candidates and modes, its workload and its greedy protocol:
 
-  inference-path levers (measured on `Detector.infer`):
+  inference-path levers (measured on `Detector.infer_jit`):
     pack_w          w-parity packed network on the space-to-depth canvas
     fuse_in_stats   upsample-branch Gram InstanceNorm statistics
     block0_blocked  blocked-halo canvas + batch-over-blocks block0
     split_head      per-parity neck emission + two half-width head calls
-  train-path levers (measured on `Trainer.train_step`):
+  train-path levers (measured on `Trainer.train_step_jit`):
     pack_w          (the same packing in the train step)
     block0_blocked_train  blocked-halo block0 in the train step
     late_blocked_train    blocks 1-2 batch-over-row-blocks in the train step
@@ -41,10 +41,10 @@ Where the port differs, and why:
   * on the card a window's time is its device time, the sum of the
     card's kernel, memset and copy spans in a torch.profiler trace over the
     window, divided by its frames or steps: the host clock moves by ±15 %
-    between calls and the eager frame leaves the card 50-75 % idle
-    (PERF.md), while the deployed path (`deploy/runtime.py`, one CUDA
-    graph a frame) pays no host launch cost; each trial also records the
-    host clock's ms of an unprofiled window beside it. On the CPU the host
+    between calls (PERF.md), and the trials replay captured graphs
+    (`infer_jit`, `train_step_jit`), which pay no host launch cost a
+    lever could change; each trial also records the host clock's ms of an
+    unprofiled window beside it. On the CPU the host
     clock is the only time. Each mode keeps the best of its windows (3 for
     inference, 2 for training), as the JAX tuner does;
   * the default output is `<config>_torch_tuned.json`, beside the JAX
@@ -141,8 +141,9 @@ def _infer_inputs(cfg: Config, num_clouds: int = 6):
 
 
 def measure_infer(cfg: Config, iters: int, windows: int = 3, device=None) -> dict:
-    """ms/frame of `Detector.infer` on clouds already on the device, best
-    window → {ms, device_ms, host_ms}."""
+    """ms/frame of `Detector.infer_jit` (the JAX tuner's `det.infer_jit`)
+    on clouds already on the device, best window → {ms, device_ms,
+    host_ms}."""
     from det3d_tpu_torch.pipeline import Detector
 
     device = resolve_device(device)
@@ -151,9 +152,9 @@ def measure_infer(cfg: Config, iters: int, windows: int = 3, device=None) -> dic
     clouds = [torch.from_numpy(c).to(device) for c in host_clouds]
 
     def frame(i):
-        return det.infer(clouds[i % len(clouds)], n)
+        return det.infer_jit(clouds[i % len(clouds)], n)
 
-    frame(0)  # warm-up
+    frame(0)  # warm-up and capture
     out = _windows(frame, iters, windows, device)
     del det, clouds
     _free(device)
@@ -161,8 +162,9 @@ def measure_infer(cfg: Config, iters: int, windows: int = 3, device=None) -> dic
 
 
 def measure_train(cfg: Config, iters: int, windows: int = 2, device=None) -> dict:
-    """ms/step of `Trainer.train_step` over four batches already on the
-    device, best window → {ms, device_ms, host_ms}."""
+    """ms/step of `Trainer.train_step_jit` (the JAX tuner's
+    `train_step_jit`) over four batches already on the device, the state
+    chained forward, best window → {ms, device_ms, host_ms}."""
     from det3d_tpu_torch.data.synthetic import sample_scene
     from det3d_tpu_torch.train.trainer import Trainer, host_batch
 
@@ -174,9 +176,9 @@ def measure_train(cfg: Config, iters: int, windows: int = 2, device=None) -> dic
                for _ in range(4)]
 
     def step(i):
-        return trainer.train_step(state, batches[i % len(batches)])
+        return trainer.train_step_jit(state, batches[i % len(batches)])
 
-    step(0)  # warm-up
+    step(0)  # warm-up and capture
     out = _windows(step, iters, windows, device)
     del trainer, state, batches
     _free(device)
