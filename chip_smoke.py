@@ -117,45 +117,61 @@ Phases, each printed as it runs; any failure exits non-zero:
      steps. Every number beside the card's name and power limit.
  15. data parallelism (`parallel/mesh.py`), each group of ranks in
      processes of its own (spawn, a file:// rendezvous in a temporary
-     directory, a rank alive after DP_TIMEOUT_S fails the phase): (a) a
-     world-1 NCCL group on cuda:0, phase 7's step (ntusl_20cm, bf16, batch
-     2, the same weights and batch) through `make_sharded_train_step`
-     against the plain step, 3 steps each from fresh trainers, bit for bit
-     (cuDNN deterministic for both; two plain runs bit-equal too), then
-     ms/step, device ms, peak memory, host-card syncs, collectives and
-     kernel launches per step of each; (b) two gloo ranks sharing the card
-     (NCCL refuses two ranks on one card), f32, batch 1 each, 2 steps
-     against one process at batch 2 at phase 8's tolerances, once with the
-     kernels on both ranks and once with rank 1 on the plain versions
-     (the two runs must agree too), then a third step of each run, of the
-     one process and of the one process with its samples swapped, its
-     ratios to those bounds printed and not gated (F1); ms/step per rank,
-     launches per rank;
-     (c) `make_sharded_infer` of 4 frames over those two ranks against
-     `Detector.infer_batch` at batch 4 in one process, NMS calls per rank;
-     (d) `train_app.train` on the world-1 NCCL group, 3 steps and a save,
-     rank 0's checkpoint restored bit-equal. Each kernel row of the kernels
-     line gains `dp_launches` (launches per path and rank).
+     directory, a rank alive after DP_TIMEOUT_S fails the phase, the
+     world-1 process after W1_TIMEOUT_S): (a) a world-1 NCCL group on
+     cuda:0, cuDNN deterministic: 3 f32 steps of the captured
+     `make_sharded_train_step` (one CUDA graph a step, its all-reduces
+     inside) against the eager body (`Trainer.train_step(..., mesh=)`) in
+     lockstep, bit for bit; then phase 7's step (ntusl_20cm, bf16, batch
+     2, the same weights and batch) plain, eager data-parallel and
+     captured, each twice in turns, 3 steps each from fresh trainers (the
+     plain and the eager data-parallel runs bit for bit; two plain runs
+     bit-equal too), then ms/step, device ms, busy share, peak memory, the
+     reserve each holds (a graph's pool), host-card syncs, collectives a
+     step (the port's count) and NCCL and hand-written kernels a step (the
+     profiler), wrapper launches per step; (b) two gloo ranks sharing the
+     card (NCCL refuses two ranks on one card; gloo on a card runs the
+     eager forms by name: no graph captures it), f32, batch 1 each, 2
+     steps against one process at batch 2 at phase 8's tolerances, once
+     with the kernels on both ranks and once with rank 1 on the plain
+     versions (the two runs must agree too), then a third step of each
+     run, of the one process and of the one process with its samples
+     swapped, its ratios to those bounds printed and not gated (F1);
+     ms/step per rank, launches per rank; (c) `make_sharded_infer`'s eager
+     body over 4 frames on those two ranks against `Detector.infer_batch`
+     at batch 4 in one process, NMS calls per rank; (d) `train --synthetic`
+     (`train_app.train`) on the world-1 NCCL group through the captured
+     step, 3 steps and a save, rank 0's checkpoint restored bit-equal; (e)
+     the captured `make_sharded_infer` of 4 frames on the world-1 group
+     against `Detector.infer_batch` bit for bit, and `infer --batch 4`
+     (`infer_app.infer`) on it. Each kernel row of the kernels line gains
+     `dp_launches` (launches per path and rank).
  16. the spatial modes (`parallel/spatial.py`, `make_spatial_infer`,
      `make_spatial_train`), each group of ranks in processes of its own as
      in phase 15: (a) a world-1 NCCL group, cuDNN deterministic: in f32,
-     8 frames of `make_spatial_infer` against the plain detector (phase
-     5's tolerances, bit-equal frames counted) and 3 steps of
-     `make_spatial_train` on the (1, 1) grid against the plain step
-     (phase 8's), collectives per frame and per step; in bf16 each path
-     timed beside the plain one (ms, device ms and busy share, peak,
-     launches; a detect's host-card syncs, equal to the plain one's, and
-     its host self time split by the profiler); (b) two gloo ranks sharing the card, sp = 2: the slab
-     scatter and its backward bit-equal to the full canvas's rows (f32,
-     bf16), 4 f32 frames against one process (valid equal, scores 2e-3,
-     boxes 5e-3 / 1e-2), 3 f32 steps at (1, 2) against one process
+     8 frames of the eager spatial frame against the plain detector (phase
+     5's tolerances, bit-equal frames counted) and the captured
+     `make_spatial_infer` against the eager frame bit for bit; 3 steps of
+     the eager (1, 1) hybrid step against the plain step (phase 8's) and
+     the captured `make_spatial_train` against the eager step in
+     lockstep, bit for bit; collectives per frame and per step of each
+     form; in bf16 each path timed in turns (plain, eager, captured,
+     eager, captured: ms, device ms and busy share, peak, the reserve held,
+     launches, syncs, collectives, NCCL and hand-written kernels per call;
+     the eager frames' host self time split by the profiler); (b) two gloo
+     ranks sharing the card, sp = 2, through the eager forms by name: the
+     slab scatter and its backward bit-equal to the full canvas's rows
+     (f32, bf16), 4 f32 frames against one process (valid equal, scores
+     2e-3, boxes 5e-3 / 1e-2), 3 f32 steps at (1, 2) against one process
      (phase 15(b)'s rule over its 2 steps, gradients by norm; the third
      measured, printed beside 15(b)'s third steps), each rank's peak
-     beside the one process's,
-     launches and collectives per rank; (c) ntusl_10cm at (1, 2) on the
-     two gloo ranks, bf16, batch 2, 2 steps: each rank's peak against the
-     one-process 12 129 428 480 bytes of phase 14(d) (PERF.md). Each
-     kernel row gains `spatial_launches`.
+     beside the one process's, launches and collectives per rank; (c)
+     ntusl_10cm at (1, 2) on the two gloo ranks, bf16, batch 2, 2 steps:
+     each rank's peak against the one-process 12 129 428 480 bytes of
+     phase 14(d) (PERF.md). Each kernel row gains `spatial_launches`, and
+     `sharded_jit_launches_per_call` (kernels per replay of the captured
+     data-parallel step, sharded inference, spatial frame and hybrid step,
+     from the profiler).
  17. the viewer's device pieces and tune (ntusl_20cm, bf16): (a) the nine
      3D-box and camera functions of ops/geometry.py on the card against
      the CPU on seeded inputs at KITTI's calibration (rtol 1e-5, atol 1e-4,
@@ -313,6 +329,7 @@ F1_STEP = DP_GLOO_STEPS + 1  # ... and one more, measured against phase 15(b)'s 
 DP_INFER_FRAMES = 4   # phase 15(c): frames of the sharded infer_batch
 DP_APP_STEPS = 3      # phase 15(d): train_app steps at world 1, one save
 DP_TIMEOUT_S = 120.0  # a rank still alive after this fails the phase
+W1_TIMEOUT_S = 300.0  # ... for phase 15's world-1 process, which also runs the captured paths
 SP_FRAMES_W1 = 8      # phase 16(a): frames of make_spatial_infer on a world-1 NCCL group
 SP_STEPS = 3          # phase 16(a) and (b): hybrid steps at batch 2
 SP_FRAMES_GLOO = 4    # phase 16(b): frames of make_spatial_infer over two gloo ranks
@@ -1509,6 +1526,14 @@ def profiled_frames(fn, clouds) -> tuple[dict[str, float] | None, float | None, 
     trace holds none of them) and the device ms (the card's kernel, memset
     and memcpy spans summed; None without device events); and the names of
     the hand-written kernels it saw."""
+    return profiled_calls(fn, clouds)[:3]
+
+
+def profiled_calls(fn, clouds) -> tuple[dict[str, float] | None, float | None, list[str], dict[str, float]]:
+    """`profiled_frames`, and the NCCL events on the card per call by name:
+    NCCL's kernels (none where a one-rank group runs a collective as a
+    copy) and the `nccl:` spans that an eager collective records (a replay
+    runs no host code, so records none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1517,10 +1542,12 @@ def profiled_frames(fn, clouds) -> tuple[dict[str, float] | None, float | None, 
             fn(c)
         torch.cuda.synchronize()
     launches = {(k, p): 0 for k, patterns in PROFILER_KERNELS.items() for p in patterns}
-    busy, names = 0.0, set()
+    busy, names, nccl = 0.0, set(), collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             busy += e.time_range.elapsed_us() / 1e3
+            if "nccl" in e.name.lower():
+                nccl[e.name.split("(")[0]] += 1
             for k, p in launches:
                 found = re.search(p, e.name)
                 if found:
@@ -1532,7 +1559,8 @@ def profiled_frames(fn, clouds) -> tuple[dict[str, float] | None, float | None, 
         check(len(counts) == 1, f"the kernels of one {k} call launched unequal times: {counts}")
         calls[k] = counts.pop() / len(clouds)
     per_frame = calls if names else None
-    return per_frame, (busy / len(clouds) if busy else None), sorted(names)
+    return (per_frame, (busy / len(clouds) if busy else None), sorted(names),
+            {k: v / len(clouds) for k, v in nccl.items()})
 
 
 def detections_equal(got, want, what: str) -> bool:
@@ -2033,11 +2061,14 @@ def same_bits(a: dict, b: dict) -> list[str]:
     return bad + (["step"] if a["step"] != b["step"] else [])
 
 
-def dp_timed_steps(step, state, batch, mesh) -> dict:
+def dp_timed_steps(step, state, batch, mesh, start: int) -> dict:
     """DP_TIMED_STEPS calls of `step` after the checked ones, the launch
     counters set to 0 just before and read just after: ms/step, peak memory,
     launches and collectives per step, host-card syncs of one more step, the
-    profiler's device ms per step."""
+    profiler's device ms, hand-written kernels and NCCL events per step,
+    and the bytes the run holds reserved over `start` (the reserve before
+    its trainer was made: a captured step's graph pool and static
+    buffers)."""
     counters = train_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2055,23 +2086,52 @@ def dp_timed_steps(step, state, batch, mesh) -> dict:
                    if n != before.get(k, 0)}
     peak = torch.cuda.max_memory_allocated()
     syncs = count_syncs(lambda: step(state, batch))
-    traced = profile_device_time(lambda: step(state, batch), 3)
+    per_call, device, _, nccl = profiled_calls(lambda b: step(state, b), [batch] * 3)
+    torch.cuda.empty_cache()
     return dict(ms=statistics.median(times), min=min(times), max=max(times), peak=peak, launches=launches,
-                collectives=collectives, syncs=len(syncs), device=None if traced is None else traced[0])
+                collectives=collectives, syncs=len(syncs), device=device, per_call=per_call, nccl=nccl,
+                held=torch.cuda.memory_reserved() - start)
+
+
+def lockstep_steps(make, batch, n: int) -> list[list[str]]:
+    """The eager and the captured form of one step from `make(captured)` →
+    (trainer, state, step fn), n steps of each in lockstep on `batch`: what
+    differed after each step, by name (`step_snapshot`, `differing`)."""
+    (te, se, eager), (tc, sc, captured) = make(False), make(True)
+    diffs = []
+    for _ in range(n):
+        se, le, ce = eager(se, batch)
+        want = step_snapshot(te, se, le, ce)
+        sc, lc, cc = captured(sc, batch)
+        diffs.append(differing(step_snapshot(tc, sc, lc, cc), want))
+        del want
+    return diffs
 
 
 def dp_world1_child(out_dir: str) -> None:
-    """Phase 15(a) and (d), in a process of its own: a world-1 NCCL group on
-    cuda:0. (a) phase 7's step (ntusl_20cm, bf16, batch 2, the same weights
-    and batch) plain, through `make_sharded_train_step`, and plain again,
-    each DP_STEPS steps from a fresh trainer and then timed; cuDNN
-    deterministic, so that two plain runs are bit-equal at all. (d) `train_app.train` on the
-    group, a save, the checkpoint restored into a fresh trainer."""
+    """Phase 15(a), (d) and (e), in a process of its own: a world-1 NCCL
+    group on cuda:0, cuDNN deterministic, so that two plain runs are
+    bit-equal at all. (a) phase 7's step (ntusl_20cm, bf16, batch 2, the
+    same weights and batch) plain, the eager data-parallel body
+    (`Trainer.train_step(..., mesh=)`), the captured data-parallel step
+    (`make_sharded_train_step`), and each again, DP_STEPS steps from a
+    fresh trainer and then timed; first DP_STEPS f32 steps of the captured
+    step against the eager body in lockstep, bit for bit. (d)
+    `train_app.train` on the group (its captured step), a save, the
+    checkpoint restored into a fresh trainer. (e) the captured
+    `make_sharded_infer` of DP_INFER_FRAMES frames against
+    `Detector.infer_batch`, bit for bit, and `infer_app.infer` at batch
+    INFER_BATCH on the group."""
+    import gc
+
     import torch.distributed as dist
 
+    from det3d_tpu_torch.apps import infer_app
     from det3d_tpu_torch.apps.train_app import train
     from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.data.synthetic import synthetic_cloud
     from det3d_tpu_torch.parallel import mesh as pm
+    from det3d_tpu_torch.pipeline import Detector
     from det3d_tpu_torch.train.checkpoint import CheckpointManager
     from det3d_tpu_torch.train.trainer import Trainer, host_batch
 
@@ -2080,25 +2140,35 @@ def dp_world1_child(out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = Path(out_dir)
     cfg = load_config("configs/ntusl_20cm.json", max_points=120_000)
+    cfg32 = cfg.replace(compute_dtype="float32")
     batch = host_batch(cfg, train_scenes(cfg, SEED))
     mesh = pm.make_mesh(device="cuda:0", rank=0, world_size=1, init_method=f"file://{out}/rendezvous-a")
     result = {"backend": mesh.backend, "device": str(mesh.device)}
     try:
-        for name in ("plain", "data-parallel", "plain again"):
-            trainer = Trainer(cfg)
-            state = trainer.init_state(SEED)
-            step = trainer.train_step
-            if name == "data-parallel":
-                state = pm.replicated(mesh, trainer, state)
-                step = pm.make_sharded_train_step(trainer, mesh)
+        def make(captured: bool, config=cfg32):
+            trainer = Trainer(config)
+            state = pm.replicated(mesh, trainer, trainer.init_state(SEED))
+            step = pm.make_sharded_train_step(trainer, mesh) if captured else \
+                functools.partial(trainer.train_step, mesh=mesh)
+            return trainer, state, step
+
+        result["f32 captured vs eager"] = lockstep_steps(make, host_batch(cfg32, train_scenes(cfg32, SEED)), DP_STEPS)
+        collect_graphs()
+        for name in ("plain", "data-parallel", "captured", "plain again", "data-parallel again", "captured again"):
+            start = torch.cuda.memory_reserved()
+            if name.startswith("plain"):
+                trainer = Trainer(cfg)
+                state, step = trainer.init_state(SEED), trainer.train_step
+            else:
+                trainer, state, step = make(name.startswith("captured"), cfg)
             losses = []
             for _ in range(DP_STEPS):
                 state, loss, _ = step(state, batch)
                 losses.append(float(loss["loss"]))
             result[name] = dict(dp_state(trainer, state), losses=losses)
-            result[name].update(dp_timed_steps(step, state, batch, mesh))
-            del trainer, state, step
-            torch.cuda.empty_cache()
+            result[name].update(dp_timed_steps(step, state, batch, mesh, start))
+            del trainer, state, step, loss
+            collect_graphs()
         counters = train_counters()
         for c in counters.values():
             c.launches = 0
@@ -2109,9 +2179,34 @@ def dp_world1_child(out_dir: str) -> None:
         restored = CheckpointManager(out / "app", readonly=True).restore_latest(fresh)
         result["app"] = dict(ms_per_step=summary["ms_per_step"], launches=launches, steps=summary["steps"],
                              files=sorted(p.name for p in (out / "app").iterdir()),
+                             captures=summary["trainer"].train_step_jit.captures,
                              restored=same_bits(dp_state(summary["trainer"], summary["state"]),
                                                 dp_state(fresh, restored)))
+        del summary, fresh, restored
+        collect_graphs()
+
+        det = Detector(cfg).init_weights(SEED)
+        points = np.stack([synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + i) for i in range(DP_INFER_FRAMES)])
+        num_points = np.full(DP_INFER_FRAMES, N_POINTS, np.int32)
+        infer = pm.make_sharded_infer(det, mesh)
+        before = pm.collective_counts(mesh)
+        got = [t.clone() for t in infer(points, num_points)]
+        collectives = counts_delta(before, pm.collective_counts(mesh))
+        want = det.infer_batch(torch.from_numpy(points).cuda(), torch.from_numpy(num_points).cuda())
+        per_call, device, _, nccl = profiled_calls(lambda _: infer(points, num_points), [None] * 2)
+        result["infer"] = dict(bit_equal=all(torch.equal(a, b) for a, b in zip(got, want)), collectives=collectives,
+                               captures=[c.captures for c in infer.captured.values()], per_call=per_call,
+                               device=device, nccl=nccl)
+        del det, infer, got, want
+        collect_graphs()
+        app = infer_app.infer(cfg, synthetic=True, num_frames=APP_FRAMES, range_thresholds=(80.0,),
+                              batch=INFER_BATCH, mesh=mesh)
+        result["infer_app"] = dict(avg_ms=app["avg_ms"], frames=len(app["dt_annos"]),
+                                   evaluated="Metric: 3d" in app["eval_strs"][0])
+        del app
     finally:
+        gc.collect()  # every captured graph goes before the communicator its kernels use
+        torch.cuda.synchronize()
         dist.destroy_process_group()
     with open(out / "world1.pkl", "wb") as f:
         pickle.dump(result, f)
@@ -2192,9 +2287,11 @@ def dp_gloo_child(rank: int, out_dir: str) -> None:
     samples swapped, and holds both runs against the first (`dp_compare`:
     the runs against each other elementwise, against the one process by
     norm). Every run takes one step more, F1_STEP, whose ratios to the
-    bounds are measured and not gated. (c) `make_sharded_infer` of
-    DP_INFER_FRAMES frames, two a rank, held by rank 0 against
-    `Detector.infer_batch` of all four in one process."""
+    bounds are measured and not gated. (c) `make_sharded_infer`'s eager
+    body of DP_INFER_FRAMES frames, two a rank, held by rank 0 against
+    `Detector.infer_batch` of all four in one process. A gloo group on a
+    card runs the eager forms by name (`Trainer.train_step(..., mesh=)`,
+    `eager_sharded_infer`): no CUDA graph captures its collectives."""
     import hashlib
 
     import torch.distributed as dist
@@ -2225,7 +2322,7 @@ def dp_gloo_child(rank: int, out_dir: str) -> None:
                 use_plain_scatters(trainer.model)
                 trainer.fence = fence_cuda.fence_copy_plain
             state = pm.replicated(mesh, trainer, trainer.init_state(SEED))
-            step = pm.make_sharded_train_step(trainer, mesh)
+            step = functools.partial(trainer.train_step, mesh=mesh)  # gloo on a card: the eager body
             local = pm.shard_batch(mesh, batch)
             torch.cuda.synchronize()
             for c in counters.values():
@@ -2273,7 +2370,7 @@ def dp_gloo_child(rank: int, out_dir: str) -> None:
         clouds = [synthetic_cloud(cfg32.max_points, N_POINTS, seed=SEED + i) for i in range(DP_INFER_FRAMES)]
         points = np.stack(clouds)
         num_points = np.full(DP_INFER_FRAMES, N_POINTS, np.int32)
-        infer = pm.make_sharded_infer(det, mesh)
+        infer = eager_sharded_infer(det, mesh)
         infer(points, num_points)  # warm-up
         torch.cuda.synchronize()
         for c in counters.values():
@@ -2304,6 +2401,22 @@ def dp_gloo_child(rank: int, out_dir: str) -> None:
         pickle.dump(result, f)
 
 
+def eager_sharded_infer(det, mesh):
+    """`make_sharded_infer`'s body, eager: `Detector.infer_batch` on this
+    rank's slice of host arrays and the three gathers (a gloo group on the
+    card, which no CUDA graph captures)."""
+    from det3d_tpu_torch.parallel import mesh as pm
+    from det3d_tpu_torch.postprocess import Detections
+
+    def infer(points: np.ndarray, num_points: np.ndarray):
+        sl = pm.local_slice(mesh, len(points))
+        out = det.infer_batch(torch.from_numpy(points[sl]).cuda(), torch.from_numpy(num_points[sl]).cuda())
+        return Detections(mesh.all_gather(out.boxes), mesh.all_gather(out.scores),
+                          mesh.all_gather(out.valid.to(torch.uint8)).bool())
+
+    return infer
+
+
 def run_ranks(procs, what: str, timeout: float = DP_TIMEOUT_S) -> None:
     """Start the ranks' processes and join them within `timeout` seconds; a
     rank still alive then is killed, and it or a non-zero exit fails the
@@ -2325,16 +2438,18 @@ def run_ranks(procs, what: str, timeout: float = DP_TIMEOUT_S) -> None:
                 p.join(10)
 
 
-def run_data_parallel(card: str, base: dict) -> tuple[dict, dict]:
-    """Phase 15: (a) and (d) in one process, then (b) and (c) in two, each
-    group's ranks spawned with a file:// rendezvous in a temporary
+def run_data_parallel(card: str, base: dict) -> tuple[dict, dict, dict]:
+    """Phase 15: (a), (d) and (e) in one process, then (b) and (c) in two,
+    each group's ranks spawned with a file:// rendezvous in a temporary
     directory; prints every result beside phase 7's numbers in `base` and
     checks them → the launches of each path per rank, for the kernels line,
-    and (b)'s ungated F1_STEP ratios."""
+    (b)'s ungated F1_STEP ratios, and the kernels per replay of the
+    captured step and sharded inference (profiler)."""
     ctx = multiprocessing.get_context("spawn")
     root = Path(tempfile.mkdtemp(prefix="det3d-dp-"))
     try:
-        run_ranks([ctx.Process(target=dp_world1_child, args=(str(root),))], "(a)/(d) world 1, NCCL")
+        run_ranks([ctx.Process(target=dp_world1_child, args=(str(root),))], "(a)/(d)/(e) world 1, NCCL",
+                  W1_TIMEOUT_S)
         with open(root / "world1.pkl", "rb") as f:
             w1 = pickle.load(f)
         run_ranks([ctx.Process(target=dp_gloo_child, args=(r, str(root))) for r in range(2)],
@@ -2346,39 +2461,71 @@ def run_data_parallel(card: str, base: dict) -> tuple[dict, dict]:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    plain, again, dp = w1["plain"], w1["plain again"], w1["data-parallel"]
+    plain, again, dp, cap = w1["plain"], w1["plain again"], w1["data-parallel"], w1["captured"]
     print(f"[{card}] (a) world 1, {w1['backend']} on {w1['device']}: loss by step, plain {plain['losses']}, "
-          f"data-parallel {dp['losses']}")
+          f"data-parallel {dp['losses']}, captured {cap['losses']}")
     check(not same_bits(plain, again), f"(a) two plain runs differ: {same_bits(plain, again)[:5]}")
     differ = same_bits(plain, dp)
     check(not differ, f"(a) the world-1 step differs from the plain step in {differ[:5]}")
-    print(f"[{card}] (a) after {DP_STEPS} steps the data-parallel weights, batch statistics, Adam moments and step "
-          f"equal the plain step's bit for bit (cuDNN deterministic; two plain runs bit-equal too)")
-    for name, run in (("plain", plain), ("data-parallel", dp), ("plain again", again)):
-        device = "not measured" if run["device"] is None else f"{run['device']:.3f} ms"
+    print(f"[{card}] (a) after {DP_STEPS} steps the eager data-parallel weights, batch statistics, Adam moments and "
+          f"step equal the plain step's bit for bit (cuDNN deterministic; two plain runs bit-equal too)")
+    f32 = w1["f32 captured vs eager"]
+    print(f"[{card}] (a) f32, the captured make_sharded_train_step against the eager body in lockstep, "
+          f"{DP_STEPS} steps: bit-equal after every step {[not d for d in f32]} (losses, counts, parameters, running "
+          f"statistics, moments); bf16 after {DP_STEPS} steps: {not same_bits(cap, dp)}")
+    check(not any(f32), f"(a) the captured f32 step differs from the eager one in {f32}")
+    for name in ("plain", "data-parallel", "captured", "plain again", "data-parallel again", "captured again"):
+        run = w1[name]
+        device = "not measured" if run["device"] is None else \
+            f"{run['device']:.3f} ms ({100 * run['device'] / run['ms']:.1f} % busy)"
         print(f"[{card}] (a) {name}: ms/step median {run['ms']:.3f} (min {run['min']:.3f}, max {run['max']:.3f}) "
-              f"over {DP_TIMED_STEPS} steps; device {device}; peak {run['peak']} bytes; host-card syncs of a step "
-              f"{run['syncs']}; collectives per step {run['collectives']}")
+              f"over {DP_TIMED_STEPS} steps; device {device}; peak {run['peak']} bytes; held reserved "
+              f"{run['held']} bytes; host-card syncs of a step {run['syncs']}; collectives per step "
+              f"{run['collectives']}; NCCL events per step (profiler) {run['nccl']}; hand-written kernels per step "
+              f"(profiler) {run['per_call']}")
     print(f"[{card}] (a) beside them, phase 7's step in this run: ms/step median {base['step_ms']:.3f}, "
           f"device {base['step_device']}, peak {base['step_peak']} bytes")
     want = {k: 1.0 for k in TRAIN_COUNTERS}
     want["nms"] = 0.0
-    print(f"[{card}] (a) kernel launches per step, world 1: {dp['launches']}")
+    print(f"[{card}] (a) kernel launches per step, world 1: eager {dp['launches']}; captured (wrappers: 0 in "
+          f"replays) {cap['launches']}")
     check(dp["launches"] == want, f"(a) launches per step {dp['launches']}, expected {want}")
-    check(dp["collectives"] == {"all_reduce": 7}, f"(a) collectives per step {dp['collectives']}")
+    check(not any(cap["launches"].values()), f"(a) a replay ran a wrapper: {cap['launches']}")
+    train_calls = {k: float(k in ("scatter_to_bev", "scatter_to_bev_bwd", "matcher_gt_max", "matcher_assign",
+                                  "fence_copy")) for k in PROFILER_KERNELS}
+    check(cap["per_call"] is None or cap["per_call"] == train_calls, f"(a) kernels per replay {cap['per_call']}")
+    for name in ("data-parallel", "captured", "data-parallel again", "captured again"):
+        check(w1[name]["collectives"] == {"all_reduce": 7}, f"(a) {name}: collectives per step "
+                                                            f"{w1[name]['collectives']}")
+    check(cap["syncs"] == 0, f"(a) the captured step synchronised {cap['syncs']} times")
     check(plain["collectives"] == {}, f"(a) the plain step issued collectives {plain['collectives']}")
 
     app = w1["app"]
-    print(f"[{card}] (d) train_app at world 1 ({w1['backend']}): {app['steps']} steps, ms/step "
-          f"{[round(v, 3) for v in app['ms_per_step']]}, files {app['files']}, launches {app['launches']}")
+    print(f"[{card}] (d) train --synthetic at world 1 ({w1['backend']}) through the captured step: {app['steps']} "
+          f"steps, ms/step {[round(v, 3) for v in app['ms_per_step']]}, files {app['files']}, captures "
+          f"{app['captures']}, launches {app['launches']} (the warm-up calls and the capture)")
     check(app["steps"] == DP_APP_STEPS and "latest.pth" in app["files"] and f"{DP_APP_STEPS}.pth" in app["files"],
           f"(d) steps {app['steps']}, files {app['files']}")
+    check(app["captures"] == 1, f"(d) {app['captures']} captures")
     check(not app["restored"], f"(d) the restored checkpoint differs in {app['restored'][:5]}")
-    want_app = {k: DP_APP_STEPS for k in TRAIN_COUNTERS}
+    want_app = {k: CAPTURE_LAUNCHES for k in TRAIN_COUNTERS}
     want_app["nms"] = 0
     check(app["launches"] == want_app, f"(d) launches {app['launches']}, expected {want_app}")
     print(f"[{card}] (d) rank 0's latest.pth restores into a fresh trainer bit-equal (weights, batch statistics, "
           "Adam moments, step)")
+    inf, iapp = w1["infer"], w1["infer_app"]
+    print(f"[{card}] (e) the captured make_sharded_infer of {DP_INFER_FRAMES} frames on the world-1 group against "
+          f"Detector.infer_batch: bit-equal {inf['bit_equal']}; collectives a call {inf['collectives']}; captures "
+          f"{inf['captures']}; device {inf['device']} ms a call; hand-written kernels per replay (profiler) "
+          f"{inf['per_call']}; NCCL events per replay (profiler) {inf['nccl']}")
+    print(f"[{card}] (e) infer --synthetic --batch {INFER_BATCH} on the world-1 group through the captured "
+          f"make_sharded_infer: {iapp['avg_ms']:.3f} ms/frame over {iapp['frames']} frames, evaluated "
+          f"{iapp['evaluated']}")
+    check(inf["bit_equal"], "(e) the captured sharded infer differs from infer_batch")
+    check(inf["collectives"] == {"all_gather": 3} and inf["captures"] == [1], f"(e) {inf}")
+    check(inf["per_call"] is None or inf["per_call"] == {k: float(v) for k, v in INFER_CALLS.items()},
+          f"(e) kernels per replay {inf['per_call']}")
+    check(iapp["frames"] == APP_FRAMES and iapp["evaluated"], f"(e) infer_app {iapp}")
 
     r0, r1 = gloo
     kernels_run, plain_run = "kernels on both ranks", "rank 1 on the plain versions"
@@ -2410,7 +2557,7 @@ def run_data_parallel(card: str, base: dict) -> tuple[dict, dict]:
         print(f"[{card}] (b) F1, measured and not gated: {name} vs one process, each over phase 15(b)'s bound for "
               f"that step: {fmt(worst)}")
 
-    print(f"[{card}] (c) make_sharded_infer over two gloo ranks, {DP_INFER_FRAMES} frames of {N_POINTS} points, "
+    print(f"[{card}] (c) make_sharded_infer's eager body over two gloo ranks, {DP_INFER_FRAMES} frames of {N_POINTS} points, "
           f"f32: detections {r0['infer']['shape']} on every rank; vs Detector.infer_batch at batch "
           f"{DP_INFER_FRAMES} in one process: {r0['infer']['vs one process']}")
     for r in (r0, r1):
@@ -2426,7 +2573,7 @@ def run_data_parallel(card: str, base: dict) -> tuple[dict, dict]:
         "(c) rank 0": r0["infer"]["launches"],
         "(c) rank 1": r1["infer"]["launches"],
         "(d) app, 3 steps": app["launches"],
-    }, r0["f1"]
+    }, r0["f1"], {"dp step": cap["per_call"], "sharded infer": inf["per_call"]}
 
 
 # --- phase 16: the spatial modes (each group of ranks in processes of its own) ---
@@ -2444,13 +2591,19 @@ def detection_arrays(d) -> tuple:
     return tuple(t.cpu().numpy() for t in d)
 
 
-def spatial_timed(fn, n: int, counters, counted=None) -> dict:
-    """`fn()` n times after one warm-up call, the launch counters set to 0
-    just before and read just after: ms per call (host clock around the
-    call + synchronize), peak memory, launches and collectives per call
-    (of `counted`, a mesh), the profiler's device ms per call."""
+def spatial_timed(fn, n: int, counters, counted=None, syncs: bool = True) -> dict:
+    """`fn()` n times after one warm-up call (a captured call's warm-up
+    calls and capture), the launch counters set to 0 just before and read
+    just after: ms per call (host clock around the call + synchronize),
+    peak memory, launches and collectives per call (of `counted`, a mesh),
+    the profiler's device ms, hand-written kernels and NCCL events per
+    call, with `syncs` the host-card syncs of one call, and the bytes held
+    reserved over those reserved before the warm-up (a captured call's
+    graph pool and static buffers)."""
     from det3d_tpu_torch.parallel import mesh as pm
 
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_reserved()
     fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2467,8 +2620,10 @@ def spatial_timed(fn, n: int, counters, counted=None) -> dict:
     out = dict(ms=statistics.median(times), min=min(times), max=max(times), n=n,
                peak=torch.cuda.max_memory_allocated(), launches={k: c.launches for k, c in counters.items()},
                collectives=collectives)
-    traced = profile_device_time(fn, 2)
-    out["device"] = None if traced is None else traced[0]
+    out["per_call"], out["device"], _, out["nccl"] = profiled_calls(lambda _: fn(), [None] * 2)
+    out["syncs"] = len(count_syncs(fn)) if syncs else None
+    torch.cuda.empty_cache()
+    out["held"] = torch.cuda.memory_reserved() - start
     return out
 
 
@@ -2503,11 +2658,18 @@ def spatial_steps(step, trainer, state, batch, n: int) -> list[dict]:
 
 def spatial_world1_child(out_dir: str) -> None:
     """Phase 16(a), in a process of its own: a world-1 NCCL group on
-    cuda:0, cuDNN deterministic. f32: `make_spatial_infer` against the
-    plain detector on SP_FRAMES_W1 frames (phase 5's tolerances), and
-    `make_spatial_train` on the (1, 1) grid against the plain step,
-    SP_STEPS steps at batch 2 (phase 8's); then bf16, each path timed in
-    turns (plain, spatial) with its launches and collectives."""
+    cuda:0, cuDNN deterministic. f32: the eager spatial `Detector.infer`
+    against the plain detector on SP_FRAMES_W1 frames (phase 5's
+    tolerances) and the captured `make_spatial_infer` against the eager
+    spatial frame, bit for bit; the eager (1, 1) hybrid step
+    (`Trainer.train_step(..., mesh=)`) against the plain step, SP_STEPS
+    steps at batch 2 (phase 8's), and the captured `make_spatial_train`
+    against the eager hybrid step in lockstep, bit for bit; then bf16,
+    each path timed in turns (plain, eager spatial, captured, eager
+    spatial, captured) with its launches, collectives, kernels per call and
+    the reserve it holds."""
+    import gc
+
     import torch.distributed as dist
 
     from det3d_tpu_torch.config import load_config
@@ -2530,25 +2692,36 @@ def spatial_world1_child(out_dir: str) -> None:
         det, infer = pm.make_spatial_infer(cfg32, mesh)
         det.init_weights(SEED)
         plain = Detector(cfg32).init_weights(SEED)
-        equal, per_frame = 0, []
+        equal, captured_equal, per_frame, captured_per_frame = 0, [], [], []
         for pts in clouds[1:]:
             before = pm.collective_counts(mesh)
+            eager = detection_arrays(det.infer(torch.from_numpy(pts).cuda(), N_POINTS))
+            middle = pm.collective_counts(mesh)
             got = detection_arrays(infer(pts, N_POINTS))
-            per_frame.append(counts_delta(before, pm.collective_counts(mesh)))
+            per_frame.append(counts_delta(before, middle))
+            captured_per_frame.append(counts_delta(middle, pm.collective_counts(mesh)))
+            captured_equal.append(all(np.array_equal(a, b) for a, b in zip(got, eager)))
             want = detection_arrays(plain.infer(torch.from_numpy(pts).cuda(), N_POINTS))
-            equal += detections_equal(got, want, "16(a) f32 spatial vs plain frame")
-        result["infer_f32"] = dict(bit_equal=equal, collectives=per_frame)
-        del det, plain
+            equal += detections_equal(eager, want, "16(a) f32 spatial vs plain frame")
+        result["infer_f32"] = dict(bit_equal=equal, collectives=per_frame, captured_equal=captured_equal,
+                                   captured_collectives=captured_per_frame, captures=det.infer_jit.captures)
+        del det, infer, plain
+        collect_graphs()
         batch = host_batch(cfg32, train_scenes(cfg32, SEED))
         hybrid = pm.make_hybrid_mesh(1, 1, device="cuda:0")
+
+        def make(captured: bool, config=cfg32):
+            trainer, step = pm.make_spatial_train(config, hybrid)
+            state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
+            return trainer, state, step if captured else functools.partial(trainer.train_step, mesh=hybrid)
+
         records = {}
         for name in ("plain", "spatial"):
             if name == "plain":
                 trainer = Trainer(cfg32)
                 state, step = trainer.init_state(SEED), trainer.train_step
             else:
-                trainer, step = pm.make_spatial_train(cfg32, hybrid)
-                state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
+                trainer, state, step = make(False)
             before = pm.collective_counts(hybrid)
             records[name] = spatial_steps(step, trainer, state, batch, SP_STEPS)
             result.setdefault("train_collectives", {})[name] = counts_delta(before, pm.collective_counts(hybrid))
@@ -2558,30 +2731,39 @@ def spatial_world1_child(out_dir: str) -> None:
                                    differ=same_bits(records["spatial"][-1], records["plain"][-1]),
                                    losses={k: [r["loss"]["loss"] for r in v] for k, v in records.items()})
         del records
-        torch.cuda.empty_cache()
+        collect_graphs()
+        result["train_f32"]["captured vs eager"] = lockstep_steps(make, batch, SP_STEPS)
+        collect_graphs()
 
-        for name in ("plain", "spatial"):
-            det = Detector(cfg) if name == "plain" else pm.make_spatial_infer(cfg, mesh)[0]
+        frames_iter = itertools.cycle(clouds)
+        for name in ("plain", "spatial", "captured", "spatial again", "captured again"):
+            if name == "plain":
+                det = Detector(cfg)
+                fn = lambda: det.infer(torch.from_numpy(next(frames_iter)).cuda(), N_POINTS)  # noqa: E731
+            else:
+                det, infer = pm.make_spatial_infer(cfg, mesh)
+                fn = (lambda: infer(next(frames_iter), N_POINTS)) if name.startswith("captured") else \
+                    (lambda: det.infer(torch.from_numpy(next(frames_iter)).cuda(), N_POINTS))
             det.init_weights(SEED)
-            frames_iter = itertools.cycle(clouds)
-            result[f"infer {name}"] = spatial_timed(lambda: det.infer(torch.from_numpy(next(frames_iter)).cuda(),
-                                                                      N_POINTS), SP_FRAMES_W1, counters, mesh)
-            detect = eager_detect(det)
-            result[f"infer {name}"].update(syncs=len(count_syncs(lambda: detect(clouds[1]))),
-                                           host=host_split(lambda: detect(next(frames_iter)), 3))
-            del det
+            result[f"infer {name}"] = spatial_timed(fn, SP_FRAMES_W1, counters, mesh)
+            if name in ("plain", "spatial"):
+                detect = eager_detect(det)
+                result[f"infer {name}"]["host"] = host_split(lambda: detect(next(frames_iter)), 3)
+            del det, fn
+            collect_graphs()
         batch = host_batch(cfg, train_scenes(cfg, SEED))
-        for name in ("plain", "spatial"):
+        for name in ("plain", "spatial", "captured", "spatial again", "captured again"):
             if name == "plain":
                 trainer = Trainer(cfg)
                 state, step = trainer.init_state(SEED), trainer.train_step
             else:
-                trainer, step = pm.make_spatial_train(cfg, hybrid)
-                state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
+                trainer, state, step = make(name.startswith("captured"), cfg)
             result[f"train {name}"] = spatial_timed(lambda: step(state, batch), SP_STEPS, counters, hybrid)
             del trainer, state, step
-            torch.cuda.empty_cache()
+            collect_graphs()
     finally:
+        gc.collect()  # every captured graph goes before the communicator its kernels use
+        torch.cuda.synchronize()
         dist.destroy_process_group()
     with open(out / "spatial-world1.pkl", "wb") as f:
         pickle.dump(result, f)
@@ -2630,7 +2812,9 @@ def spatial_gloo_child(rank: int, out_dir: str) -> None:
     then `make_spatial_train` at (1, 2), f32, batch 2, SP_STEPS steps, held
     by rank 0 against the one-process step (gradients by norm). (c)
     ntusl_10cm at (1, 2), bf16, batch 2: one warm-up step and SP10_STEPS
-    timed, each rank's peak."""
+    timed, each rank's peak. A gloo group on a card runs the eager forms
+    by name (`Detector.infer`, `Trainer.train_step(..., mesh=)`): no CUDA
+    graph captures its collectives."""
     import hashlib
 
     import torch.distributed as dist
@@ -2664,12 +2848,13 @@ def spatial_gloo_child(rank: int, out_dir: str) -> None:
             result["infer one process peak"] = torch.cuda.max_memory_allocated()
             del plain
             torch.cuda.empty_cache()
-        det, infer = pm.make_spatial_infer(cfg32, mesh)
+        det, _ = pm.make_spatial_infer(cfg32, mesh)
         det.init_weights(SEED)
         got = []
         frames_iter = itertools.cycle(clouds)
+        infer = lambda pts, n: det.infer(torch.from_numpy(pts).cuda(), n)  # noqa: E731  (gloo: the eager frame)
         result["infer"] = spatial_timed(lambda: got.append(detection_arrays(infer(next(frames_iter), N_POINTS))),
-                                        SP_FRAMES_GLOO, counters, mesh)
+                                        SP_FRAMES_GLOO, counters, mesh, syncs=False)  # gloo syncs on every op
         got = got[1:1 + SP_FRAMES_GLOO]  # the warm-up frame out, the profiler's frames out
         if rank == 0:
             verdicts = []
@@ -2707,7 +2892,8 @@ def spatial_gloo_child(rank: int, out_dir: str) -> None:
             del trainer, state
             torch.cuda.empty_cache()
         hybrid = pm.make_hybrid_mesh(1, 2, device="cuda:0")
-        trainer, step = pm.make_spatial_train(cfg32, hybrid)
+        trainer, _ = pm.make_spatial_train(cfg32, hybrid)
+        step = functools.partial(trainer.train_step, mesh=hybrid)  # gloo: the eager step
         state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2736,7 +2922,8 @@ def spatial_gloo_child(rank: int, out_dir: str) -> None:
 
         cfg10 = load_config("configs/ntusl_10cm.json", max_points=120_000)
         batch10 = host_batch(cfg10, train_scenes(cfg10, SEED))
-        trainer, step = pm.make_spatial_train(cfg10, hybrid)
+        trainer, _ = pm.make_spatial_train(cfg10, hybrid)
+        step = functools.partial(trainer.train_step, mesh=hybrid)
         state = pm.replicated(hybrid.world, trainer, trainer.init_state(SEED))
         step(state, batch10)
         torch.cuda.synchronize()
@@ -2760,12 +2947,13 @@ def spatial_gloo_child(rank: int, out_dir: str) -> None:
         pickle.dump(result, f)
 
 
-def run_spatial(card: str, base: dict) -> dict:
+def run_spatial(card: str, base: dict) -> tuple[dict, dict]:
     """Phase 16: (a) in one process, then (b) and (c) in two, each group's
     ranks spawned with a file:// rendezvous in a temporary directory;
     prints every result beside the numbers of phases 4 and 7 in `base` and
     checks them → the launches of each path per rank, for the kernels
-    line."""
+    line, and the kernels per replay of the captured frame and step
+    (profiler)."""
     ctx = multiprocessing.get_context("spawn")
     root = Path(tempfile.mkdtemp(prefix="det3d-spatial-"))
     try:
@@ -2787,41 +2975,63 @@ def run_spatial(card: str, base: dict) -> dict:
     per_step = {"spatial": {"all_gather": 2 * n_convs + 1, "all_reduce": 2 * n_norms}, "data": {"all_reduce": 6},
                 "world": {"all_reduce": 1}}
     inf = w1["infer_f32"]
-    print(f"[{card}] (a) world 1, {w1['backend']} on {w1['device']}, f32: make_spatial_infer vs the plain detector "
-          f"over {SP_FRAMES_W1} frames: {inf['bit_equal']} bit-equal, the rest within phase 5's tolerances; "
-          f"collectives per frame {inf['collectives'][0]}")
-    check(all(c == per_frame for c in inf["collectives"]), f"(a) collectives per frame {inf['collectives']}")
+    print(f"[{card}] (a) world 1, {w1['backend']} on {w1['device']}, f32: the eager spatial frame vs the plain "
+          f"detector over {SP_FRAMES_W1} frames: {inf['bit_equal']} bit-equal, the rest within phase 5's tolerances; "
+          f"collectives per frame {inf['collectives'][0]}; the captured make_spatial_infer vs the eager spatial "
+          f"frame: bit-equal {inf['captured_equal']}, collectives per frame {inf['captured_collectives'][0]}, "
+          f"captures {inf['captures']}")
+    check(all(c == per_frame for c in inf["collectives"] + inf["captured_collectives"]),
+          f"(a) collectives per frame {inf['collectives']}, captured {inf['captured_collectives']}")
+    check(all(inf["captured_equal"]) and inf["captures"] == 1, f"(a) the captured frame: {inf['captured_equal']}")
     tr = w1["train_f32"]
     fmt = lambda worst: ", ".join(f"{k} {v:.3f} ({at})" for k, (v, at) in worst.items())  # noqa: E731
-    print(f"[{card}] (a) f32 make_spatial_train (1, 1) vs the plain step, {SP_STEPS} steps at batch 2: loss "
+    print(f"[{card}] (a) f32 eager (1, 1) hybrid step vs the plain step, {SP_STEPS} steps at batch 2: loss "
           f"{tr['losses']}; bit-equal: {not tr['differ']}; worst of each over phase 8's bound: {fmt(tr['vs_plain'])}")
+    print(f"[{card}] (a) f32 captured make_spatial_train (1, 1) vs the eager hybrid step in lockstep, {SP_STEPS} "
+          f"steps: bit-equal after every step {[not d for d in tr['captured vs eager']]}")
     check(all(v <= 1.0 for v, _ in tr["vs_plain"].values()), f"(a) spatial step vs plain: {tr['vs_plain']}")
+    check(not any(tr["captured vs eager"]), f"(a) the captured hybrid step differs in {tr['captured vs eager']}")
     check(w1["infer spatial"]["syncs"] == w1["infer plain"]["syncs"],
-          f"(a) host-card syncs of a detect: spatial {w1['infer spatial']['syncs']}, plain {w1['infer plain']['syncs']}")
+          f"(a) host-card syncs of a frame: spatial {w1['infer spatial']['syncs']}, plain {w1['infer plain']['syncs']}")
     check(w1["train_collectives"]["spatial"] == {g: {k: n * SP_STEPS for k, n in d.items()}
                                                  for g, d in per_step.items()},
           f"(a) collectives {w1['train_collectives']}")
-    launches = {}
+    launches, replays = {}, {}
     for what, unit, n_want in (("infer", "frame", dict(scatter_fwd=1, nms=1)),
                                ("train", "step", dict(matcher_gt_max=1, matcher_assign=1, scatter_fwd=1,
                                                       scatter_bwd=1))):
-        for name in ("plain", "spatial"):
+        for name in ("plain", "spatial", "captured", "spatial again", "captured again"):
             run = w1[f"{what} {name}"]
             device = "not measured" if run["device"] is None else \
                 f"{run['device']:.3f} ms ({100 * run['device'] / run['ms']:.1f} % busy)"
             per = {k: v / run["n"] for k, v in run["launches"].items()}
             print(f"[{card}] (a) bf16 {what}, {name}: ms/{unit} median {run['ms']:.3f} (min {run['min']:.3f}, max "
-                  f"{run['max']:.3f}) over {run['n']}; device {device}; peak {run['peak']} bytes; launches per {unit} "
-                  f"{per}; collectives over the run {run['collectives']}")
-            if what == "infer":
-                print(f"[{card}] (a) bf16 detect, {name}: host-card syncs {run['syncs']}; host self CPU ms per frame "
-                      f"(torch.profiler, 3 frames) {({k: round(v, 3) for k, v in run['host'].items()})}")
+                  f"{run['max']:.3f}) over {run['n']}; device {device}; peak {run['peak']} bytes; held reserved "
+                  f"{run['held']} bytes; host-card syncs of a {unit} {run['syncs']}; launches per {unit} {per}; "
+                  f"collectives over the run {run['collectives']}; NCCL events per {unit} (profiler) {run['nccl']}; "
+                  f"hand-written kernels per {unit} (profiler) {run['per_call']}")
+            if "host" in run:
+                print(f"[{card}] (a) bf16 detect, {name}: host self CPU ms per frame (torch.profiler, 3 frames) "
+                      f"{({k: round(v, 3) for k, v in run['host'].items()})}")
         want = {k: 0 for k in TRAIN_COUNTERS}
         want.update({k: v * w1[f"{what} spatial"]["n"] for k, v in n_want.items()})
         if what == "train":
             want["fence"] = 0
         check(w1[f"{what} spatial"]["launches"] == want, f"(a) {what} launches {w1[f'{what} spatial']['launches']}")
         launches[f"(a) {what}, world 1 NCCL, {w1[f'{what} spatial']['n']} {unit}s"] = w1[f"{what} spatial"]["launches"]
+        cap = w1[f"{what} captured"]
+        check(not any(cap["launches"].values()), f"(a) a captured {unit}'s replay ran a wrapper: {cap['launches']}")
+        calls = {k: 0.0 for k in PROFILER_KERNELS}
+        calls.update({"infer": {"scatter_to_bev": 1.0, "nms_keep": 1.0},
+                      "train": {"scatter_to_bev": 1.0, "scatter_to_bev_bwd": 1.0, "matcher_gt_max": 1.0,
+                                "matcher_assign": 1.0}}[what])
+        check(cap["per_call"] is None or cap["per_call"] == calls, f"(a) captured {unit}: kernels {cap['per_call']}")
+        one = per_frame if what == "infer" else per_step
+        want_c = {g: {k: n * cap["n"] for k, n in d.items()} for g, d in one.items()} if what == "train" else \
+            {k: n * cap["n"] for k, n in one.items()}
+        check(cap["collectives"] == want_c, f"(a) captured {unit}: collectives {cap['collectives']}")
+        check(cap["syncs"] == 0 or what == "infer", f"(a) the captured step synchronised {cap['syncs']} times")
+        replays[f"spatial {'frame' if what == 'infer' else 'step'}"] = cap["per_call"]
     print(f"[{card}] (a) beside them, phase 4's frame {base['frame_ms']:.3f} ms and peak {base['frame_peak']} bytes; "
           f"phase 7's step {base['step_ms']:.3f} ms and peak {base['step_peak']} bytes")
 
@@ -2877,7 +3087,7 @@ def run_spatial(card: str, base: dict) -> dict:
         launches[f"(b) infer, rank {r['rank']}, {SP_FRAMES_GLOO} frames"] = r["infer"]["launches"]
         launches[f"(b) train, rank {r['rank']}, {SP_STEPS} steps"] = r["train"]["launches"]
         launches[f"(c) 10 cm train, rank {r['rank']}, {SP10_STEPS} steps"] = r["10cm"]["launches"]
-    return launches
+    return launches, replays
 
 
 # --- phase 17: the viewer's device pieces and tune ---
@@ -3795,10 +4005,12 @@ def main() -> int:
 
     phase("15. data parallelism (ntusl_20cm: world 1 under NCCL, two gloo ranks on the one card)")
     torch.cuda.empty_cache()
-    dp_launches, dp_f1 = run_data_parallel(card, step_base)
+    dp_launches, dp_f1, sharded_per_call = run_data_parallel(card, step_base)
 
     phase("16. spatial modes (ntusl_20cm unless stated: world 1 under NCCL, two gloo ranks on the one card)")
-    spatial_launches = run_spatial(card, dict(step_base, frame_ms=frame_ms, frame_peak=frame_peak, f1=dp_f1))
+    spatial_launches, spatial_per_call = run_spatial(card, dict(step_base, frame_ms=frame_ms, frame_peak=frame_peak,
+                                                                f1=dp_f1))
+    sharded_per_call.update(spatial_per_call)
 
     phase("17. the viewer's device pieces and tune (ntusl_20cm, bf16, at full width)")
     torch.cuda.empty_cache()
@@ -3899,6 +4111,8 @@ def main() -> int:
         k["cellid_launches"] = {path: n.get({"scatter_to_bev": "scatter", "nms_keep": "nms"}.get(k["name"]), 0)
                                 for path, n in cellid_launches.items()}
         k["jit_launches_per_call"] = {path: None if n is None else n[k["name"]] for path, n in jit_per_call.items()}
+        k["sharded_jit_launches_per_call"] = {path: None if n is None else n[k["name"]]
+                                              for path, n in sharded_per_call.items()}
     phase(None)
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,16 +16,18 @@ once at that batch, NMS once per chunk, one graph), the JAX app's
 artifact (`deploy.runtime.infer_exported`). With a data-parallel `mesh`
 (`torchrun ... infer --batch B`), each chunk is sharded over the ranks by
 `parallel/mesh.make_sharded_infer` (each rank's slice through its own
-`infer_batch`, the detections gathered in frame order), over the first
+`infer_batch` and the detections gathered in frame order, in one captured
+CUDA graph a chunk on the card), over the first
 gcd(B, world) ranks where B does not divide the world, and on rank 0
 alone where they share no factor, as the JAX app's rule
 (infer_app.py:92-116); rank 0 writes the annos, the timing and the eval.
 `spatial=True` (`infer --spatial`) splits each frame's network along x
-over the ranks of `mesh` (`parallel/mesh.make_spatial_infer`), the
-multi-card single-frame latency mode: one frame at a time (no `batch`, no
-`exported`), no `breakdown` (it times stages of one device); every rank
-runs every frame and holds its detections, and rank 0 prints, writes and
-evaluates. The JAX app's `exact_topk` becomes
+over the ranks of `mesh` (`parallel/mesh.make_spatial_infer`, the
+detector's `infer_jit`: one captured CUDA graph a frame with its
+collectives inside), the multi-card single-frame latency mode: one frame
+at a time (no `batch`, no `exported`), no `breakdown` (it times stages of
+one device); every rank runs every frame and holds its detections, and
+rank 0 prints, writes and evaluates. The JAX app's `exact_topk` becomes
 `approx_topk`, because the port's top-k is exact by default.
 """
 

@@ -19,7 +19,10 @@ split along x over the group's ranks (`parallel/mesh.make_spatial_infer`).
 Rank 0 runs the producer, the queue and the latency record; for each frame
 it serves it broadcasts a header (go, point count) and the padded points,
 and the other ranks (`follow`) run the same frame with it until a header
-says stop, which rank 0 sends however its serving ends.
+says stop, which rank 0 sends however its serving ends. Every rank runs
+the frame through the detector's `infer_fn`, its captured graph with the
+frame's collectives inside, so every rank replays the same collectives;
+the header and the points are eager broadcasts outside the graph.
 """
 
 from __future__ import annotations
@@ -136,7 +139,7 @@ class SpatialLead:
         dev = self.detector.device
         self.mesh.broadcast_(torch.tensor([1, int(num_points)], dtype=torch.int64, device=dev))
         pts = self.mesh.broadcast_(torch.from_numpy(points).to(dev))
-        return self.detector.infer(pts, int(num_points))
+        return self.detector.infer_fn(pts, int(num_points))
 
     def stop(self) -> None:
         self.mesh.broadcast_(torch.zeros(2, dtype=torch.int64, device=self.detector.device))
@@ -152,7 +155,7 @@ def follow(detector, mesh) -> int:
         if not header[0]:
             return served
         pts = mesh.broadcast_(torch.empty((cfg.max_points, cfg.num_point_features), dtype=torch.float32, device=dev))
-        detector.infer(pts, header[1])
+        detector.infer_fn(pts, header[1])
         served += 1
 
 

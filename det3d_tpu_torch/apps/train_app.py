@@ -22,7 +22,8 @@ the per-object noise.
 
 Data-parallel (`mesh`, a `parallel.mesh.DataMesh`; `torchrun
 --nproc-per-node N -m det3d_tpu_torch train`, the JAX app's pure-DP mode,
-train_app.py:151-175): every rank runs `make_sharded_train_step` on its
+train_app.py:151-175): every rank runs `make_sharded_train_step` (one
+captured CUDA graph a step on the card, its all-reduces inside) on its
 slice of each global batch of `cfg.batch_size` (which the world must
 divide), loading only that slice; every rank starts from the same weights
 (seeded, or the same `latest.pth`), broadcast from rank 0 once more by
@@ -33,7 +34,8 @@ at a barrier after each save and eval.
 Hybrid data x spatial (`spatial_shards` S > 1; `torchrun ... train
 --spatial-shards S`, the JAX app's mode of that name, train_app.py:116-150):
 the world's W ranks become a (W/S) x S grid (`make_hybrid_mesh`), each
-spatial group splitting its samples' RPN along x (`make_spatial_train`).
+spatial group splitting its samples' RPN along x (`make_spatial_train`,
+one captured CUDA graph a step with every collective inside).
 The ranks of a spatial group load the same slice of each global batch (the
 slice of their data rank); rank 0 saves, and the eval runs on rank 0's
 spatial group (its network is split too), rank 0 printing and writing.

@@ -23,6 +23,17 @@ JAX's `P(DATA_AXIS)`), so a step at world W equals the one-process step at
 the global batch. The hand-written kernels run per rank on its slice, as
 the Pallas calls run per device inside JAX's `shard_map`.
 
+The entry points are compiled, as JAX jits its `shard_map`s:
+`make_sharded_train_step`, `make_sharded_infer`, `make_spatial_infer` and
+`make_spatial_train` return callables that capture one CUDA graph per call
+shape on the card (`utils/graphs.CapturedCall`, through
+`Trainer.train_step_jit` and `Detector.infer_jit`), with the call's NCCL
+collectives inside the graph, and run op by op on the CPU. Their outputs
+are the graph's buffers, which the next call overwrites. The eager
+per-rank bodies stay `Trainer.train_step(state, batch, mesh=...)` and
+`Detector.infer`; a gloo group on a CUDA device runs only those
+(`utils/graphs.refuse_host_staged`).
+
 The spatial half (mesh.py:51-60 and 135-214 of the JAX package): one
 frame's RPN split along x over the ranks of a spatial group, whose halo
 exchanges, InstanceNorm statistics and preds gather are written by hand in
@@ -92,12 +103,14 @@ class DataMesh:
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's `t` concatenated along axis 0, in rank order."""
+        """Every rank's `t` concatenated along axis 0, in rank order: one
+        gather into one flat buffer, the bytes in the order of `torch.cat`
+        of the ranks' parts, with no parts to concatenate after it."""
         t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.world)]
-        dist.all_gather(parts, t, group=self.group)
+        out = torch.empty((self.world * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=self.group)
         self.collectives["all_gather"] += 1
-        return torch.cat(parts)
+        return out
 
     def barrier(self) -> None:
         if self.backend == "nccl":
@@ -216,10 +229,19 @@ def make_hybrid_mesh(dp: int, sp: int, **kw) -> HybridMesh:
 
 def collective_counts(mesh: DataMesh | HybridMesh) -> dict:
     """The collectives issued over `mesh` so far, by kind; for a
-    `HybridMesh`, by group ("world", "data", "spatial") and kind."""
+    `HybridMesh`, by group ("world", "data", "spatial") and kind. A
+    captured call counts as its eager form does: each call adds what its
+    capture issued (`utils.graphs.CapturedCall`), its warm-ups nothing."""
     if isinstance(mesh, HybridMesh):
         return {name: dict(getattr(mesh, name).collectives) for name in ("world", "data", "spatial")}
     return dict(mesh.collectives)
+
+
+def groups(mesh: DataMesh | HybridMesh | None) -> list[DataMesh]:
+    """The groups a step on `mesh` issues collectives over."""
+    if mesh is None:
+        return []
+    return [mesh.world, mesh.data, mesh.spatial] if isinstance(mesh, HybridMesh) else [mesh]
 
 
 # --- the step's reductions ------------------------------------------------
@@ -317,38 +339,54 @@ def shard_batch(mesh: DataMesh, batch):
 
 
 def make_sharded_train_step(trainer, mesh: DataMesh):
-    """Data-parallel training: `step(state, local_batch)` runs the whole
-    `Trainer.train_step` on this rank's slice of the global batch (the
-    scatter, matcher and fence kernels launched per rank), with the sync-BN
-    statistics, the gradients, the loss terms and the metric counts reduced
-    over the mesh inside it. Pass `shard_batch(mesh, global_batch)`, or the
-    slice a rank loaded itself; the result equals the one-process step at
-    the global batch, and every rank holds it."""
+    """Data-parallel training, compiled (JAX's `jax.jit(shard_map(...),
+    donate_argnums=(0,))`): `step(state, local_batch)` is
+    `trainer.train_step_jit` on the mesh, one captured CUDA graph a step
+    with the step's seven all-reduces inside it (op by op on the CPU). It
+    runs the whole `Trainer.train_step` on this rank's slice of the global
+    batch (the scatter, matcher and fence kernels launched per rank), with
+    the sync-BN statistics, the gradients, the loss terms and the metric
+    counts reduced over the mesh inside it. Pass `shard_batch(mesh,
+    global_batch)`, or the slice a rank loaded itself; the result equals
+    the one-process step at the global batch, and every rank holds it. The
+    loss dict and counts are the graph's buffers, which the next step
+    overwrites. A trainer's captured step serves one mesh; the eager
+    per-rank body is `trainer.train_step(state, batch, mesh=mesh)`."""
     def step(state, batch):
-        return trainer.train_step(state, batch, mesh=mesh)
+        return trainer.train_step_jit(state, batch, mesh=mesh)
 
     return step
 
 
 def make_sharded_infer(detector, mesh: DataMesh):
-    """Batched inference sharded on the data axis: `infer(points (B,
-    max_points, C), num_points (B,))`, host arrays or tensors of the global
-    batch, runs `Detector.infer_batch` on this rank's contiguous slice (its
-    network once, its NMS call once) and returns the global batch's
-    `Detections` on every rank, gathered in frame order. The one-stage form
-    of the JAX function; two-stage dispatch is not ported (ROADMAP)."""
+    """Batched inference sharded on the data axis, compiled (JAX's jitted
+    `shard_map`): `infer(points (B, max_points, C), num_points (B,))`, host
+    arrays or tensors of the global batch, runs one captured CUDA graph per
+    local batch size: `Detector.infer_batch` on this rank's contiguous slice
+    (its network once, its NMS call once) and the three all-gathers of the
+    results, which returns the global batch's `Detections` on every rank,
+    gathered in frame order, in the graph's buffers (op by op on the CPU).
+    The one-stage form of the JAX function; two-stage dispatch is not
+    ported (ROADMAP)."""
     if not mesh.member:
         raise ValueError("this process is outside the mesh")
+    from det3d_tpu_torch.pipeline import CapturedInfer
+
+    def gathered(points, num_points):
+        boxes, scores, valid = detector.module.forward_batch(points, num_points)
+        # bools travel as bytes, which every backend gathers
+        return mesh.all_gather(boxes), mesh.all_gather(scores), mesh.all_gather(valid.to(torch.uint8)).bool()
+
+    captured: dict[int, CapturedInfer] = {}
 
     def infer(points, num_points) -> Detections:
         sl = local_slice(mesh, len(points))
-        pts = torch.as_tensor(points[sl]).to(detector.device)
-        cnt = torch.as_tensor(num_points[sl]).to(detector.device)
-        out = detector.infer_batch(pts, cnt)
-        # bools travel as bytes, which every backend gathers
-        return Detections(mesh.all_gather(out.boxes), mesh.all_gather(out.scores),
-                          mesh.all_gather(out.valid.to(torch.uint8)).bool())
+        n = sl.stop - sl.start
+        if n not in captured:
+            captured[n] = CapturedInfer(gathered, detector.device, meshes=[mesh])
+        return captured[n](points[sl], num_points[sl])
 
+    infer.captured = captured
     return infer
 
 
@@ -356,35 +394,42 @@ def make_sharded_infer(detector, mesh: DataMesh):
 
 
 def make_spatial_infer(cfg, mesh: DataMesh, **detector_kwargs):
-    """Single-frame inference split along x over the spatial group `mesh`
-    (JAX's `make_spatial_infer` without its `variables` argument: the
-    detector holds its weights, which every rank must load alike) →
+    """Single-frame inference split along x over the spatial group `mesh`,
+    compiled (JAX's `make_spatial_infer` without its `variables` argument:
+    the detector holds its weights, which every rank must load alike) →
     `(detector, infer_fn)`; `infer_fn(points (max_points, C), num_points)`,
-    a host array or a tensor, returns the frame's `Detections` on every
-    rank. Each rank launches the dense scatter once, into its slab, and
-    NMS once, on the gathered preds."""
+    a host array or a tensor, is `detector.infer_jit`: one captured CUDA
+    graph a frame with its halo all-gathers, InstanceNorm all-reduces and
+    preds gather inside (op by op on the CPU), which returns the frame's
+    `Detections` on every rank in the graph's buffers. Each rank launches
+    the dense scatter once, into its slab, and NMS once, on the gathered
+    preds. The eager form is `detector.infer(points, num_points)`."""
     from det3d_tpu_torch.pipeline import Detector
 
     det = Detector(cfg, mesh.device, spatial=mesh, **detector_kwargs)
 
     def infer(points, num_points) -> Detections:
-        return det.infer(torch.as_tensor(points).to(det.device), int(num_points))
+        return det.infer_jit(points, num_points)
 
     return det, infer
 
 
 def make_spatial_train(cfg, mesh: HybridMesh, *, s2b_fence: bool = False, **trainer_kwargs):
-    """Hybrid data x spatial training (JAX's `make_spatial_train`) →
-    `(trainer, step_fn)`; `step_fn(state, batch)` takes this rank's data
-    group's slice of the global batch (`shard_batch(mesh.data, batch)`),
-    the same on every rank of a spatial group, and returns what
-    `Trainer.train_step` returns, the same on every rank. The fence is off
-    by default, as in JAX (it is an identity copy)."""
+    """Hybrid data x spatial training, compiled (JAX's `make_spatial_train`)
+    → `(trainer, step_fn)`; `step_fn(state, batch)` is
+    `trainer.train_step_jit` on the grid, one captured CUDA graph a step
+    with every collective of the three groups inside it (op by op on the
+    CPU). It takes this rank's data group's slice of the global batch
+    (`shard_batch(mesh.data, batch)`), the same on every rank of a spatial
+    group, and returns what `Trainer.train_step` returns, the same on every
+    rank, the loss dict and counts in the graph's buffers. The fence is off
+    by default, as in JAX (it is an identity copy). The eager form is
+    `trainer.train_step(state, batch, mesh=mesh)`."""
     from det3d_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg, mesh.device, spatial=mesh.spatial, fence=s2b_fence, **trainer_kwargs)
 
     def step(state, batch):
-        return trainer.train_step(state, batch, mesh=mesh)
+        return trainer.train_step_jit(state, batch, mesh=mesh)
 
     return trainer, step

@@ -18,7 +18,8 @@ With a spatial group (`Detector(cfg, spatial=mesh)`,
 run on this rank's slab of the canvas (`parallel/spatial.py`); voxelize,
 the anchor mask and the PFN before them, and decode and NMS on the gathered
 preds after them, run whole on every rank of the group, as JAX runs them
-replicated, so every rank holds the frame's `Detections`.
+replicated, so every rank holds the frame's `Detections`; `infer_jit`
+captures the frame with its collectives, as JAX jits it.
 
 The whole points → detections function is one module, `DetectorModule`,
 whose buffers hold every device constant of the path, so that
@@ -194,11 +195,12 @@ class Detector:
         two launches with the rest of the frame, reads the weights in place
         (so it sees every update and `load_state_dict`), and returns
         Detections in its own buffers, which the next call overwrites. A
-        spatial detector's collectives run eagerly: it has no `infer_jit`."""
-        if self.spatial is not None:
-            raise NotImplementedError("a spatial detector is not captured (ROADMAP.md, the sharded paths' "
-                                      "graphs): call infer")
-        return CapturedInfer(self.module.forward, self.device)
+        spatial detector's graph holds the frame's collectives too (the
+        halo all-gathers, the InstanceNorm all-reduces, the preds gather;
+        JAX's `make_spatial_infer` jit): every rank of its group calls it
+        for the same frames."""
+        return CapturedInfer(self.module.forward, self.device,
+                             meshes=[] if self.spatial is None else [self.spatial.mesh])
 
     def infer_batch_jit(self, points, num_points) -> Detections:
         """`infer_batch` as captured CUDA graphs, one per batch size (the JAX
@@ -218,14 +220,9 @@ class Detector:
     @property
     def infer_fn(self):
         """The frame function every caller of a frame uses (`detect`, the
-        infer, serve and train apps' eval): `infer_jit`, or for a spatial
-        detector, whose collectives run eagerly, `infer` on the points moved
-        to its device. Called as `infer_jit` is: (points, num_points) on the
-        host or the device → Detections."""
-        return self.infer_jit if self.spatial is None else self._infer_on_device
-
-    def _infer_on_device(self, points, num_points) -> Detections:
-        return self.infer(torch.as_tensor(points, device=self.device), int(num_points))
+        infer, serve and train apps' eval): `infer_jit`, called with
+        (points, num_points) on the host or the device → Detections."""
+        return self.infer_jit
 
     def detect(self, points: np.ndarray) -> dict:
         """Host-facing: raw numpy point cloud → annos dict, through
@@ -237,10 +234,11 @@ class Detector:
 class CapturedInfer:
     """A detector function of (points, counts) → Detections as a
     `CapturedCall` under `torch.no_grad()`, the counts as int32 buffers (0-d
-    for one frame, (B,) for a batch)."""
+    for one frame, (B,) for a batch); `meshes`: the groups it issues
+    collectives over."""
 
-    def __init__(self, fn, device):
-        self.call = CapturedCall(torch.no_grad()(fn), device)
+    def __init__(self, fn, device, meshes=()):
+        self.call = CapturedCall(torch.no_grad()(fn), device, meshes=meshes)
 
     @property
     def captures(self) -> int:

@@ -12,7 +12,9 @@ step launches the matcher's two kernels once (all samples and classes),
 the scatter's forward and backward kernels once each, and the fence once.
 `train_step_jit` is the same step as one captured CUDA graph, replayed
 with one host dispatch (`CapturedTrainStep`; the JAX trainer's jitted,
-donating step), and `eval_step_jit` the detector's captured frame.
+donating step), with a mesh the data-parallel or hybrid step with its
+collectives inside the graph, and `eval_step_jit` the detector's captured
+frame.
 
 `Trainer(device_global_augment=True)` runs the global augmentation
 (flip, rotation, scaling, translation) inside the step on the device, as
@@ -56,7 +58,7 @@ from det3d_tpu_torch.kernels.fence_cuda import s2b_fence
 from det3d_tpu_torch.losses import detection_loss
 from det3d_tpu_torch.ops import geometry
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame
-from det3d_tpu_torch.parallel.mesh import HybridMesh, pmean, pmean_gradients, psum
+from det3d_tpu_torch.parallel.mesh import HybridMesh, groups, pmean, pmean_gradients, psum
 from det3d_tpu_torch.pipeline import Detector
 from det3d_tpu_torch.postprocess import Detections
 from det3d_tpu_torch.targets import TargetAssignment, make_target_assigner
@@ -288,24 +290,36 @@ class Trainer:
         losses are means per sample over the local batch, so their mean
         over equal slices is the global batch's. With a `HybridMesh`, the
         hybrid step (see the module docstring)."""
-        data = mesh.data if isinstance(mesh, HybridMesh) else mesh
+        data = _data_axis(mesh)
         batch = self.to_device(batch)
         aug = self.augment_draws(state.step, batch, None if data is None else data.rank)
         loss_dict, metrics = self.forward_backward(batch, aug, data)
+        loss_dict, metrics = self.reduce_over(mesh, loss_dict, metrics)
+        self.apply_gradients(state)
+        return state, loss_dict, metrics
+
+    def reduce_over(self, mesh, loss_dict: dict, metrics: dict) -> tuple[dict, dict]:
+        """A step's reductions after its backward (none without `mesh`): the
+        parameters' `.grad` averaged over the ranks (over the world, divided
+        by dp, on a `HybridMesh`), the loss terms averaged and the metric
+        counts summed over the data axis → (loss dict, metric counts)."""
         if isinstance(mesh, HybridMesh):
             pmean_gradients(self.params, mesh.world, mesh.dp)
         elif mesh is not None:
             pmean_gradients(self.params, mesh)
+        data = _data_axis(mesh)
         if data is not None:
             loss_dict, metrics = pmean(loss_dict, data), psum(metrics, data)
-        self.apply_gradients(state)
-        return state, loss_dict, metrics
+        return loss_dict, metrics
 
     @functools.cached_property
     def train_step_jit(self) -> "CapturedTrainStep":
-        """`train_step(state, batch)` as one captured CUDA graph on the card
-        (op by op on the CPU): the JAX trainer's `jax.jit(train_step,
-        donate_argnums=(0,))`. See `CapturedTrainStep`."""
+        """`train_step(state, batch, mesh=None)` as one captured CUDA graph
+        on the card (op by op on the CPU): the JAX trainer's
+        `jax.jit(train_step, donate_argnums=(0,))`, and with a mesh the
+        JAX package's jitted sharded and hybrid steps
+        (`parallel/mesh.make_sharded_train_step`, `make_spatial_train`).
+        See `CapturedTrainStep`."""
         return CapturedTrainStep(self)
 
     # -- eval forward (for the in-training eval loop) -----------------------
@@ -318,21 +332,29 @@ class Trainer:
 
     @property
     def eval_step_jit(self):
-        """The compiled eval forward: the detector's `infer_fn`, its
-        `infer_jit` (the JAX trainer's `eval_step_jit`, trainer.py:254-266;
-        a spatial trainer's eager `infer`). The graph reads the parameters
-        and running statistics in place, so it sees every update of the
-        train step, eager or captured."""
+        """The compiled eval forward: the detector's `infer_jit` (the JAX
+        trainer's `eval_step_jit`, trainer.py:254-266), for a spatial
+        trainer with the frame's collectives over its spatial group inside
+        the graph. The graph reads the parameters and running statistics in
+        place, so it sees every update of the train step, eager or
+        captured."""
         return self.detector.infer_fn
 
 
 class CapturedTrainStep:
-    """`Trainer.train_step_jit`: `train_step(state, batch)` without a mesh,
-    as one `utils.graphs.CapturedCall` over static buffers — the batch's
-    upload, `prepare`, forward and fence, the loss, the backward into the
-    parameters' `.grad` (graph-pool tensors after the capture) and the clip
-    and Adam on the moments — with the live model's parameters and running
-    statistics read and updated in place.
+    """`Trainer.train_step_jit`: `train_step(state, batch, mesh)` as one
+    `utils.graphs.CapturedCall` over static buffers — the batch's upload,
+    `prepare`, forward and fence, the loss, the backward into the
+    parameters' `.grad` (graph-pool tensors after the capture), the step's
+    collectives over the mesh (`Trainer.reduce_over`, and with it the
+    sync-BN and, on a spatial trainer, the halo, InstanceNorm and preds
+    collectives) and the clip and Adam on the moments — with the live
+    model's parameters and running statistics read and updated in place.
+
+    The mesh (None, a `DataMesh`, or a `HybridMesh` for a spatial trainer)
+    is the one of the first call; a call with another raises. Every rank of
+    the mesh must step alike, as the eager step needs: each warms up and
+    captures at its first call.
 
     The graph owns the moments of the first state it is given: a state
     whose moments are other tensors (a restored checkpoint, `init_state`)
@@ -341,14 +363,15 @@ class CapturedTrainStep:
     The step count and lr stay on the host: before each replay the step's
     bias corrections and -lr are filled into three 0-d device tensors, and
     with `device_global_augment` the step's draws are made outside the
-    graph (`Trainer.augment_params`, a generator seeded per step) and
-    copied into static inputs. The loss dict and metric counts are the
-    graph's buffers, overwritten by the next call."""
+    graph (`Trainer.augment_params`, a generator seeded per step and data
+    rank) and copied into static inputs. The loss dict and metric counts
+    are the graph's buffers, overwritten by the next call."""
 
     def __init__(self, trainer: Trainer):
         # the trainer caches this callable: a strong reference back would
         # make a cycle that keeps the graph's pool until the collector runs
         self._trainer = weakref.ref(trainer)
+        self.mesh = None
         self.mu: list[torch.Tensor] | None = None
         self.nu: list[torch.Tensor] | None = None
         self.call: CapturedCall | None = None
@@ -360,33 +383,43 @@ class CapturedTrainStep:
 
     def __call__(self, state: TrainState, batch: TrainBatch, mesh=None):
         t = self._trainer()
-        if mesh is not None or t.detector.spatial is not None:
-            raise NotImplementedError("train_step_jit runs one process: a data-parallel or spatial step is not "
-                                      "captured yet (ROADMAP.md, the sharded steps' graphs); call train_step with "
-                                      "the mesh")
         if self.call is None:
+            self.mesh = mesh
             self.mu, self.nu = state.mu, state.nu
-            body = functools.partial(_captured_body, self._trainer, self.mu, self.nu, self.scalars)
-            self.call = CapturedCall(body, t.device, preserve=[*t.params, *t.model.buffers(), *self.mu, *self.nu])
+            body = functools.partial(_captured_body, self._trainer, self.mu, self.nu, self.scalars, self.mesh)
+            spatial = [] if t.detector.spatial is None else [t.detector.spatial.mesh]
+            self.call = CapturedCall(body, t.device, preserve=[*t.params, *t.model.buffers(), *self.mu, *self.nu],
+                                     meshes=[*groups(self.mesh), *spatial])
+        elif mesh is not self.mesh:
+            raise ValueError("this trainer's step was captured for another mesh: a trainer's captured step "
+                             "serves one mesh (its eager step takes any: train_step(state, batch, mesh=...))")
         elif not all(a is b for a, b in zip(state.mu + state.nu, self.mu + self.nu)):
             with torch.no_grad():
                 for owned, given in zip(self.mu + self.nu, state.mu + state.nu):
                     owned.copy_(given)
             state = dataclasses.replace(state, mu=self.mu, nu=self.nu)
-        aug = t.augment_draws(state.step, batch)
+        data = _data_axis(self.mesh)
+        aug = t.augment_draws(state.step, batch, None if data is None else data.rank)
         state.step += 1
         fill_adam_scalars(self.scalars, state.step, state.lr)
         loss_dict, metrics = self.call(TrainBatch(*batch), *(() if aug is None else (aug,)))
         return state, loss_dict, metrics
 
 
-def _captured_body(trainer_ref, mu, nu, scalars, batch: TrainBatch, aug: dict | None = None):
+def _captured_body(trainer_ref, mu, nu, scalars, mesh, batch: TrainBatch, aug: dict | None = None):
     """The captured step's function: it holds no `CapturedTrainStep`, so
     the callable and its graph go as soon as the trainer does."""
     trainer = trainer_ref()
-    loss_dict, metrics = trainer.forward_backward(batch, aug)
+    loss_dict, metrics = trainer.forward_backward(batch, aug, _data_axis(mesh))
+    loss_dict, metrics = trainer.reduce_over(mesh, loss_dict, metrics)
     clip_and_adam(trainer.params, mu, nu, scalars)
     return loss_dict, metrics
+
+
+def _data_axis(mesh):
+    """The group of a step's data axis: the mesh, or a `HybridMesh`'s data
+    group."""
+    return mesh.data if isinstance(mesh, HybridMesh) else mesh
 
 
 def _no_fence(x: torch.Tensor) -> torch.Tensor:

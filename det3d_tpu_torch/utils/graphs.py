@@ -1,6 +1,7 @@
 """One function of fixed shapes, captured once as a CUDA graph and replayed:
 the port's counterpart of `jax.jit` for the compiled entry points
-(`Detector.infer_jit`, `Trainer.train_step_jit`, the exported runtime).
+(`Detector.infer_jit`, `Trainer.train_step_jit`, the sharded and spatial
+entry points of `parallel/mesh.py`, the exported runtime).
 
 `CapturedCall(fn, device)` is called like `fn`, with a pytree of tensors,
 numpy arrays or numpy scalars whose shapes the first call fixes. Each call
@@ -24,10 +25,25 @@ graph's), and the next call overwrites them. Clone what must outlive it.
 it had at the capture: update those in place, never replace them.
 Capture errors are thread-local: other threads (serving's producer) may
 use CUDA while this one captures.
+
+Collectives (`meshes`: the `parallel.mesh.DataMesh` groups that `fn`
+issues collectives over). The warm-up calls run every collective before
+the capture, so each NCCL communicator is made outside the graph; every
+rank of a group makes the same calls, so all of them warm up twice and
+capture once, in the same order, and the graph of each rank holds its
+share of the group's collectives, which run when every rank replays. A
+`DataMesh` counts the collectives issued per call: the capture records
+what it issued over each group, the counts go back to where they stood
+before the warm-ups, and every call then adds the capture's record, as
+JAX counts a jitted program's collectives from the compiled program. A
+group whose backend is not NCCL on a CUDA device raises by name before
+anything runs: gloo stages CUDA tensors through the host, which a graph
+cannot hold (the eager forms run there).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, Iterable
 
 import torch
@@ -46,17 +62,33 @@ def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
     return _WARMUP_STREAMS[device]
 
 
+def refuse_host_staged(meshes) -> None:
+    """Raise if a group of `meshes` runs its collectives through the host
+    on a CUDA device (gloo on a card): no graph can capture them."""
+    for m in meshes:
+        if m.device.type == "cuda" and m.backend != "nccl":
+            raise ValueError(f"a {m.backend} group on {m.device} cannot be captured in a CUDA graph: {m.backend} "
+                             "stages CUDA tensors through the host. Use NCCL (make_mesh's backend on a card), or "
+                             "call the eager form (Trainer.train_step(..., mesh=...), Detector.infer)")
+
+
 class CapturedCall:
     """`fn` over static buffers: one CUDA graph on the card, op by op on the
-    CPU (see the module docstring). `captures` counts the graphs captured."""
+    CPU (see the module docstring). `captures` counts the graphs captured;
+    on the card `collectives[i]` is the capture's record of what a call
+    issues over `meshes[i]`, by kind (op by op, the groups count as eager
+    calls do)."""
 
-    def __init__(self, fn: Callable, device, *, preserve: Iterable[torch.Tensor] = ()):
+    def __init__(self, fn: Callable, device, *, preserve: Iterable[torch.Tensor] = (), meshes: Iterable = ()):
+        self.meshes = list({id(m): m for m in meshes}.values())
+        refuse_host_staged(self.meshes)
         self.fn = fn
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:  # so that a tensor's device compares equal
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.preserve = list(preserve)
         self.captures = 0
+        self.collectives: list[collections.Counter] = []
         self.graph: torch.cuda.CUDAGraph | None = None
         self._spec = None
         self._inputs: list[torch.Tensor] = []
@@ -72,6 +104,8 @@ class CapturedCall:
         if self.graph is None:
             self._capture()
         self.graph.replay()
+        for mesh, issued in zip(self.meshes, self.collectives):
+            mesh.collectives.update(issued)
         return self._outputs
 
     def capture(self, *args) -> None:
@@ -123,6 +157,7 @@ class CapturedCall:
     def _capture(self) -> None:
         args = pytree.tree_unflatten(self._inputs, self._spec)
         saved = [t.detach().clone() for t in self.preserve]
+        counted = [collections.Counter(m.collectives) for m in self.meshes]
         current = torch.cuda.current_stream(self.device)
         side = _warmup_stream(self.device)
         side.wait_stream(current)
@@ -138,8 +173,13 @@ class CapturedCall:
         # captured on the warm-up stream, whose cuBLAS workspace the warm-up
         # made outside the graph's pool: one made inside it would keep the
         # pool's memory after the graph is gone
+        at_capture = [collections.Counter(m.collectives) for m in self.meshes]
         with torch.cuda.device(self.device), torch.cuda.graph(graph, stream=side,
                                                                capture_error_mode="thread_local"):
             self._outputs = self.fn(*args)
+        self.collectives = [m.collectives - before for m, before in zip(self.meshes, at_capture)]
+        for m, before in zip(self.meshes, counted):
+            m.collectives.clear()
+            m.collectives.update(before)
         self.graph = graph
         self.captures += 1

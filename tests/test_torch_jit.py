@@ -397,10 +397,56 @@ def test_a_dropped_trainer_or_detector_goes_with_its_graphs():
         gc.enable()
 
 
+def test_train_step_jit_with_a_mesh_equals_the_eager_step(tmp_path):
+    """A world-1 gloo group in this process: `train_step_jit(mesh=...)` over
+    3 steps bit-equal to `train_step(mesh=...)`, with the same collectives
+    per step (tests/test_torch_sharded_jit.py holds worlds 2 and 4)."""
+    import torch.distributed as dist
+
+    from det3d_tpu_torch.parallel import mesh as pm
+
+    cfg = small_cfg()
+    data = batches(cfg, 3)
+    mesh = pm.make_mesh(device="cpu", rank=0, world_size=1, init_method=f"file://{tmp_path}/rendezvous")
+    try:
+        runs = []
+        for jit in (False, True):
+            trainer = Trainer(cfg, CPU)
+            state = pm.replicated(mesh, trainer, trainer.init_state(0))
+            before = pm.collective_counts(mesh)
+            fn = trainer.train_step_jit if jit else trainer.train_step
+            out = []
+            for b in data:
+                state, loss, counts = fn(state, b, mesh=mesh)
+                out.append(({k: v.clone() for k, v in loss.items()}, {k: v.clone() for k, v in counts.items()}))
+            after = pm.collective_counts(mesh)
+            runs.append((trainer, state, out, {k: n - before.get(k, 0) for k, n in after.items()}))
+    finally:
+        dist.destroy_process_group()
+    (te, se, oe, ce), (tj, sj, oj, cj) = runs
+    assert tj.train_step_jit.mesh is mesh
+    assert_same_step_results(oe, oj)
+    assert_same_model(te, tj, se, sj)
+    assert ce == cj == {"all_reduce": 7 * len(data), "broadcast": 0}
+
+
 def test_a_mesh_raises_by_name():
+    """A trainer's captured step serves the mesh of its first call, and a
+    gloo group on a CUDA device is never captured (gloo stages CUDA tensors
+    through the host): both raise before the step runs."""
+    from det3d_tpu_torch.parallel import mesh as pm
+
+    data = batches(small_cfg(), 2)
     trainer = Trainer(small_cfg(), CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train_step_jit(trainer.init_state(0), batches(trainer.cfg, 1)[0], mesh=object())
+    state, _, _ = trainer.train_step_jit(trainer.init_state(0), data[0])
+    with pytest.raises(ValueError, match="captured for another mesh"):
+        trainer.train_step_jit(state, data[1], mesh=pm.DataMesh(None, 0, 1, CPU, "gloo"))
+    assert state.step == 1
+    trainer = Trainer(small_cfg(), CPU)
+    card_gloo = pm.DataMesh(None, 0, 1, torch.device("cuda", 0), "gloo")
+    with pytest.raises(ValueError, match="a gloo group on cuda:0 cannot be captured in a CUDA graph"):
+        trainer.train_step_jit(trainer.init_state(0), data[0], mesh=card_gloo)
+    assert trainer.train_step_jit.captures == 0
 
 
 def test_a_captured_call_keeps_its_first_shapes():

@@ -299,19 +299,21 @@ def infer_inputs(cfg):
     return np.stack([p for p, _ in padded]), np.array([n for _, n in padded], np.int32)
 
 
-@pytest.fixture(scope="module")
-def jax_sharded():
+def jax_sharded_step(state_dict: dict | None = None) -> dict:
     """JAX's `make_sharded_train_step` on two of the conftest's virtual
-    devices, one step of small_cfg at batch 4 from `init_state(PRNGKey(0))`,
-    with the pmean'd gradients captured in front of its optimizer; and its
-    step-0 weights as the port's state_dict."""
+    devices, one step of small_cfg at batch 4 from `init_state(PRNGKey(0))`
+    or from the port's `state_dict`, with the pmean'd gradients captured in
+    front of its optimizer; and its step-0 weights as the port's
+    state_dict."""
     import jax
     import jax.numpy as jnp
     import optax
 
     import test_torch_parity_utils as pu
+    from det3d_tpu.deploy.torch_interop import state_dict_to_variables
     from det3d_tpu.parallel.mesh import make_mesh, make_sharded_train_step, replicated, shard_batch
     from det3d_tpu.train.trainer import Trainer as JaxTrainer
+    from det3d_tpu.train.trainer import TrainState
     from det3d_tpu.train.trainer import host_batch as jax_host_batch
     from det3d_tpu_torch.weights import variables_to_state_dict
     from helpers import small_cfg as jax_small_cfg
@@ -321,7 +323,12 @@ def jax_sharded():
     capture = optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p), lambda u, s, p=None: (u, u))
     trainer.optimizer = optax.chain(capture, trainer.optimizer)
     mesh = make_mesh(2)
-    state = trainer.init_state(jax.random.PRNGKey(0))
+    if state_dict is None:
+        state = trainer.init_state(jax.random.PRNGKey(0))
+    else:
+        variables = state_dict_to_variables({k: v.numpy() for k, v in state_dict.items()})
+        state = TrainState(step=np.zeros((), np.int32), params=variables["params"],
+                           batch_stats=variables["batch_stats"], opt_state=trainer.optimizer.init(variables["params"]))
     before = pu.numpy_variables({"params": state.params, "batch_stats": state.batch_stats})
     new, loss, counts = make_sharded_train_step(trainer, mesh)(
         jax.device_put(state, replicated(mesh)), shard_batch(mesh, jax_host_batch(jcfg, samples(GLOBAL_BATCH))))
@@ -333,6 +340,12 @@ def jax_sharded():
         after=variables_to_state_dict(after), grads=variables_to_state_dict(grads),
         lr=float(jcfg.learning_rate),
     )
+
+
+@pytest.fixture(scope="module")
+def jax_sharded():
+    """`jax_sharded_step` from JAX's own seeded weights."""
+    return jax_sharded_step()
 
 
 @pytest.fixture(scope="module")

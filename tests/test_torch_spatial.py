@@ -69,6 +69,7 @@ from det3d_tpu_torch.models.pointpillars import PointPillars, init_weights
 from det3d_tpu_torch.parallel import mesh as pm
 from det3d_tpu_torch.parallel import spatial as sp
 from det3d_tpu_torch.pipeline import Detector
+from det3d_tpu_torch.postprocess import Detections
 from det3d_tpu_torch.train.trainer import Trainer, host_batch
 from test_torch_tmpdirs import removed, tmp_path  # noqa: F401
 
@@ -198,7 +199,9 @@ def job_infer(mesh, cfg, frames, state_dict=None):
     outs, per_frame = [], []
     for pts, n in frames:
         before = dict(mesh.collectives)
-        outs.append(infer(pts, n))
+        out = infer(pts, n)
+        # cloned: the captured call's outputs are its buffers, which the next frame overwrites
+        outs.append(Detections(*(t.clone() for t in out)))
         per_frame.append(delta(before, mesh.collectives))
     return dict(outs=outs, calls=calls, collectives=per_frame)
 
@@ -263,14 +266,15 @@ def job_serve(mesh, cfg, n_frames, replay_dir):
     server = serve_app.make_server(cfg, device="cpu", spatial=mesh)
     det = server.detector
     ran = []
-    infer = det.infer
+    infer = det.infer_jit  # what every rank runs a frame through (`infer_fn`)
 
     def recording(points, num_points):
         out = infer(points, num_points)
-        ran.append((points.clone(), int(num_points), out))
+        # cloned: the captured call's outputs are its buffers, which the next frame overwrites
+        ran.append((points.clone(), int(num_points), Detections(*(t.clone() for t in out))))
         return out
 
-    det.infer = recording
+    det.infer_jit = recording
     stats = serve_app.serve_synthetic(cfg, frames=n_frames, hz=4.0, server=server)
     ran_synthetic = list(ran)
     replay = serve_app.serve_replay(cfg, replay_dir, hz=4.0, server=serve_app.make_server(cfg, device="cpu",
@@ -294,7 +298,7 @@ def rank_session(rank: int, world: int, init: str, out_dir: str, jobs: list, cli
     mesh = pm.make_mesh(device="cpu", rank=rank, world_size=world, init_method=init)
     try:
         for name, kind, kwargs in jobs:
-            result = JOBS[kind](mesh, **kwargs)
+            result = (kind if callable(kind) else JOBS[kind])(mesh, **kwargs)
             with open(Path(out_dir) / f"{name}-{rank}.pkl", "wb") as f:
                 pickle.dump(result, f)
         mesh.barrier()  # no rank leaves while another still works
@@ -318,8 +322,8 @@ def free_ports(n: int) -> list[int]:
 
 
 class Group:
-    """`world` spawned gloo ranks running `jobs` ([(name, JOBS key,
-    kwargs)]), then the `cli` argvs; `results()` joins them → {name:
+    """`world` spawned gloo ranks running `jobs` ([(name, JOBS key or a
+    module-level function, kwargs)]), then the `cli` argvs; `results()` joins them → {name:
     [result of rank r]}. A rank that fails or outlives the join timeout
     fails the test."""
 
@@ -387,10 +391,10 @@ def port_state_dict() -> dict:
     return {k: v.clone() for k, v in init_weights(PointPillars(small_cfg()), 0).state_dict().items()}
 
 
-def jax_spatial(jcfg, state_dict, infer_frames, train_batch) -> dict:
+def jax_spatial(jcfg, state_dict, infer_frames, train_batch, sps=(2, 4)) -> dict:
     """JAX's spatial modes on the conftest's virtual devices from the port's
     weights (through `deploy/torch_interop.state_dict_to_variables`):
-    `make_spatial_infer` at sp 2 and 4 over the frames, and one
+    `make_spatial_infer` at each sp of `sps` over the frames, and one
     `make_spatial_train` step on `make_hybrid_mesh(2, 2)` at batch 4."""
     import jax
 
@@ -404,7 +408,7 @@ def jax_spatial(jcfg, state_dict, infer_frames, train_batch) -> dict:
 
     variables = state_dict_to_variables({k: v.numpy() for k, v in state_dict.items()})
     out = {"infer": {}}
-    for n in (2, 4):
+    for n in sps:
         _, infer = make_spatial_infer(jcfg, make_spatial_mesh(n))
         out["infer"][n] = [tuple(np.asarray(t) for t in infer(variables, p, c)) for p, c in infer_frames]
     jcfg4 = jcfg.replace(batch_size=4)
