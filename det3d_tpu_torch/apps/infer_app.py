@@ -9,7 +9,11 @@ a dataset are read by `DetectionDataset.iter_points_native` (the native
 loader's threads where its library builds).
 
 A frame runs through `Detector.infer_jit` (one captured CUDA graph a
-frame on the card), as the JAX app's `det.infer_jit`. `batch > 1` runs
+frame on the card), as the JAX app's `det.infer_jit`. `breakdown` splits
+the time of the replay the app runs into pre / net / post by the graph's
+own stage marks (`utils.timing`), over `BREAKDOWN_CALLS` more calls of the
+first frame or chunk under the profiler (`utils.timing.trace`), and prints
+the host spans of those calls beside them. `batch > 1` runs
 chunks of `batch` frames through `Detector.infer_batch_jit` (the network
 once at that batch, NMS once per chunk, one graph), the JAX app's
 `jax.jit(jax.vmap(...))` path on one device; `exported` runs an exported
@@ -35,15 +39,19 @@ from __future__ import annotations
 
 import math
 import pickle
+import statistics
+import tempfile
 import time
 
 import numpy as np
-import torch
 
 from det3d_tpu_torch.config import Config
 from det3d_tpu_torch.parallel.mesh import DataMesh, make_mesh, make_sharded_infer, make_spatial_infer
-from det3d_tpu_torch.postprocess import Detections, PostProcessParams, frame_preds, to_annos
-from det3d_tpu_torch.utils.timing import StageTimers, block_until_ready, time_fn
+from det3d_tpu_torch.postprocess import Detections, PostProcessParams, to_annos
+from det3d_tpu_torch.utils import timing
+from det3d_tpu_torch.utils.timing import block_until_ready
+
+BREAKDOWN_CALLS = 10   # calls of the first frame or chunk that `breakdown` reads the stages of
 
 
 def frame_source(cfg: Config, synthetic: bool, num_frames: int, seed: int, pad_points):
@@ -150,23 +158,20 @@ def infer(
     reader, gt_annos, frames = frame_source(cfg, synthetic, num_frames, seed, det.pad_points)
     if lead:
         print(f"point reader: {reader}")
-    timers = StageTimers()
     if shard is not None:
-        dt_annos, total, denom, first = _run_batched(det, frames, batch, timers, make_sharded_infer(det, shard))
-        if not lead:
-            return None
+        dt_annos, total, denom, first = _run_batched(det, frames, batch, make_sharded_infer(det, shard))
     elif batch > 1:
-        dt_annos, total, denom, first = _run_batched(det, frames, batch, timers)
+        dt_annos, total, denom, first = _run_batched(det, frames, batch, det.infer_batch_jit)
     else:
-        dt_annos, total, denom, first = _run_frames(det, frames, timers)
-        if not lead:
-            return None
-
-    if breakdown and first is not None:
-        _stage_breakdown(det, *first, timers)
+        dt_annos, total, denom, first = _run_frames(det, frames)
+    stages = {"e2e": total / denom}
+    if breakdown and first is not None:  # every rank that ran the calls: a sharded graph's collectives
+        stages.update(_stage_breakdown(det.cfg, *first, lead))
+    if not lead:
+        return None
 
     avg_ms = 1e3 * total / denom
-    print(f"avg end-to-end: {avg_ms:.2f} ms/frame   [{timers.report()}]")
+    print(f"avg end-to-end: {avg_ms:.2f} ms/frame   [{'  '.join(f'{k}: {v * 1e3:.2f}ms' for k, v in stages.items())}]")
 
     if out_path:
         with open(out_path, "wb") as f:
@@ -181,12 +186,12 @@ def infer(
         print(s)
         eval_strs.append(s)
     return {"dt_annos": dt_annos, "gt_annos": gt_annos, "eval_strs": eval_strs, "avg_ms": avg_ms,
-            "reader": reader, "stages": timers.averages(), "timed_frames": denom}
+            "reader": reader, "stages": stages, "timed_frames": denom}
 
 
-def _run_frames(det, frames, timers: StageTimers):
+def _run_frames(det, frames):
     """One frame at a time → (annos, timed seconds, timed frames, the
-    first frame)."""
+    frame function with the first frame and its frame count)."""
     infer = det.infer_fn
     dt_annos, total, first = [], 0.0, None
     for i, (pts, n) in enumerate(frames):
@@ -194,44 +199,37 @@ def _run_frames(det, frames, timers: StageTimers):
         out = block_until_ready(infer(pts, n))
         dt = time.perf_counter() - t0
         if i == 0:
-            first = (pts, n)
+            first = (infer, (pts, n), 1)
         else:
             total += dt
-            timers.add("e2e", dt)
         dt_annos.append(to_annos(det.cfg, out))
     if len(dt_annos) == 1:
+        pts, n = first[1]
         t0 = time.perf_counter()
-        block_until_ready(infer(first[0] + np.float32(1e-3), first[1]))
+        block_until_ready(infer(pts + np.float32(1e-3), n))
         total = time.perf_counter() - t0
-        timers.add("e2e", total)
     return dt_annos, total, max(len(dt_annos) - 1, 1), first
 
 
-def _run_batched(det, frames, batch: int, timers: StageTimers, sharded=None):
-    """Chunks of `batch` frames through `Detector.infer_batch`, or through
-    `sharded` (`make_sharded_infer`'s function of host arrays), the last
-    chunk padded with its last frame → (annos, timed seconds, dispatched
-    frames timed, the first frame)."""
-    def run(pts, cnt):
-        if sharded is not None:
-            return sharded(pts, cnt)
-        return det.infer_batch_jit(pts, cnt)
-
+def _run_batched(det, frames, batch: int, run):
+    """Chunks of `batch` frames through `run`: `Detector.infer_batch_jit`,
+    or `make_sharded_infer`'s function of host arrays; the last chunk
+    padded with its last frame → (annos, timed seconds, dispatched frames
+    timed, `run` with the first chunk and its frame count)."""
     dt_annos, total, timed, first = [], 0.0, 0, None
     frames = list(frames)
     for start in range(0, len(frames), batch):
         chunk = frames[start:start + batch]
-        first = first or chunk[0]
         padded = chunk + [chunk[-1]] * (batch - len(chunk))
         pts = np.stack([p for p, _ in padded])
         cnt = np.asarray([int(n) for _, n in padded], np.int32)
+        first = first or (run, (pts, cnt), batch)
         t0 = time.perf_counter()
         out = block_until_ready(run(pts, cnt))
         dt = time.perf_counter() - t0
         if start > 0:
             total += dt
             timed += batch
-            timers.add("e2e", dt / batch)
         for i in range(len(chunk)):
             dt_annos.append(to_annos(det.cfg, Detections(*(t[i] for t in out))))
     if timed == 0 and frames:
@@ -239,20 +237,37 @@ def _run_batched(det, frames, batch: int, timers: StageTimers, sharded=None):
         t0 = time.perf_counter()
         block_until_ready(run(pts + np.float32(1e-3), cnt))
         total, timed = time.perf_counter() - t0, batch
-        timers.add("e2e", total / batch)
     return dt_annos, total, max(timed, 1), first
 
 
-@torch.no_grad()
-def _stage_breakdown(det, pts: np.ndarray, n, timers: StageTimers) -> None:
-    """Per-stage latency, median of 10 (reference train.py:244-258 prints
-    the same split): pre = voxelize + anchor mask, net = the network,
-    post = decode + NMS."""
-    points = torch.from_numpy(pts).to(det.device)
-    frame, mask = det.preprocess(points, int(n))
-    net_args = (frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None])
-    preds = frame_preds(det.model(*net_args), 0)  # a split head's column-parity pairs stay pairs
-    post = lambda p, m: det.postprocess.finalize_stage(det.postprocess.decode_stage(p, m))  # noqa: E731
-    for name, fn, args in (("pre", det.preprocess, (points, int(n))), ("net", det.model, net_args),
-                           ("post", post, (preds, mask))):
-        timers.add(name, time_fn(fn, *args, iters=10)["p50_ms"] / 1e3)
+def _stage_breakdown(cfg: Config, run, args, frames: int, lead: bool) -> dict[str, float]:
+    """Seconds a frame of each stage of the replay that `run(*args)` makes
+    (pre = voxelize + anchor mask, net = the network, post = decode + NMS,
+    the reference's split, train.py:244-258), the median over
+    `BREAKDOWN_CALLS` calls under the profiler, read from the graph's
+    stage marks (device time on the card); `lead` prints the median of
+    each host span of the calls (staging, launch, fetch, format)."""
+    since = time.perf_counter_ns()
+    with tempfile.TemporaryDirectory(prefix="det3d-breakdown-") as log_dir, timing.trace(log_dir):
+        for _ in range(BREAKDOWN_CALLS):
+            out = run(*args)
+            for i in range(frames):
+                to_annos(cfg, out if frames == 1 else Detections(*(t[i] for t in out)))
+    replays, stages = timing.replays(since), {}
+    for key, name in (("pre", "preprocess"), ("net", "network"), ("post", "postprocess")):
+        ms = [_stage_ms(r.marks, name) for r in replays]
+        stages[key] = statistics.median(ms) / frames / 1e3 if ms else math.nan
+    if lead:
+        host: dict[str, list[float]] = {}
+        for sp in timing.spans(since):
+            host.setdefault(sp.name, []).append((sp.end_ns - sp.start_ns) / 1e6)
+        print("breakdown host ms (median a span): "
+              + "  ".join(f"{k} {statistics.median(v):.3f}" for k, v in host.items()))
+    return stages
+
+
+def _stage_ms(marks, name: str) -> float:
+    """ms from the mark before `name` to `name`."""
+    names = [m for m, _ in marks]
+    i = names.index(name)
+    return marks[i][1] - marks[i - 1][1]

@@ -25,6 +25,14 @@ The whole points → detections function is one module, `DetectorModule`,
 whose buffers hold every device constant of the path, so that
 `deploy/export.py` exports it as it is and the live detector and the
 exported program run the same code.
+
+Tracing (`utils.timing`, on while a profiler runs): `detect` is the root
+span of a frame, `pad_points` the span `pad`; `forward` and
+`forward_batch` place the stage marks `start`, `preprocess` (voxelize and
+the anchor mask), `network` and `postprocess` (decode, NMS, finalize),
+which a captured call's graph holds as event nodes; `CapturedInfer`
+counts `call.rows_staged` (the rows a call stages, B × `max_points`) and
+`call.rows_real` (the points in them).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from det3d_tpu_torch.ops.anchor_mask import compute_anchors_mask, compute_anchor
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame, VoxelizerSpec, grid_tensors, voxelize
 from det3d_tpu_torch.parallel.spatial import SpatialPlan
 from det3d_tpu_torch.postprocess import Detections, PostProcessor, PostProcessParams, frame_preds, to_annos
+from det3d_tpu_torch.utils import timing
 from det3d_tpu_torch.utils.device import resolve_device
 from det3d_tpu_torch.utils.graphs import CapturedCall
 from det3d_tpu_torch.utils.npmath import pad_cloud
@@ -102,12 +111,17 @@ class DetectorModule(nn.Module):
     def candidates(self, points: torch.Tensor, num_points):
         """Everything before NMS: voxelize → model → decode."""
         frame, anchors_mask = self.preprocess(points, num_points)
+        timing.mark("preprocess")
         preds = self.model(frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None],
                            spatial=self.spatial)
+        timing.mark("network")
         return self.postprocess.decode_stage(frame_preds(preds, 0), anchors_mask)
 
     def forward(self, points: torch.Tensor, num_points) -> tuple[torch.Tensor, ...]:
-        return tuple(self.postprocess.finalize_stage(self.candidates(points, num_points)))
+        timing.mark("start")
+        out = tuple(self.postprocess.finalize_stage(self.candidates(points, num_points)))
+        timing.mark("postprocess")
+        return out
 
     def forward_batch(self, points: torch.Tensor, num_points) -> tuple[torch.Tensor, ...]:
         """points (B, max_points, C), num_points (B,): each frame voxelized
@@ -116,12 +130,17 @@ class DetectorModule(nn.Module):
         compaction per frame → (B, ...) fields of `Detections`."""
         if self.spatial is not None:
             raise ValueError("a spatial detector partitions within one frame: no batch")
+        timing.mark("start")
         frames = [self.preprocess(points[i], num_points[i]) for i in range(points.shape[0])]
+        timing.mark("preprocess")
         preds = self.model(*(torch.stack([getattr(f, k) for f, _ in frames])
                              for k in ("voxels", "num_points_per_voxel", "coors")))
+        timing.mark("network")
         candidates = [self.postprocess.decode_stage(frame_preds(preds, i), mask)
                       for i, (_, mask) in enumerate(frames)]
-        return tuple(self.postprocess.finalize_frames(candidates))
+        out = tuple(self.postprocess.finalize_frames(candidates))
+        timing.mark("postprocess")
+        return out
 
 
 class Detector:
@@ -215,7 +234,8 @@ class Detector:
     # -- host conveniences -------------------------------------------------
     def pad_points(self, points: np.ndarray) -> tuple[np.ndarray, np.int32]:
         """Pad/truncate a host point cloud to the static (max_points, C)."""
-        return pad_cloud(points, self.cfg.max_points)
+        with timing.span("pad"):
+            return pad_cloud(points, self.cfg.max_points)
 
     @property
     def infer_fn(self):
@@ -227,8 +247,9 @@ class Detector:
     def detect(self, points: np.ndarray) -> dict:
         """Host-facing: raw numpy point cloud → annos dict, through
         `infer_fn` (`infer_jit`, as the JAX detector's `detect`)."""
-        padded, n = self.pad_points(points)
-        return to_annos(self.cfg, self.infer_fn(padded, n))
+        with timing.span("detect"):
+            padded, n = self.pad_points(points)
+            return to_annos(self.cfg, self.infer_fn(padded, n))
 
 
 class CapturedInfer:
@@ -245,4 +266,8 @@ class CapturedInfer:
         return self.call.captures
 
     def __call__(self, points, num_points) -> Detections:
+        # counted where the counts are on the host: reading them off the card would wait for it
+        if timing.recording() and not (isinstance(num_points, torch.Tensor) and num_points.is_cuda):
+            timing.count("call.rows_staged", np.prod(points.shape[:-1]))
+            timing.count("call.rows_real", np.sum(np.asarray(num_points)))
         return Detections(*self.call(points, torch.as_tensor(num_points, dtype=torch.int32)))

@@ -31,6 +31,7 @@ from det3d_tpu_torch.config import Config
 from det3d_tpu_torch.kernels.nms_cuda import nms_keep
 from det3d_tpu_torch.ops import geometry
 from det3d_tpu_torch.ops.nms import rank_cap
+from det3d_tpu_torch.utils import timing
 
 
 class PostProcessParams(NamedTuple):
@@ -326,11 +327,18 @@ class PostProcessor(nn.Module):
 
 def to_annos(cfg: Config, det: Detections) -> dict:
     """Fixed-shape detections → the reference's annos dict on the host
-    (framework/inference.py:129-137, get_start_result_anno:724-737)."""
-    boxes = det.boxes.detach().cpu().numpy()
-    scores = det.scores.detach().cpu().numpy()
-    valid = det.valid.detach().cpu().numpy()
+    (framework/inference.py:129-137, get_start_result_anno:724-737). Spans
+    (`utils.timing`): `annos.fetch`, the copies to the host, in which the
+    host waits for the card to finish the detections; `annos.format`."""
+    with timing.span("annos.fetch"):
+        boxes = det.boxes.detach().cpu().numpy()
+        scores = det.scores.detach().cpu().numpy()
+        valid = det.valid.detach().cpu().numpy()
+    with timing.span("annos.format"):
+        return _annos(cfg, boxes, scores, valid)
 
+
+def _annos(cfg: Config, boxes: np.ndarray, scores: np.ndarray, valid: np.ndarray) -> dict:
     names, locs, dims, yaws, scs = [], [], [], [], []
     for ci, spec in enumerate(cfg.class_specs):
         m = valid[ci]

@@ -26,6 +26,15 @@ it had at the capture: update those in place, never replace them.
 Capture errors are thread-local: other threads (serving's producer) may
 use CUDA while this one captures.
 
+Tracing (`utils.timing`, on while a profiler runs on the thread): a call
+records the spans `call.stage` (`_fill`: the wait for the previous call's
+copies, the pinned copy, the non-blocking host-to-device enqueue) and
+`call.launch` (the replay, or the run op by op), under one call id (the
+open span's, or a new one), and counts `call.replays`. The stage marks
+that `fn` places (`timing.mark`) are captured into the graph as event
+nodes, owned by the call; a replay made while recording has its marks
+read at the next call, or by `timing.replays()`.
+
 Collectives (`meshes`: the `parallel.mesh.DataMesh` groups that `fn`
 issues collectives over). The warm-up calls run every collective before
 the capture, so each NCCL communicator is made outside the graph; every
@@ -48,6 +57,8 @@ from typing import Callable, Iterable
 
 import torch
 from torch.utils import _pytree as pytree
+
+from det3d_tpu_torch.utils import timing
 
 WARMUP_CALLS = 2
 _WARMUP_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
@@ -96,14 +107,28 @@ class CapturedCall:
         self._copied = None
         self._outputs = None
         self._flat_outputs: list[torch.Tensor] = []
+        self._marks: list = []       # the graph's stage marks (timing.mark), (name, event)
+        self._unread = False         # the last replay was recorded and its marks not read yet
 
     def __call__(self, *args):
-        self._fill(args)
+        call = timing.call_id()      # None while the recorder is off
+        with timing.span("call.stage", call):
+            self._fill(args)
         if self.device.type != "cuda":
-            return self._run_op_by_op()
+            with timing.span("call.launch", call):
+                return self._run_op_by_op(call)
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        if self._unread:
+            timing.settle(self._marks)
+            self._unread = False
+        with timing.span("call.launch", call):
+            self.graph.replay()
+        if call is not None:
+            timing.count("call.replays", 1)
+            if self._marks:
+                timing.replayed(call, self._marks)
+                self._unread = True
         for mesh, issued in zip(self.meshes, self.collectives):
             mesh.collectives.update(issued)
         return self._outputs
@@ -143,8 +168,15 @@ class CapturedCall:
         self._copied.record()
 
     # -- the two ways to run ---------------------------------------------------
-    def _run_op_by_op(self):
-        out = self.fn(*pytree.tree_unflatten(self._inputs, self._spec))
+    def _run_op_by_op(self, call: int | None):
+        args = pytree.tree_unflatten(self._inputs, self._spec)
+        if call is None:
+            out = self.fn(*args)
+        else:
+            with timing.marking(cuda=False) as marks:
+                out = self.fn(*args)
+            timing.count("call.replays", 1)
+            timing.ran(call, marks)
         leaves, spec = pytree.tree_flatten(out)
         if self._outputs is None:
             self._flat_outputs = [t.detach().clone() for t in leaves]
@@ -174,9 +206,10 @@ class CapturedCall:
         # made outside the graph's pool: one made inside it would keep the
         # pool's memory after the graph is gone
         at_capture = [collections.Counter(m.collectives) for m in self.meshes]
-        with torch.cuda.device(self.device), torch.cuda.graph(graph, stream=side,
-                                                               capture_error_mode="thread_local"):
+        with timing.marking(cuda=True) as marks, torch.cuda.device(self.device), \
+                torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             self._outputs = self.fn(*args)
+        self._marks = marks
         self.collectives = [m.collectives - before for m, before in zip(self.meshes, at_capture)]
         for m, before in zip(self.meshes, counted):
             m.collectives.clear()
