@@ -23,8 +23,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      frame; the host-card synchronisations of each of three `detect`s, by the
      line that made each (and its caller outside torch);
   5. the full path in float32 with the kernels against the same path with
-     the plain versions on the card, and a small geometry on the card
-     against the CPU, at the tolerances of tests/test_golden_e2e.py;
+     the plain versions on the card (the RPN's InstanceNorm + ReLU too),
+     and a small geometry on the card against the CPU, at the tolerances
+     of tests/test_golden_e2e.py;
   6. the train path's kernels vs their plain versions on the card, at the
      20 cm shapes (batch 2): the matcher (a real frame pair, no valid gt,
      every anchor masked, one class's anchors masked, gt outside the range,
@@ -220,8 +221,23 @@ Phases, each printed as it runs; any failure exits non-zero:
      from the profiler; a replay runs no wrapper, so the counters move only
      in the warm-up calls and the capture: phases 12, 13, 14(c) and 17 count
      those for the apps and the tuner, which run the captured paths).
-The last lines are the kernels table (JSON), the card's name and power
-limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
+     Each profiler count of inference also counts the RPN's InstanceNorm
+     + ReLU op (`in_relu`: statistics, finalize and apply, 19 calls a
+     frame, 16 in a packed network with `fuse_in_stats`, none in a train
+     step or on the spatial path).
+ 20. the RPN's InstanceNorm + ReLU kernel (`kernels/norm_cuda.py`) at the
+     dense 20 cm network's four map shapes, batch 1 and 4, bf16: its
+     statistics against the plain version's (float32 reassociation), its
+     apply pass bit-equal to the plain one for equal statistics; ms a call
+     (warm and after an L2 flush), its two passes apart, its bound at 6
+     bytes an element and its floor (4 bytes an element where the map
+     fits the L2 between the passes, else 6), the plain version's and the
+     library call's ms
+     (`F.instance_norm` + ReLU), each shape and summed over a frame's 19
+     pairs; the eager RPN's op calls a frame and its ms with the kernel
+     against the plain pair, in turns.
+The last lines are the kernels table and phase 20's table (JSON), the
+card's name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
 OUT` is phase 13's fresh process, not a run of its own;
 `chip_smoke.py --detect-syncs TREE` prints the host-card synchronisations
@@ -365,9 +381,27 @@ PROFILER_KERNELS = {
     "matcher_gt_max": (r"\bgt_max_kernel<",),
     "matcher_assign": (r"\bassign_kernel<",),
     "fence_copy": (r"\bcopy_(?:contiguous|transpose|strided)<",),
+    "in_relu": (r"\bin_stats<", r"\bin_finalize\(", r"\bin_apply<"),
 }
-# calls per frame of the inference path: one scatter and one NMS
-INFER_CALLS = {k: int(k in ("scatter_to_bev", "nms_keep")) for k in PROFILER_KERNELS}
+# the dense RPN's InstanceNorm + ReLU pairs, (C, H, W) at 20 cm and how many
+# a frame runs at that shape: block1's 4 and deconv1's, block2's 6, block3's
+# 6, deconv2's and deconv3's (138.24 M elements a frame)
+IN_RELU_SHAPES = {(64, 400, 400): 5, (128, 200, 200): 6, (256, 100, 100): 6, (128, 400, 400): 2}
+IN_RELU_PAIRS = sum(IN_RELU_SHAPES.values())
+IN_RELU_BYTES = 6  # bf16: one read for the sums, one read and one write to normalise and rectify
+IN_RELU_BYTES_IN_L2 = 4  # bf16, a map that stays in the L2 between the passes: one read and one write
+IN_RELU_FRAME_MS = 0.6  # the 19 pairs of a batch-1 frame at most, together (kernel time)
+
+
+def in_relu_pairs(cfg) -> int:
+    """IN + ReLU ops of an inference frame: the RPN's 19 pairs, less the
+    three upsample branches that a packed network with `fuse_in_stats`
+    normalises from Gram statistics."""
+    return IN_RELU_PAIRS - 3 * int(cfg.pack_w and cfg.fuse_in_stats)
+
+
+# calls per frame of the inference path: one scatter, one NMS and the RPN's 19 IN + ReLU pairs
+INFER_CALLS = {k: {"scatter_to_bev": 1, "nms_keep": 1, "in_relu": IN_RELU_PAIRS}.get(k, 0) for k in PROFILER_KERNELS}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1654,6 +1688,7 @@ def deploy_child(artifact: str, frames_path: str, out_path: str) -> int:
     scatter_row = "scatter_to_bev_s2d" if packed else "scatter_to_bev"
     counters = {"scatter": scatter_cuda.s2d_counter if packed else scatter_cuda.counter, "nms": nms_cuda.counter}
     infer_calls = {k: int(k in (scatter_row, "nms_keep")) for k in PROFILER_KERNELS}
+    infer_calls["in_relu"] = in_relu_pairs(runner.cfg)
     captured = {k: c.launches for k, c in counters.items()}  # two warm-up calls and the capture
     loaded = sorted(m for m in sys.modules if m.startswith(("det3d_tpu_torch.models", "det3d_tpu_torch.pipeline")))
     check(not loaded, f"the runtime imported {loaded}")
@@ -2671,6 +2706,7 @@ def spatial_world1_child(out_dir: str) -> None:
 
     from det3d_tpu_torch.config import load_config
     from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.kernels import norm_cuda
     from det3d_tpu_torch.parallel import mesh as pm
     from det3d_tpu_torch.pipeline import Detector
     from det3d_tpu_torch.train.trainer import Trainer, host_batch
@@ -2689,6 +2725,7 @@ def spatial_world1_child(out_dir: str) -> None:
         det, infer = pm.make_spatial_infer(cfg32, mesh)
         det.init_weights(SEED)
         plain = Detector(cfg32).init_weights(SEED)
+        plain.model.rpn.in_relu = norm_cuda.in_relu_plain  # the spatial path's InstanceNorms are plain pairs
         equal, captured_equal, per_frame, captured_per_frame = 0, [], [], []
         for pts in clouds[1:]:
             before = pm.collective_counts(mesh)
@@ -2818,6 +2855,7 @@ def spatial_gloo_child(rank: int, out_dir: str) -> None:
 
     from det3d_tpu_torch.config import load_config
     from det3d_tpu_torch.data.synthetic import synthetic_cloud
+    from det3d_tpu_torch.kernels import norm_cuda
     from det3d_tpu_torch.parallel import mesh as pm
     from det3d_tpu_torch.pipeline import Detector
     from det3d_tpu_torch.postprocess import Detections, to_annos
@@ -2838,6 +2876,7 @@ def spatial_gloo_child(rank: int, out_dir: str) -> None:
         clouds = [synthetic_cloud(cfg.max_points, N_POINTS, seed=SEED + 400 + i) for i in range(SP_FRAMES_GLOO + 1)]
         if rank == 0:
             plain = Detector(cfg32).init_weights(SEED)
+            plain.model.rpn.in_relu = norm_cuda.in_relu_plain  # the spatial path's InstanceNorms are plain pairs
             plain.infer(torch.from_numpy(clouds[0]).cuda(), N_POINTS)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3718,6 +3757,96 @@ def small_config():
     })
 
 
+def check_in_relu(card: str) -> dict:
+    """Phase 20: the RPN's InstanceNorm + ReLU kernel (`kernels/norm_cuda.py`)
+    at the dense 20 cm network's map shapes (`IN_RELU_SHAPES`), batch 1 and
+    INFER_BATCH, bf16: its statistics against the plain version's within
+    tests/test_torch_norm.py's float32 bounds, and its apply pass bit-equal
+    to the plain one's for equal statistics; then ms a call of the kernel
+    (CUDA events over 30 calls back to back, the map warm in the L2 as the
+    producing convolution leaves it; and single calls after an L2 flush),
+    its statistics and apply passes apart, its bound at IN_RELU_BYTES an
+    element and its floor (IN_RELU_BYTES_IN_L2 where the map fits the
+    card's L2, so the apply pass can read it there), the plain version's ms and the library call's (`F.instance_norm`
+    + ReLU, a yardstick the port never calls), each shape and a frame's 19
+    pairs summed; last the eager RPN on the canvas: its op calls a frame and
+    its ms with the kernel against the plain pair in its place, in turns."""
+    import torch.nn.functional as F
+
+    from det3d_tpu_torch.kernels import norm_cuda
+    from det3d_tpu_torch.kernels.norm_cuda import in_moments, normalize
+    from det3d_tpu_torch.models.pointpillars import RPN
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    l2_bytes = torch.cuda.get_device_properties(torch.cuda.current_device()).L2_cache_size
+    result = {}
+    for b in (1, INFER_BATCH):
+        frame = collections.Counter()
+        for (c, h, w), pairs in IN_RELU_SHAPES.items():
+            x = torch.randn((b, h, w, c), device="cuda", generator=gen) * (0.5 + torch.rand(c, device="cuda",
+                                                                                             generator=gen))
+            x = (x + torch.randn((b, 1, 1, c), device="cuda", generator=gen)).to(torch.bfloat16).permute(0, 3, 1, 2)
+            p = norm_cuda.kernel_plan(x)
+            partial, stats = norm_cuda.scratch(x, p)
+            out = torch.empty_like(x)
+            mean, inv, _ = in_moments(x)
+            norm_cuda.launch(x, False, out, partial, stats, p, parts=1)
+            mean_err = ((stats[:, 0] - mean).abs() / x.float().abs().mean(dim=(2, 3))).max().item()
+            inv_err = ((stats[:, 1] - inv).abs() / (inv * (1 + mean**2 * inv**2))).max().item()
+            check(mean_err <= 2e-5 and inv_err <= 2e-5, f"in_relu {(b, c, h, w)}: statistics off by {mean_err:.2e}, "
+                                                        f"{inv_err:.2e}")
+            stats.copy_(torch.stack([mean, inv], dim=1))
+            norm_cuda.launch(x, False, out, partial, stats, p, parts=2)
+            check(torch.equal(bits(out), bits(torch.relu(normalize(x, mean, inv)))),
+                  f"in_relu {(b, c, h, w)}: the apply pass differs from the plain one's")
+            row = dict(
+                ms=cuda_ms(lambda: norm_cuda.in_relu(x)),
+                cold_ms=single_call_ms(lambda: norm_cuda.in_relu(x), flush),
+                stats_ms=cuda_ms(lambda: norm_cuda.launch(x, False, out, partial, stats, p, parts=1)),
+                apply_ms=cuda_ms(lambda: norm_cuda.launch(x, False, out, partial, stats, p, parts=2)),
+                bound_ms=IN_RELU_BYTES * x.numel() / HBM_BYTES_PER_S * 1e3,
+                floor_ms=(IN_RELU_BYTES_IN_L2 if x.numel() * x.element_size() <= l2_bytes else IN_RELU_BYTES)
+                * x.numel() / HBM_BYTES_PER_S * 1e3,
+                plain_ms=cuda_ms(lambda: norm_cuda.in_relu_plain(x)),
+                library_ms=cuda_ms(lambda: torch.relu(F.instance_norm(x, eps=1e-3))),
+            )
+            print(f"[{card}] in_relu batch {b}, (C, H, W) {(c, h, w)} x{pairs} a frame, {p.tiles} tiles of "
+                  f"{p.rows_per_tile} rows: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+                  + f"; statistics off by {mean_err:.2e} (mean), {inv_err:.2e} (inv)")
+            result[f"b{b} {c}x{h}x{w}"] = row
+            frame.update({k: pairs * v for k, v in row.items()})
+            del x, out, partial, stats
+        result[f"b{b} frame"] = dict(frame)
+        print(f"[{card}] in_relu batch {b}, the {IN_RELU_PAIRS} pairs of a frame (batch {b}) summed: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in frame.items())
+              + (f"; kernel {'within' if frame['ms'] <= IN_RELU_FRAME_MS else 'OVER'} {IN_RELU_FRAME_MS} ms"
+                 if b == 1 else ""))
+    del flush
+
+    rpn = RPN().cuda()
+    for b in (1, INFER_BATCH):
+        canvas = torch.randn((b, 800, 800, 64), device="cuda", generator=gen).to(torch.bfloat16).permute(0, 3, 1, 2)
+        before = norm_cuda.counter.launches
+        with torch.no_grad():
+            rpn(canvas)
+        calls = norm_cuda.counter.launches - before
+        check(calls == IN_RELU_PAIRS, f"the eager RPN called in_relu {calls} times at batch {b}")
+        times = collections.defaultdict(list)
+        for name in ("kernel", "plain", "plain", "kernel"):
+            rpn.in_relu = norm_cuda.in_relu if name == "kernel" else norm_cuda.in_relu_plain
+            with torch.no_grad():
+                times[name].append(cuda_ms(lambda: rpn(canvas), iters=4))  # the host's launches inside the spin
+        rpn.in_relu = norm_cuda.in_relu
+        result[f"b{b} rpn"] = {k: min(v) for k, v in times.items()}
+        print(f"[{card}] eager RPN at batch {b} on the 800x800x64 canvas: {calls} in_relu calls; ms a call (CUDA "
+              f"events, 4 calls, in turns): with the kernel {times['kernel']}, with the plain pair {times['plain']}")
+        del canvas
+    del rpn
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--deploy-child":
         return deploy_child(*sys.argv[2:])
@@ -3729,7 +3858,7 @@ def main() -> int:
 
     from det3d_tpu_torch.config import load_config
     from det3d_tpu_torch.data.synthetic import sample_scene, synthetic_cloud
-    from det3d_tpu_torch.kernels import build, nms_cuda, scatter_cuda
+    from det3d_tpu_torch.kernels import build, nms_cuda, norm_cuda, scatter_cuda
     from det3d_tpu_torch.pipeline import Detector
 
     t_start = time.time()
@@ -3801,6 +3930,7 @@ def main() -> int:
     with_kernels = det32.infer(pts, N_POINTS)
     det32.model.scatter = scatter_cuda.scatter_to_bev_plain
     det32.postprocess.nms_keep = nms_cuda.nms_keep_plain
+    det32.model.rpn.in_relu = norm_cuda.in_relu_plain
     with_plain = det32.infer(pts, N_POINTS)
     assert_detections_close(with_kernels, with_plain, "ntusl_20cm f32, kernels vs plain")
 
@@ -4025,6 +4155,9 @@ def main() -> int:
         serve_live=f"p50 {np.percentile(live_serve, 50):.3f} ms, p95 {np.percentile(live_serve, 95):.3f} ms, "
                    f"dropped {deploy['serve_live']['dropped']}"))
 
+    phase("20. the RPN's InstanceNorm + ReLU kernel (ntusl_20cm's map shapes, bf16)")
+    in_relu = check_in_relu(card)
+
     kernels = [
         {
             "name": "scatter_to_bev", "route": "cuda",
@@ -4113,6 +4246,7 @@ def main() -> int:
     phase(None)
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"in_relu": in_relu}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -45,6 +45,12 @@ emitted per column parity; and `split_head` (`RPN(split_out=True)`), one
 pair of predictions with fy/2 columns each (column 2·y2 + p of the full
 map) and the decode consumes as a pair. `head: "multi"` selects `MultiHead`,
 one reduce + prediction head per class, in the same preds contract.
+
+In inference the dense and the packed (unblocked) RPN run each
+InstanceNorm + ReLU pair as one op, `kernels.norm_cuda.in_relu` (a
+hand-written kernel on the card), wherever `_takes_fused` finds a bf16 or
+float32 map on the card with no gradient wanted; training, the blocked,
+spatial and Gram-statistic paths, float64 and the CPU keep the plain pair.
 """
 
 from __future__ import annotations
@@ -59,6 +65,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from det3d_tpu_torch.config import Config
+from det3d_tpu_torch.kernels.norm_cuda import broadcast as _bc
+from det3d_tpu_torch.kernels.norm_cuda import in_moments as _in_moments
+from det3d_tpu_torch.kernels.norm_cuda import in_relu, instance_norm
+from det3d_tpu_torch.kernels.norm_cuda import moments_from_sums as _moments_from_sums
+from det3d_tpu_torch.kernels.norm_cuda import parity_sum as _parity_sum
 from det3d_tpu_torch.kernels.scatter_cuda import scatter_to_bev, scatter_to_bev_s2d, scatter_to_bev_s2d_blocked
 from det3d_tpu_torch.parallel.mesh import all_reduce_sum
 from det3d_tpu_torch.parallel.spatial import gather_rows, halo_conv, spatial_instance_norm
@@ -161,36 +172,6 @@ def masked_batch_stats(x: torch.Tensor, mask: torch.Tensor, bn: nn.BatchNorm1d, 
     return mean, sum_sq / denom
 
 
-def _parity_sum(s: torch.Tensor) -> torch.Tensor:
-    """(B, 2C) per-channel sums of a packed map → (B, C) sums of its logical
-    channels (channel j and j + C are one channel at even and odd columns)."""
-    c2 = s.shape[-1] // 2
-    return s[:, :c2] + s[:, c2:]
-
-
-def _moments_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: int, packed: bool):
-    """(B, C) float32 sums over n elements per channel → mean,
-    rsqrt(var + 1e-3) and the count. `packed`: channels j and j + C/2 are
-    one logical channel at even and odd columns, so their sums merge (the
-    JAX package's `_moments_from_sums`)."""
-    if packed:
-        s1, s2, n = _parity_sum(s1), _parity_sum(s2), 2 * n
-    mean = s1 / n
-    var = torch.clamp(s2 / n - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + 1e-3)
-    if packed:
-        mean, inv = torch.cat([mean, mean], dim=-1), torch.cat([inv, inv], dim=-1)
-    return mean, inv, n
-
-
-def _in_moments(x: torch.Tensor, packed: bool = False):
-    """Per-(sample, channel) float32 mean and rsqrt(var + 1e-3) of an NCHW
-    map, from single-pass sums; and the element count per channel. A
-    float64 map keeps float64 (a reference computation's precision)."""
-    xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    return _moments_from_sums(xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3)), x.shape[2] * x.shape[3], packed)
-
-
 def _reduce_cc(a: torch.Tensor, packed: bool, n: int) -> torch.Tensor:
     """Per-(sample, channel) float32 mean of an NCHW map over n elements,
     with the packed parity merge (the JAX package's `_reduce_cc`)."""
@@ -200,23 +181,9 @@ def _reduce_cc(a: torch.Tensor, packed: bool, n: int) -> torch.Tensor:
     return s / n
 
 
-def _bc(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """(B, C) statistics broadcast over an NCHW map, in its dtype."""
-    return t[:, :, None, None].to(like.dtype)
-
-
 def _bc5(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """(B, C) statistics broadcast over a blocked map's (B, nblk, C, R, W) view."""
     return t[:, None, :, None, None].to(like.dtype)
-
-
-def instance_norm(x: torch.Tensor, packed: bool = False) -> torch.Tensor:
-    """InstanceNorm2d without affine, eps 1e-3, over (H, W) of an NCHW map
-    (reference :128): float32 single-pass moments, the biased variance, and
-    the normalisation applied in the input dtype, as the JAX package does.
-    `packed`: a w-parity packed map, normalised as the unpacked map would be."""
-    mean, inv, _ = _in_moments(x, packed)
-    return (x - _bc(mean, x)) * _bc(inv, x)
 
 
 class InstanceNormFn(torch.autograd.Function):
@@ -259,6 +226,24 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _instance_norm(x)
+
+
+def _takes_fused(x: torch.Tensor) -> bool:
+    """Whether `in_relu` takes the InstanceNorm + ReLU of map x: a bf16 or
+    float32 map with no gradient wanted, on the card or traced by
+    `torch.export`. A map on the card that the kernel does not take raises
+    there, on the live and the exported path alike."""
+    return (x.dtype in (torch.bfloat16, torch.float32) and not (torch.is_grad_enabled() and x.requires_grad)
+            and (x.is_cuda or torch.compiler.is_exporting()))
+
+
+def in_relu_route(x: torch.Tensor, packed: bool, fused) -> torch.Tensor:
+    """relu(InstanceNorm(x)): `fused` (`in_relu`, or a stand-in a caller
+    set) where `_takes_fused`, else the pair as training runs it
+    (`_instance_norm`, then ReLU)."""
+    if _takes_fused(x):
+        return fused(x, packed)
+    return torch.relu(_instance_norm(x, packed))
 
 
 # --- blocked-halo instance norm ---------------------------------------------
@@ -676,18 +661,22 @@ class Resnet2(nn.Module):
             layers += [InstanceNorm(), nn.ReLU(), Conv2d(dim, dim, 3, padding=1, bias=False)]
         self.conv_block = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.conv_block(x)
+    def forward(self, x: torch.Tensor, fused) -> torch.Tensor:
+        """`fused`: the IN + ReLU op of `in_relu_route`."""
+        h = x
+        for conv in self._convs():
+            h = conv(in_relu_route(h, False, fused))
+        return x + h
 
     def _convs(self):
         return [self.conv_block[3 * i + 2] for i in range(len(self.conv_block) // 3)]
 
-    def forward_packed(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_packed(self, x: torch.Tensor, fused) -> torch.Tensor:
         """The unit on a packed map (the JAX package's `PreActResidual`,
         packed=True)."""
         h = x
         for conv in self._convs():
-            h = packed_conv(torch.relu(_instance_norm(h, True)), conv.weight, "res")
+            h = packed_conv(in_relu_route(h, True, fused), conv.weight, "res")
         return x + h
 
     def forward_blocked(self, x: torch.Tensor, nblk: int, valid_rows: int, top_in: int,
@@ -772,6 +761,9 @@ class RPN(nn.Module):
             )
             cin = width
         self.num_blocks = len(layer_nums)
+        # the InstanceNorm + ReLU of the inference forward (`in_relu_route`);
+        # a caller may set the plain version in its place to compare the two
+        self.in_relu = in_relu
         self.layer_nums = tuple(layer_nums)
         self.upsample_strides = tuple(upsample_strides)
         self.num_upsample_filters = tuple(num_upsample_filters)
@@ -785,8 +777,11 @@ class RPN(nn.Module):
         if not pack_w:
             ups = []
             for b in range(1, self.num_blocks + 1):
-                x = getattr(self, f"block{b}")(x)
-                ups.append(getattr(self, f"deconv{b}")(x))
+                block = getattr(self, f"block{b}")
+                x = in_relu_route(block[0](x), False, self.in_relu)
+                for unit in block[3:]:
+                    x = unit(x, self.in_relu)
+                ups.append(in_relu_route(getattr(self, f"deconv{b}")[0](x), False, self.in_relu))
             return torch.cat(ups, dim=1)
         return self._forward_packed(x, block0_blocked, late_blocked, fuse_in_stats, split_out)
 
@@ -826,9 +821,9 @@ class RPN(nn.Module):
                     x = packed_conv(x, block[0].weight, "down")
                 else:
                     x = block[0](x)
-                x = torch.relu(_instance_norm(x, b == 1))
+                x = in_relu_route(x, b == 1, self.in_relu)
                 for unit in block[3:]:
-                    x = unit.forward_packed(x) if b == 1 else unit(x)
+                    x = unit.forward_packed(x, self.in_relu) if b == 1 else unit(x, self.in_relu)
             up = getattr(self, f"deconv{b}")[0]
             strided = self.upsample_strides[b - 1] > 1
             if fuse_in_stats:
@@ -836,7 +831,7 @@ class RPN(nn.Module):
                 ups.append((fused_deconv_split if strided else fused_pointwise_split)(x, up.weight))
                 continue
             u = pack_columns(up(x)) if strided else packed_pointwise(x, up.weight)
-            u = torch.relu(_instance_norm(u, True))
+            u = in_relu_route(u, True, self.in_relu)
             bw = self.num_upsample_filters[b - 1]
             ups.append((u[:, :bw], u[:, bw:]))
         per_parity = [[u[p] for u in ups] for p in (0, 1)]
