@@ -1,4 +1,4 @@
-"""The readings that the detector cells' `det_gap` limit is set from.
+"""The readings that a detector cell's limits (`compare_limits`) are set from.
 
     python3 benchmark/control.py --workload NAME --seeds 12 [--control-seeds 3] [--first-seed N]
 
@@ -9,11 +9,12 @@ mix's batch for offline batches) on as many frames as a run compares
 and, on the first `--control-seeds` seeds, the control (the plain
 reference in the program's place, computed in float8 e4m3, the precision
 below the configuration's bfloat16) and each fault of `FAULTS` that the
-cell's kind can have, planted in the program's timed entry. Everything is
-judged against the float32 reference by `benchmark/lib/compare.py`.
-Prints one line a seed and reading, then the largest program reading and
-the smallest control and fault readings. The benchmark's own runs do not
-run this.
+cell's kind can have, planted in the program's timed entry. The
+configuration's family (`benchmark/families/<family>.py`) makes the
+weights, the sweeps, the float32 reference, the control and the judgement.
+Prints one line a seed, reading and number compared, then per number the
+largest program reading and the smallest control and fault readings. The
+benchmark's own runs do not run this.
 """
 
 from __future__ import annotations
@@ -28,8 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmark.lib import compare, harness, traffic, weights  # noqa: E402
-from benchmark.reference import pointpillars as ref  # noqa: E402
+from benchmark.lib import harness, traffic  # noqa: E402
 
 
 def alter_answer(det) -> None:
@@ -100,13 +100,14 @@ def readings(workload: str, seeds: list[int], control_seeds: int, device: str = 
     config = next(c for c in spec["configs"] if c["name"] == cell["config"])
     path = harness.ROOT / config["file"]
     mix = json.loads((harness.BENCH / "traffic" / f"{cell['traffic']}.json").read_text())
-    cfg, geo = load_config(path), ref.geometry(path)
+    fam = harness.family(json.loads(path.read_text()))
+    cfg, geo = load_config(path), fam.geometry(path)
     n_frames = mix.get("compare", mix.get("compare_batches", 1) * mix.get("batch", 1))
     faults = FAULTS[mix["kind"]]
     out = {"program": [], "control": [], **{name: [] for name in faults}}
     for si, seed in enumerate(seeds):
-        w = weights.make(seed, geo, device)
-        pool = traffic.cloud_pool(mix, seed)
+        w = fam.make_weights(seed, geo, device)
+        pool = traffic.cloud_pool(mix, seed, fam.point_cloud)
         picks = traffic.rng(seed, 7).choice(len(pool), min(n_frames, len(pool)), replace=False)
         frames = [pool[int(i)] for i in picks]
         answers = {}
@@ -117,19 +118,19 @@ def readings(workload: str, seeds: list[int], control_seeds: int, device: str = 
                 plant(det)
             answers[name] = program_answers(det, cfg, mix, frames)
             del det
-        net = weights.reference_network(w, geo, device)
-        worst = {name: 0.0 for name in answers}
+        net = fam.reference_network(w, geo, device)
+        if si < control_seeds:
+            answers["control"] = [fam.control_annos(net, f, geo, device) for f in frames]
+        worst = {name: {} for name in answers}
         for i, f in enumerate(frames):
-            cands = ref.frame(net, f, len(f), geo, device)
+            expected = fam.reference_frame(net, f, geo, device)
             for name, a in answers.items():
-                worst[name] = max(worst[name], compare.judge_frame(a[i], cands, f"seed {seed} {name}")["det_gap"])
-            if si < control_seeds:
-                low = ref.finalize(ref.frame(net, f, len(f), geo, device, prec="fp8"))
-                worst["control"] = max(worst.get("control", 0.0),
-                                       compare.judge_frame(compare.reference_annos(low), cands, "control")["det_gap"])
-        for name, v in worst.items():
-            out[name].append(v)
-            print(f"seed {seed}: {name} det_gap {v:.6g}", flush=True)
+                for number, v in fam.check_frame(expected, a[i], f"seed {seed} {name}").numbers.items():
+                    worst[name][number] = max(worst[name].get(number, 0.0), v)
+        for name, got in worst.items():
+            out[name].append(got)
+            for number, v in got.items():
+                print(f"seed {seed}: {name} {number} {v:.6g}", flush=True)
         del net
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -148,7 +149,8 @@ def main(argv=None) -> int:
     summary = {"workload": args.workload}
     for key, rows in out.items():
         if rows:
-            summary[key] = (max if key == "program" else min)(rows)
+            pick = max if key == "program" else min
+            summary[key] = {number: pick(r[number] for r in rows) for number in rows[0]}
     print(json.dumps({**summary, "readings": out}))
     return 0
 

@@ -2,7 +2,10 @@
 read, and the result line.
 
 Everything a cell needs is found by name: its entry in `BENCHMARK.json`,
-the configuration file it names, the traffic mix `benchmark/traffic/<traffic>.json`
+the configuration file it names, the detector family that file names
+(`"family"`, `pointpillars` without the key: `benchmark/families/<family>.py`,
+which holds the reference, the weights, the comparison and the yardstick
+of that architecture), the traffic mix `benchmark/traffic/<traffic>.json`
 (whose `kind` picks the loop in `loops.KINDS`), and one reader
 `benchmark/metrics/<metric>.py` for each metric, whose `read(run)` returns
 the value or None where the run has nothing to read.
@@ -19,6 +22,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "benchmark"
 FORBIDDEN = ("jax", "jaxlib", "flax", "det3d_tpu")
+DEFAULT_FAMILY = "pointpillars"
 
 
 class Run:
@@ -29,6 +33,7 @@ class Run:
         self.config = next(c for c in spec["configs"] if c["name"] == cell["config"])
         self.config_path = ROOT / self.config["file"]
         self.config_file = json.loads(self.config_path.read_text())
+        self.family = family(self.config_file)
         self.mix = json.loads((BENCH / "traffic" / f"{cell['traffic']}.json").read_text())
         self.plant = None
         self.setup_s = None
@@ -50,6 +55,16 @@ def find_cell(spec: dict, name: str) -> dict:
         if cell["name"] == name:
             return cell
     raise SystemExit(f"no workload named {name!r} in BENCHMARK.json")
+
+
+def family(config_file: dict):
+    """The family module that a configuration file names, imported under
+    its dotted path in the checkout."""
+    name = config_file.get("family", DEFAULT_FAMILY)
+    path = (BENCH / "families" / f"{name}.py").resolve()
+    if not path.is_file() or not path.is_relative_to(ROOT):
+        raise SystemExit(f"family {name!r}: no family module at {path}")
+    return importlib.import_module(".".join(path.relative_to(ROOT).with_suffix("").parts))
 
 
 def reader(name: str):
@@ -82,9 +97,15 @@ def limits(run: Run) -> dict:
 
 
 def verdict(run: Run, compared: dict) -> tuple[bool, dict]:
+    """Each limit of the configuration beside its number; a limit whose
+    number the family did not give fails."""
     lim = limits(run)
+    unlimited = sorted(set(compared) - set(lim))
+    if unlimited:
+        raise SystemExit(f"compared numbers {unlimited} have no limit in {run.config_path}")
     out, ok = {}, True
-    for name, value in compared.items():
-        out[name] = {"value": float(value), "limit": float(lim[name])}
-        ok &= math.isfinite(value) and value <= lim[name]
+    for name, limit in lim.items():
+        value = compared.get(name)
+        out[name] = {"value": None if value is None else float(value), "limit": float(limit)}
+        ok &= value is not None and math.isfinite(value) and value <= limit
     return ok, out

@@ -6,6 +6,9 @@ program is reached only through its public entry points and the stage
 functions its modules call: `Detector.detect` (the stream) and
 `Detector.infer_batch_jit` (offline batches), with `Detector.pad_points`
 and `postprocess.to_annos` around them where the user makes those calls.
+What depends on the architecture (weights, sweeps, the reference check,
+the eager stage calls, the NMS rank cap) is asked of the configuration's
+family, `run.family`.
 """
 
 from __future__ import annotations
@@ -19,9 +22,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark.lib import compare, counts, traffic, weights
+from benchmark.lib import counts, traffic
 from benchmark.lib import trace as tr
-from benchmark.reference import pointpillars as ref
 
 TRACE_SECONDS = 2.0     # the traced stretch of a --trace 1 run, after its window
 STAGE_FRAMES = 4        # frames of the eager pass that attributes device time to stages
@@ -56,14 +58,14 @@ class Detect:
 
         run.log(f"set-up: imports done at {time.perf_counter() - run.t_start:.3f} s")
         run.cfg = load_config(run.config_path)
-        run.geo = ref.geometry(run.config_path)
-        run.weights = weights.make(run.seed, run.geo, run.device)
+        run.geo = run.family.geometry(run.config_path)
+        run.weights = run.family.make_weights(run.seed, run.geo, run.device)
         run.det = Detector(run.cfg, device=run.device)
         run.det.load_state_dict(run.weights)
         if run.plant is not None:
             run.plant(run)
         run.log(f"set-up: detector and weights at {time.perf_counter() - run.t_start:.3f} s")
-        run.pool = traffic.cloud_pool(run.mix, run.seed)
+        run.pool = traffic.cloud_pool(run.mix, run.seed, run.family.point_cloud)
         run.log(f"set-up: frame pool at {time.perf_counter() - run.t_start:.3f} s")
         run.kept = {}            # sample id -> (pool frame, annos)
 
@@ -74,29 +76,34 @@ class Detect:
             torch.cuda.empty_cache()
 
     def check(self, run) -> dict:
-        """Every sampled frame through the reference → the largest det_gap."""
-        net = weights.reference_network(run.weights, run.geo, run.device)
-        worst, rows, valid = None, [], []
+        """Every sampled frame through the family's reference → the largest
+        of each number compared."""
+        fam = run.family
+        net = fam.reference_network(run.weights, run.geo, run.device)
+        worst, notes, valid = {}, [], []
         for sid in sorted(run.kept):
             f, annos = run.kept[sid]
-            pts = run.pool[f]
-            cands = ref.frame(net, pts, len(pts), run.geo, run.device)
-            valid += [c.top_k for c in cands]
-            got = compare.judge_frame(annos, cands, f"sample {sid} (pool frame {f})")
-            rows.append((sid, f, got))
-            if worst is None or got["det_gap"] > worst["det_gap"]:
-                worst = got
+            got = fam.check_frame(fam.reference_frame(net, run.pool[f], run.geo, run.device), annos,
+                                  f"sample {sid} (pool frame {f})")
+            valid.append(got.valid)
+            notes.append(f"compared sample {sid} (pool frame {f}): {got.note}")
+            for name, v in got.numbers.items():
+                worst[name] = max(worst.get(name, v), v)
         run.nms_valid = valid
-        for sid, f, got in rows:
-            run.log(f"compared sample {sid} (pool frame {f}): det_gap {got['det_gap']:.6g} (explain "
-                    f"{got['explain']:.6g}, overlap {got['overlap']:.6g}, cover {got['cover']:.6g}), "
-                    f"{got['kept']} boxes kept")
-        return {"det_gap": worst["det_gap"]}
+        for note in notes:
+            run.log(note)
+        return worst
 
     def stage_pass(self, run, batch: int) -> None:
-        """Eager stage calls under the benchmark's ranges, profiled: device
-        ms per frame of preprocess, network and postprocess."""
-        from det3d_tpu_torch.postprocess import frame_preds
+        """The family's eager stage calls under the benchmark's ranges,
+        profiled: device ms per frame of each stage."""
+        from det3d_tpu_torch import postprocess
+
+        @contextlib.contextmanager
+        def stage(name: str):
+            with ranged(True, f"bench.{name}"):
+                yield
+                _sync(run.device)
 
         mod = run.det.module
         frames = [run.det.pad_points(run.pool[i % len(run.pool)]) for i in range(STAGE_FRAMES * batch)]
@@ -106,17 +113,7 @@ class Detect:
                 pts = [torch.as_tensor(p, device=run.device) for p, _ in group]
                 ns = [torch.as_tensor(n, device=run.device) for _, n in group]
                 _sync(run.device)
-                with ranged(True, "bench.preprocess"):
-                    pre = [mod.preprocess(p, n) for p, n in zip(pts, ns)]
-                    _sync(run.device)
-                with ranged(True, "bench.network"):
-                    preds = mod.model(*(torch.stack([getattr(f, k) for f, _ in pre])
-                                        for k in ("voxels", "num_points_per_voxel", "coors")))
-                    _sync(run.device)
-                with ranged(True, "bench.postprocess"):
-                    cands = [mod.postprocess.decode_stage(frame_preds(preds, i), m) for i, (_, m) in enumerate(pre)]
-                    mod.postprocess.finalize_frames(cands)
-                    _sync(run.device)
+                run.family.stage_calls(mod, pts, ns, stage, postprocess)
         per = {}
         for s, e, name in t.ranges:
             per[name] = per.get(name, 0.0) + tr.busy_us(tr.device_in(t, s, e)) / 1e3
@@ -131,7 +128,7 @@ class Detect:
         run.trace_window_s = (hi - lo) / 1e6
         run.trace_busy_s = tr.busy_us(dev) / 1e6
         run.breakdown = {"device_ops": tr.top_ops(dev), "idle_gaps": tr.idle_gaps(t, lo, hi)}
-        run.kernels = {k: tr.kernel_time(dev, p) for k, p in counts.KERNELS.items()}
+        run.kernels = {k: tr.kernel_time(dev, counts.KERNELS[k]) for k in run.family.KERNELS}
         run.nms_calls = sum(1 for _, _, name in dev if "mask_tiles(" in name)
 
 
@@ -279,17 +276,16 @@ KINDS = {"stream": Stream, "offline": Offline}
 
 
 def nms_bound_s(run) -> float | None:
-    """The NMS bound of one call over the classes of `batch` frames, from
-    the compared frames' valid candidate counts."""
-    if not getattr(run, "nms_valid", None):
+    """The NMS bound of one call over the rows of `batch` frames, from the
+    compared frames' valid candidate counts."""
+    frames = getattr(run, "nms_valid", None)
+    if not frames:
         return None
-    per_frame = len(run.geo.channels)
-    frames = len(run.nms_valid) // per_frame
     b = run.mix.get("batch", 1)
     total = 0.0
-    for i in range(frames):
-        total += counts.nms_bound_s(run.nms_valid[i * per_frame:(i + 1) * per_frame] * b, ref.NMS_PRE_MAX)[0]
-    return total / frames if frames else None
+    for valid in frames:
+        total += counts.nms_bound_s(valid * b, run.family.NMS_RANK_CAP)[0]
+    return total / len(frames)
 
 
 def percentile(values, q: float) -> float:

@@ -17,6 +17,11 @@ def service_p50_ms(run):
     return None if s is None or not s["service_s"] else statistics.median(s["service_s"]) * 1e3
 
 
+def service_mean_ms(run):
+    s = getattr(run, "stream", None)
+    return None if s is None or not s["service_s"] else sum(s["service_s"]) / len(s["service_s"]) * 1e3
+
+
 def generator_late_p95_ms(run):
     s = getattr(run, "stream", None)
     return None if s is None or not s["late_s"] else loops.percentile(s["late_s"], 95) * 1e3
@@ -56,17 +61,19 @@ def stage_device_ms(run, stage: str):
     return ms if ms else None
 
 
-def roofline_pct(run, kernel: str, bound):
+def roofline_pct(run, kernel: str, bound_s: float):
     """A kernel's bound over its time, summed over its launches in the
-    traced stretch; `bound(geo, batch)` is one launch's."""
+    traced stretch; `bound_s` is one launch's."""
     k = getattr(run, "kernels", {}).get(kernel)
     if not k or not k[1] or k[0] <= 0:
         return None
-    return 100.0 * bound(run.geo, run.mix.get("batch", 1)) * k[1] / k[0]
+    return 100.0 * bound_s * k[1] / k[0]
 
 
 def scatter_roofline_pct(run):
-    return roofline_pct(run, "scatter", counts.scatter_bound_s)
+    """The BEV scatter's bytes, at the cell's batch, at the HBM rate."""
+    bound_s = run.family.scatter_bytes(run.geo, run.mix.get("batch", 1)) / counts.HBM_BYTES_PER_S
+    return roofline_pct(run, "scatter", bound_s)
 
 
 def nms_roofline_pct(run):
@@ -81,7 +88,7 @@ def nms_roofline_pct(run):
 def mfu_pct(run):
     """Network FLOPs over the time they took, against the bf16 dense peak:
     per call in the stream, the whole window in the closed loops."""
-    flops = counts.network_flops(run.geo)
+    flops = run.family.network_flops(run.geo)
     s = getattr(run, "stream", None)
     if s is not None and s["service_s"]:
         return 100.0 * flops / statistics.median(s["service_s"]) / counts.BF16_FLOPS_PER_S

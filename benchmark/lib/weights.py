@@ -2,26 +2,28 @@
 and to the reference.
 
 One normal draw on the device fills every kernel (LeCun normal, std
-1/sqrt(fan in)); biases are zero but the classification bias, which sits at
-the focal-loss prior of 0.01 as detection heads are initialised; the pillar
-batch norm starts as the identity. The names and shapes are the
-reference's state_dict keys (`benchmark/reference/pointpillars.Network`),
-which the program loads strictly.
+1/sqrt(fan in)); biases are zero, and norms start as the identity. The
+names and shapes are a family's reference's state_dict keys, which the
+program loads strictly; the family sets what it starts elsewhere
+(`benchmark/families/<family>.py`: `make_weights`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
-
-from benchmark.reference import pointpillars as ref
-
-CLS_PRIOR = 0.01
+from torch import nn
 
 
-def make(seed: int, geo: ref.Geometry, device) -> dict[str, torch.Tensor]:
-    shapes = {k: v.shape for k, v in ref.Network(geo.num_channels).state_dict().items()}
+def draw(seed: int, state: dict[str, torch.Tensor], device,
+         fan_in: Callable[[str, torch.Size], int]) -> dict[str, torch.Tensor]:
+    """Every entry of `state` made anew from the seed, in its order: the
+    kernels (weights of three dimensions or more) from one draw, each
+    scaled by its `fan_in(name, shape) ** -0.5`; then norm scales and
+    running variances at one, batch counters and the rest at zero."""
+    shapes = {k: v.shape for k, v in state.items()}
     kernels = [k for k, s in shapes.items() if k.endswith("weight") and len(s) >= 3]
     gen = torch.Generator(device=device).manual_seed(seed % 2**63)
     total = sum(math.prod(shapes[k]) for k in kernels)
@@ -30,9 +32,7 @@ def make(seed: int, geo: ref.Geometry, device) -> dict[str, torch.Tensor]:
     for k in kernels:
         s = shapes[k]
         n = math.prod(s)
-        # kernels are (out, in, ...), transposed ones (in, out, ...)
-        fan_in = (s[0] if ".deconv" in k else s[1]) * math.prod(s[2:])
-        out[k] = flat[at:at + n].view(s) * fan_in ** -0.5
+        out[k] = flat[at:at + n].view(s) * fan_in(k, s) ** -0.5
         at += n
     for k, s in shapes.items():
         if k in out:
@@ -43,11 +43,11 @@ def make(seed: int, geo: ref.Geometry, device) -> dict[str, torch.Tensor]:
             out[k] = torch.zeros(s, dtype=torch.int64, device=device)
         else:
             out[k] = torch.zeros(s, device=device)
-    out["heads.conv_cls.bias"] = torch.full_like(out["heads.conv_cls.bias"], -math.log((1 - CLS_PRIOR) / CLS_PRIOR))
     return out
 
 
-def reference_network(weights: dict[str, torch.Tensor], geo: ref.Geometry, device) -> ref.Network:
-    net = ref.Network(geo.num_channels).to(device)
+def load(net: nn.Module, weights: dict[str, torch.Tensor], device) -> nn.Module:
+    """`net` on the device holding a copy of the weights, strictly, in eval mode."""
+    net = net.to(device)
     net.load_state_dict({k: v.clone() for k, v in weights.items()}, strict=True)
     return net.eval()

@@ -3,7 +3,10 @@
     python3 benchmark/run.py --workload NAME --seed N --seconds S --trace 0|1
 
 from the root of a checkout, on a machine with the CUDA cards the cell
-asks for. Set-up (imports, the kernels' build into the program's cache in
+asks for. What the cell needs is found by name (`benchmark/lib/harness.py`):
+the configuration file, the detector family it names
+(`benchmark/families/<family>.py`: reference, weights, sweeps, comparison,
+yardstick), the traffic mix and one reader a metric. Set-up (imports, the kernels' build into the program's cache in
 the checkout, weights made on the card from the seed, the frame pool, the
 warm-up calls and the graph capture) ends at the first timed call; the
 window then runs the cell's traffic for S seconds; with --trace 1 a traced

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.lib import compare, harness, traffic, weights
-from benchmark.reference import pointpillars as ref
+from benchmark.families import pointpillars as pp
+from benchmark.lib import compare, harness, traffic
 
 SMALL = harness.ROOT / "benchmark" / "tests" / "small_config.json"
 LIMITS = json.loads((harness.BENCH / "configs" / "ntusl_20cm.json").read_text())["compare_limits"]
@@ -20,9 +20,9 @@ SEED = 2**31 + 5
 
 
 def frame_inputs(seed: int = SEED, frame: int = 0):
-    geo = ref.geometry(SMALL)
-    w = weights.make(seed, geo, "cpu")
-    pts = traffic.cloud(5000, traffic.rng(seed, 9, frame)) * np.array([0.4, 0.4, 1, 1], np.float32)
+    geo = pp.geometry(SMALL)
+    w = pp.make_weights(seed, geo, "cpu")
+    pts = pp.point_cloud(5000, traffic.rng(seed, 9, frame)) * np.array([0.4, 0.4, 1, 1], np.float32)
     return geo, w, pts
 
 
@@ -38,15 +38,15 @@ def program_annos(w, pts, dtype: str):
 @pytest.fixture(scope="module")
 def judged():
     geo, w, pts = frame_inputs()
-    net = weights.reference_network(w, geo, "cpu")
-    cands = ref.frame(net, pts, len(pts), geo, "cpu")
+    net = pp.reference_network(w, geo, "cpu")
+    cands = pp.reference_frame(net, pts, geo, "cpu")
     return geo, w, pts, net, cands
 
 
 def test_reference_agrees_with_program_in_float32(judged):
     _, w, pts, _, cands = judged
-    got = compare.judge_frame(program_annos(w, pts, "float32"), cands, "f32")
-    assert got["det_gap"] < 1e-3
+    got = pp.check_frame(cands, program_annos(w, pts, "float32"), "f32")
+    assert got.numbers["det_gap"] < 1e-3
 
 
 @pytest.mark.parametrize("seed", [SEED, SEED + 1, SEED + 2])
@@ -56,11 +56,11 @@ def test_bf16_program_passes_and_fp8_control_fails(seed):
     program = low = 0.0
     for frame in range(6):
         geo, w, pts = frame_inputs(seed, frame)
-        net = weights.reference_network(w, geo, "cpu")
-        cands = ref.frame(net, pts, len(pts), geo, "cpu")
-        program = max(program, compare.judge_frame(program_annos(w, pts, "bfloat16"), cands, "bf16")["det_gap"])
-        control = ref.finalize(ref.frame(net, pts, len(pts), geo, "cpu", prec="fp8"))
-        low = max(low, compare.judge_frame(compare.reference_annos(control), cands, "control")["det_gap"])
+        net = pp.reference_network(w, geo, "cpu")
+        cands = pp.reference_frame(net, pts, geo, "cpu")
+        program = max(program, pp.check_frame(cands, program_annos(w, pts, "bfloat16"), "bf16").numbers["det_gap"])
+        control = pp.control_annos(net, pts, geo, "cpu")
+        low = max(low, pp.check_frame(cands, control, "control").numbers["det_gap"])
     assert program < LIMITS["det_gap"] < low
 
 
@@ -68,11 +68,11 @@ def test_finite_when_a_near_threshold_box_is_gated_out(judged):
     """The program gates one near-threshold anchor to -inf that the
     reference keeps: one box fewer, the gap finite."""
     *_, cands = judged
-    annos = compare.reference_annos(ref.finalize(cands))
+    annos = pp.reference_annos(pp.ref.finalize(cands))
     lowest = int(np.argmin(annos["score"]))
     keep = np.arange(len(annos["score"])) != lowest
     fewer = {k: v[keep] for k, v in annos.items()}
-    got = compare.judge_frame(fewer, cands, "gated")
+    got = pp.judge_frame(fewer, cands, "gated")
     assert all(math.isfinite(v) for v in got.values())
 
 
@@ -83,7 +83,7 @@ def test_finite_with_invalid_slots_and_saturated_scores(judged):
     from det3d_tpu_torch.postprocess import Detections, to_annos
 
     *_, cands = judged
-    annos = compare.reference_annos(ref.finalize(cands))
+    annos = pp.reference_annos(pp.ref.finalize(cands))
     n = len(annos["score"])
     boxes = torch.zeros((3, 4, 7))
     scores = torch.full((3, 4), -1.0)
@@ -94,23 +94,23 @@ def test_finite_with_invalid_slots_and_saturated_scores(judged):
     valid[0, 0] = True
     out = to_annos(load_config(SMALL), Detections(boxes, scores, valid))
     assert len(out["score"]) == 1 and n >= 1
-    got = compare.judge_frame(out, cands, "sentinels")
+    got = pp.judge_frame(out, cands, "sentinels")
     assert all(math.isfinite(v) for v in got.values())
 
 
 def test_finite_when_kept_counts_differ_by_one(judged):
     *_, cands = judged
-    annos = compare.reference_annos(ref.finalize(cands))
+    annos = pp.reference_annos(pp.ref.finalize(cands))
     more = {k: np.concatenate([v, v[:1]]) for k, v in annos.items()}
-    got = compare.judge_frame(more, cands, "one more")
+    got = pp.judge_frame(more, cands, "one more")
     assert all(math.isfinite(v) for v in got.values())
 
 
 @pytest.mark.parametrize("field,value", [("location", math.nan), ("score", math.inf), ("score", -1.0)])
 def test_unusable_output_is_named_not_numbered(judged, field, value):
     *_, cands = judged
-    annos = compare.reference_annos(ref.finalize(cands))
+    annos = pp.reference_annos(pp.ref.finalize(cands))
     bad = {k: v.copy() for k, v in annos.items()}
     bad[field][1] = value
     with pytest.raises(compare.BadOutput, match=r"sample 3: .* at slot \d+"):
-        compare.judge_frame(bad, cands, "sample 3")
+        pp.judge_frame(bad, cands, "sample 3")

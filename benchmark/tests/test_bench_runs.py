@@ -52,14 +52,18 @@ def test_forbidden_modules_by_whole_top_level_name(monkeypatch):
     assert harness.forbidden_modules() == ["det3d_tpu.pipeline"]
 
 
-def test_reference_and_yardstick_import_nothing_of_the_program():
-    for rel in ("reference/pointpillars.py", "lib/compare.py",
-                "lib/counts.py", "lib/traffic.py", "lib/weights.py"):
-        tree = ast.parse((harness.BENCH / rel).read_text())
-        names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
-        names |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
-        tops = {n.split(".")[0] for n in names}
-        assert not tops & {"jax", "jaxlib", "flax", "det3d_tpu", "det3d_tpu_torch"}, rel
+YARDSTICK = sorted({*(str(p.relative_to(harness.BENCH)) for d in ("families", "reference")
+                      for p in (harness.BENCH / d).glob("*.py")),
+                    "tests/toy_family.py", "lib/compare.py", "lib/counts.py", "lib/traffic.py", "lib/weights.py"})
+
+
+@pytest.mark.parametrize("rel", YARDSTICK)
+def test_reference_and_yardstick_import_nothing_of_the_program(rel):
+    tree = ast.parse((harness.BENCH / rel).read_text())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+    tops = {n.split(".")[0] for n in names}
+    assert not tops & {"jax", "jaxlib", "flax", "det3d_tpu", "det3d_tpu_torch"}, rel
 
 
 def test_a_run_loads_no_jax(tmp_path):
