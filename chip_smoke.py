@@ -236,6 +236,25 @@ Phases, each printed as it runs; any failure exits non-zero:
      (`F.instance_norm` + ReLU), each shape and summed over a frame's 19
      pairs; the eager RPN's op calls a frame and its ms with the kernel
      against the plain pair, in turns.
+ 21. the rotated NMS kernel (`nms_cuda.nms_keep_rotated`, the center
+     model's): keep sets equal to the plain version's (`ops/nms.py`
+     `greedy_keep_rotated` on the card) at 6 x 1000 and 24 x 1000 boxes
+     over several seeds, spread and dense; ms a call, the mask kernel and
+     the sweep apart, its bound (the circle reject of every valid pair and
+     the clip of every pair whose circles meet, float32) and the plain ms.
+ 22. the center model (CenterPoint-PP, `benchmark/configs/
+     centerpoint_pp_nusc.json`, every published width) through `detect`
+     and `infer_batch_jit` at batch 4, captured, on the benchmark family's
+     seeded weights and sweeps: ms a frame and a batch, kernels per replay
+     by the profiler (all, scatter, `mask_tiles`, `sweep`), peak memory,
+     kept boxes and gated candidates a task. At its shapes: the dense
+     scatter against its plain version (batch 4, 60 000 pillar slots, 60 000,
+     41 000 and 0 valid, 512 x 512, bit-equal in f32 and bf16), the full path
+     at batch 4 in float32 with the kernels against the plain scatter and
+     rotated NMS (phase 5's tolerances), and each answer of `detect` (2
+     frames) and of `infer_batch_jit` (4 frames) under the configuration's
+     `center_gap` limit (`benchmark/families/centerpoint.py`).
+`chip_smoke.py --center` runs phases 21-22 alone (~2 min).
 The last lines are the kernels table and phase 20's table (JSON), the
 card's name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
@@ -510,43 +529,47 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
-def scatter_inputs(v: int, c: int, grid_xy, n_valid: int, dtype, gen: torch.Generator):
+def scatter_inputs(v: int, c: int, grid_xy, n_valid: int, dtype, gen: torch.Generator, batch: int = 1):
     nx, ny = grid_xy
-    feats = torch.randn((1, v, c), generator=gen).to(dtype)
-    coors = torch.full((1, v, 3), -1, dtype=torch.int32)
-    cells = torch.randperm(nx * ny, generator=gen)[:n_valid]
-    coors[0, :n_valid, 0] = (cells // ny).to(torch.int32)
-    coors[0, :n_valid, 1] = (cells % ny).to(torch.int32)
-    coors[0, :n_valid, 2] = 0
+    feats = torch.randn((batch, v, c), generator=gen).to(dtype)
+    coors = torch.full((batch, v, 3), -1, dtype=torch.int32)
+    for b in range(batch):
+        cells = torch.randperm(nx * ny, generator=gen)[:n_valid]
+        coors[b, :n_valid, 0] = (cells // ny).to(torch.int32)
+        coors[b, :n_valid, 1] = (cells % ny).to(torch.int32)
+        coors[b, :n_valid, 2] = 0
     return feats.cuda(), coors.cuda()
 
 
-def check_scatter(grid_xy, v: int, c: int) -> dict:
+def check_scatter(grid_xy, v: int, c: int, batch: int = 1, counts=(12_000, 0)) -> dict:
+    """The dense scatter against its plain version at `batch` frames of `v`
+    pillar slots, `counts` of them valid (each bit-equal, f32 and bf16),
+    and timed at the first count."""
     from det3d_tpu_torch.kernels import scatter_cuda as sc
 
     gen = torch.Generator().manual_seed(SEED)
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for n_valid in (12_000, 0):
-            feats, coors = scatter_inputs(v, c, grid_xy, n_valid, dtype, gen)
+        for n_valid in counts:
+            feats, coors = scatter_inputs(v, c, grid_xy, n_valid, dtype, gen, batch)
             got = sc.scatter_to_bev_cuda(feats, coors, grid_xy)
             want = sc.scatter_to_bev_plain(feats, coors, grid_xy)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             equal = torch.equal(bits(got), bits(want))
-            print(f"scatter {str(dtype):15s} valid={n_valid:5d}: bit-equal={equal} max_abs_err={err}")
-            check(equal, f"scatter {dtype} with {n_valid} pillars differs from the plain version")
+            print(f"scatter {str(dtype):15s} batch={batch} valid={n_valid:5d}: bit-equal={equal} max_abs_err={err}")
+            check(equal, f"scatter {dtype} at batch {batch} with {n_valid} pillars differs from the plain version")
             result["max_abs_err"] = max(result.get("max_abs_err", 0.0), err)
-        # times at the main path's shape, with the ~12k-pillar input
-        feats, coors = scatter_inputs(v, c, grid_xy, 12_000, dtype, gen)
-        keep = coors[0, :, 0] >= 0
-        idx = (torch.zeros_like(coors[0, keep, 0]).long(), coors[0, keep, 0].long(), coors[0, keep, 1].long())
-        rows = feats[0, keep]
+        # times at the first count
+        feats, coors = scatter_inputs(v, c, grid_xy, counts[0], dtype, gen, batch)
+        frame, slot = (coors[..., 0] >= 0).nonzero(as_tuple=True)
+        idx = (frame, coors[frame, slot, 0].long(), coors[frame, slot, 1].long())
+        rows = feats[frame, slot]
         nx, ny = grid_xy
         ms = cuda_ms(lambda: sc.scatter_to_bev_cuda(feats, coors, grid_xy))
         plain_ms = cuda_ms(lambda: sc.scatter_to_bev_plain(feats, coors, grid_xy))
-        library_ms = cuda_ms(lambda: torch.zeros((1, nx, ny, c), dtype=dtype, device="cuda").index_put_(idx, rows))
-        moved = (nx * ny * c + v * c) * feats.element_size() + coors.numel() * 4
+        library_ms = cuda_ms(lambda: torch.zeros((batch, nx, ny, c), dtype=dtype, device="cuda").index_put_(idx, rows))
+        moved = batch * (nx * ny * c + v * c) * feats.element_size() + coors.numel() * 4
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
         print(f"scatter {str(dtype):15s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} (bytes)")
@@ -3847,6 +3870,148 @@ def check_in_relu(card: str) -> dict:
     return result
 
 
+ROTATED_K = 1000
+ROTATED_ROWS = (6, 24)        # a frame's tasks, a batch of four frames' tasks
+ROTATED_SEEDS = (0, 1, 2, 3)
+
+
+def rotated_rows(rows: int, seed: int, spread_m: float):
+    """`rows` rows of ROTATED_K rotated boxes [cx, cy, dx, dy, angle] on
+    the card, centres over a square of `spread_m` metres, 80 % valid."""
+    import math
+
+    g = torch.Generator().manual_seed(seed)
+    centre = (torch.rand(rows, ROTATED_K, 2, generator=g) - 0.5) * spread_m
+    dims = torch.exp(torch.randn(rows, ROTATED_K, 2, generator=g) * 0.5) * 1.5
+    yaw = (torch.rand(rows, ROTATED_K, 1, generator=g) * 2 - 1) * math.pi
+    valid = torch.rand(rows, ROTATED_K, generator=g) < 0.8
+    return torch.cat([centre, dims, yaw], -1).cuda().contiguous(), valid.cuda().contiguous()
+
+
+def check_rotated_nms(card: str) -> dict:
+    """Phase 21 (see the module docstring)."""
+    from benchmark.families.centerpoint import nms_row_bound_s
+    from det3d_tpu_torch.kernels import nms_cuda
+    from det3d_tpu_torch.ops.nms import circles_meet
+
+    out = {}
+    for rows in ROTATED_ROWS:
+        for spread in (120.0, 30.0):
+            for seed in ROTATED_SEEDS:
+                rb, valid = rotated_rows(rows, seed, spread)
+                got = nms_cuda.nms_keep_rotated_cuda(rb, valid, 0.2)
+                want = nms_cuda.nms_keep_rotated_plain(rb, valid, 0.2)
+                check(torch.equal(got, want), f"21: rotated keep sets differ at {rows} x {ROTATED_K}, spread "
+                                              f"{spread}, seed {seed}: {int((got != want).sum())} flags")
+            n = valid.sum(1).tolist()
+            idx = torch.arange(ROTATED_K, device=rb.device)
+            meet = (circles_meet(rb) & valid[:, None, :] & valid[:, :, None] & (idx[:, None] < idx[None, :])).sum(
+                (1, 2)).tolist()
+            scratch = nms_cuda.mask_scratch(rb)
+            corners = nms_cuda.rbbox_corners(rb).contiguous()
+            ms = cuda_ms(lambda: nms_cuda.nms_keep_rotated_cuda(rb, valid, 0.2))
+            mask_ms = cuda_ms(lambda: nms_cuda.launch_rotated(rb, valid, 0.2, scratch, 1, corners))
+            sweep_ms = cuda_ms(lambda: nms_cuda.launch_rotated(rb, valid, 0.2, scratch, 2, corners))
+            plain_ms = cuda_ms(lambda: nms_cuda.nms_keep_rotated_plain(rb, valid, 0.2), iters=3, warmup=1)
+            bound_ms = sum(nms_row_bound_s(v, m) for v, m in zip(n, meet)) * 1e3
+            key = f"{rows}x{ROTATED_K} spread {spread:g} m"
+            out[key] = {"ms": round(ms, 4), "mask_ms": round(mask_ms, 4), "sweep_ms": round(sweep_ms, 4),
+                        "bound_ms": round(bound_ms, 5), "plain_ms": round(plain_ms, 3),
+                        "valid_pairs": int(sum(v * (v - 1) // 2 for v in n)), "meeting_pairs": int(sum(meet)),
+                        "seeds_equal": len(ROTATED_SEEDS)}
+            print(f"[{card}] rotated NMS {key}: keep sets equal over {len(ROTATED_SEEDS)} seeds; {out[key]}",
+                  flush=True)
+    return out
+
+
+def kernels_per_replay(fn, names: dict) -> dict:
+    """Kernels of one call of a captured `fn` by the profiler: all, and
+    those whose names hold each pattern of `names`."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"all": len(kernels)}
+    out.update({k: sum(1 for n in kernels if p in n) for k, p in names.items()})
+    return out
+
+
+def run_center(card: str, seed: int = 2**31 + 21) -> dict:
+    """Phase 22 (see the module docstring)."""
+    from benchmark.families import centerpoint as fam
+    from benchmark.lib import traffic
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
+    from det3d_tpu_torch.pipeline import Detector
+    from det3d_tpu_torch.postprocess import Detections, to_annos
+
+    path = "benchmark/configs/centerpoint_pp_nusc.json"
+    cfg, geo = load_config(path), fam.geometry(path)
+    limit = json.loads(Path(path).read_text())["compare_limits"]["center_gap"]
+    batch = 4
+    scatter = check_scatter((cfg.grid_size[0], cfg.grid_size[1]), cfg.max_voxels, geo.pfn_filters[-1], batch=batch,
+                            counts=(cfg.max_voxels, 41_000, 0))
+    w = fam.make_weights(seed, geo, "cuda")
+    frames = [fam.point_cloud(int(n), traffic.rng(seed, 2, i)) for i, n in enumerate(np.linspace(240_000, 360_000, 8))]
+
+    # the full path at batch 4 in float32, kernels against plain versions, as phase 5
+    det32 = Detector(cfg.replace(compute_dtype="float32"))
+    det32.load_state_dict(w)
+    padded = [det32.pad_points(f) for f in frames[:batch]]
+    pts32 = torch.from_numpy(np.stack([p for p, _ in padded])).cuda()
+    n32 = torch.as_tensor([k for _, k in padded], dtype=torch.int32, device="cuda")
+    with_kernels = det32.infer_batch(pts32, n32)
+    det32.model.scatter = scatter_cuda.scatter_to_bev_plain
+    det32.postprocess.nms_keep = nms_cuda.nms_keep_rotated_plain
+    with_plain = det32.infer_batch(pts32, n32)
+    assert_detections_close(with_kernels, with_plain, f"centerpoint_pp_nusc f32 at batch {batch}, kernels vs plain")
+    del det32, pts32, with_kernels, with_plain
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    det = Detector(cfg)
+    det.load_state_dict(w)
+    det.detect(frames[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kept = [det.detect(f) for f in frames]
+    frame_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+    padded = [det.pad_points(f) for f in frames[:batch]]
+    pts, n = np.stack([p for p, _ in padded]), np.asarray([k for _, k in padded], np.int32)
+    det.infer_batch_jit(pts, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        got = det.infer_batch_jit(pts, n)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) / 8 * 1e3
+    batched = [to_annos(cfg, Detections(got.boxes[j], got.scores[j], got.valid[j])) for j in range(batch)]
+    names = {"scatter": "scatter_rows", "mask_tiles": "mask_tiles(", "sweep": "sweep("}
+    padded1 = det.pad_points(frames[1])
+    frame_k = kernels_per_replay(lambda: det.infer_jit(*padded1), names)
+    batch_k = kernels_per_replay(lambda: det.infer_batch_jit(pts, n), names)
+    peak = torch.cuda.max_memory_reserved()
+    # each answer of both captured entries judged by the family's comparison, under the configuration's limit
+    net = fam.reference_network(w, geo, "cuda")
+    gaps = []
+    for what, answers in (("detect", kept[:2]), (f"infer_batch_jit at batch {batch}", batched)):
+        for i, a in enumerate(answers):
+            got = fam.check_frame(fam.reference_frame(net, frames[i], geo, "cuda"), a, f"{what} frame {i}")
+            gap = got.numbers["center_gap"]
+            print(f"[{card}] {what} frame {i}: {got.note}", flush=True)
+            check(gap <= limit, f"22: {what} frame {i}: center_gap {gap:.6g} over the limit {limit}")
+            gaps.append(round(gap, 6))
+    out = {"frame_ms": round(frame_ms, 3), "batch_ms": round(batch_ms, 3),
+           "frame_kernels_per_replay": frame_k, "batch_kernels_per_replay": batch_k,
+           "peak_gib": round(peak / 2**30, 3), "kept": [len(a["name"]) for a in kept],
+           "center_gap": gaps, "center_gap_limit": limit,
+           "scatter_b4_ms": {str(k): round(v["ms"], 4) for k, v in scatter.items() if k != "max_abs_err"}}
+    print(f"[{card}] center model: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--deploy-child":
         return deploy_child(*sys.argv[2:])
@@ -3855,6 +4020,15 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--detect-syncs":
         return detect_syncs(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--center":
+        card = _PHASE["card"] = card_line()
+        phase("21. the rotated NMS kernel (the center model's)")
+        rotated = check_rotated_nms(card)
+        phase("22. the center model (CenterPoint-PP), captured, full width")
+        center = run_center(card)
+        phase(None)
+        print(json.dumps({"rotated_nms": rotated, "center": center}))
+        return 0
 
     from det3d_tpu_torch.config import load_config
     from det3d_tpu_torch.data.synthetic import sample_scene, synthetic_cloud
@@ -4158,6 +4332,11 @@ def main() -> int:
     phase("20. the RPN's InstanceNorm + ReLU kernel (ntusl_20cm's map shapes, bf16)")
     in_relu = check_in_relu(card)
 
+    phase("21. the rotated NMS kernel (the center model's)")
+    rotated = check_rotated_nms(card)
+    phase("22. the center model (CenterPoint-PP), captured, full width")
+    center = run_center(card)
+
     kernels = [
         {
             "name": "scatter_to_bev", "route": "cuda",
@@ -4247,6 +4426,7 @@ def main() -> int:
     print(f"\ntotal {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"in_relu": in_relu}))
+    print(json.dumps({"rotated_nms": rotated, "center": center}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

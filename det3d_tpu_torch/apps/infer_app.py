@@ -254,8 +254,9 @@ def _stage_breakdown(cfg: Config, run, args, frames: int, lead: bool) -> dict[st
             for i in range(frames):
                 to_annos(cfg, out if frames == 1 else Detections(*(t[i] for t in out)))
     replays, stages = timing.replays(since), {}
-    for key, name in (("pre", "preprocess"), ("net", "network"), ("post", "postprocess")):
-        ms = [_stage_ms(r.marks, name) for r in replays]
+    for key, first, last in (("pre", "start", "preprocess"), ("net", "preprocess", "network"),
+                             ("post", "network", "postprocess")):
+        ms = [_stage_ms(r.marks, first, last) for r in replays]
         stages[key] = statistics.median(ms) / frames / 1e3 if ms else math.nan
     if lead:
         host: dict[str, list[float]] = {}
@@ -266,8 +267,7 @@ def _stage_breakdown(cfg: Config, run, args, frames: int, lead: bool) -> dict[st
     return stages
 
 
-def _stage_ms(marks, name: str) -> float:
-    """ms from the mark before `name` to `name`."""
-    names = [m for m, _ in marks]
-    i = names.index(name)
-    return marks[i][1] - marks[i - 1][1]
+def _stage_ms(marks, first: str, last: str) -> float:
+    """ms from mark `first` to mark `last`."""
+    at = dict(marks)
+    return at[last] - at[first]

@@ -42,6 +42,18 @@ package's defaults (True) and rules (models/pointpillars.PointPillars.forward):
     map per column parity and the head and the decode take the pair.
 Neither acts in training or on the dense network, so the port's default
 network, and every `state_dict`, is the same whatever they say.
+
+The center model (`"head": "center"`): CenterPoint-PP (tianweiy/CenterPoint,
+`configs/nusc/pp/nusc_centerpoint_pp_02voxel_two_pfn_10sweep.py`), an
+anchor-free detector (`models/centerpoint.py`). Its keys, under the upstream
+names where it has them: `pfn_filters` (the PFN's layers), `rpn_layer_nums`,
+`rpn_strides`, `rpn_filters`, `rpn_up_strides`, `rpn_up_filters` (the BN
+RPN), `tasks` (the CenterHead's class groups), `head_conv`, `common_heads`
+(branch name -> output channels, two convolutions each), `score_threshold`,
+`post_center_limit_range`, `nms_pre_max_size`, `nms_post_max_size`,
+`nms_iou_threshold`. Its feature map is the grid over the RPN's output
+stride (`out_size_factor`, 4 in the upstream file); it has no anchors, and
+`class_names` lists the tasks' classes in order.
 """
 
 from __future__ import annotations
@@ -103,6 +115,12 @@ DEFAULT_CLASS_SPECS: tuple[ClassSpec, ...] = (
 )
 
 
+# the center model's keys (head "center"), which the JAX package's Config has not
+CENTER_FIELDS = ("pfn_filters", "rpn_layer_nums", "rpn_strides", "rpn_filters", "rpn_up_strides", "rpn_up_filters",
+                 "tasks", "head_conv", "common_heads", "score_threshold", "post_center_limit_range",
+                 "nms_pre_max_size", "nms_post_max_size", "nms_iou_threshold")
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Immutable experiment configuration with all derived geometry."""
@@ -131,7 +149,7 @@ class Config:
 
     # ---- framework-level knobs (no reference counterpart) ----
     max_points: int = 200_000        # static per-frame point budget (pad-to-max)
-    head: str = "shared"             # detection head: "shared" | "multi"
+    head: str = "shared"             # detection head: "shared" | "multi" | "center"
     max_gt_boxes: int = 64           # static per-class gt budget for targets
     compute_dtype: str = "bfloat16"  # conv/matmul compute dtype ("float32" for parity runs)
 
@@ -142,6 +160,22 @@ class Config:
     late_blocked_train: bool = False    # training, batch <= 2: blocks 1-2 row-blocked (needs pack_w)
     fuse_in_stats: bool = True          # packed inference: Gram-statistic branch IN + ReLU epilogues
     split_head: bool = True             # packed inference, shared head: per-column-parity neck and preds
+
+    # ---- the center model (head "center"; see the module docstring) ----
+    pfn_filters: tuple[int, ...] = (64, 64)
+    rpn_layer_nums: tuple[int, ...] = (3, 5, 5)
+    rpn_strides: tuple[int, ...] = (2, 2, 2)
+    rpn_filters: tuple[int, ...] = (64, 128, 256)
+    rpn_up_strides: tuple[float, ...] = (0.5, 1.0, 2.0)
+    rpn_up_filters: tuple[int, ...] = (128, 128, 128)
+    tasks: tuple[tuple[str, ...], ...] = ()
+    head_conv: int = 64
+    common_heads: tuple[tuple[str, int], ...] = (("reg", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2))
+    score_threshold: float = 0.1
+    post_center_limit_range: tuple[float, ...] = (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
+    nms_pre_max_size: int = 1000
+    nms_post_max_size: int = 83
+    nms_iou_threshold: float = 0.2
 
     # ---- derived (reference: framework/voxel_generator.py:7-15) ----
     detection_range: tuple[float, ...] = ()
@@ -162,6 +196,34 @@ class Config:
             for s in self.class_specs
         )
 
+    @property
+    def center(self) -> bool:
+        """The anchor-free center model (CenterPoint-PP)."""
+        return self.head == "center"
+
+    @property
+    def class_names(self) -> tuple[str, ...]:
+        """Every class the detector names, in the order of its output rows."""
+        if self.center:
+            return tuple(name for task in self.tasks for name in task)
+        return tuple(s.name for s in self.class_specs)
+
+    @property
+    def out_size_factor(self) -> int:
+        """The feature map's stride over the voxel grid: 2 for the
+        PointPillars RPN; for the center RPN every upsample branch's
+        (its blocks' strides over its upsample stride), which agree."""
+        if not self.center:
+            return 2
+        factors, down = set(), 1.0
+        for stride, up in zip(self.rpn_strides, self.rpn_up_strides):
+            down *= stride
+            factors.add(down / up)
+        if len(factors) != 1 or not float(next(iter(factors))).is_integer():
+            raise ValueError(f"rpn strides {self.rpn_strides} over up strides {self.rpn_up_strides}: the "
+                             "branches must meet at one whole stride")
+        return int(factors.pop())
+
     def replace(self, **kw: Any) -> "Config":
         cfg = dataclasses.replace(self, **kw)
         if "voxel_size" in kw or "detection_range_raw" in kw:
@@ -169,7 +231,7 @@ class Config:
             # keep feature_map_size / per-class feature maps consistent with
             # the new grid (mirrors load_config) unless explicitly overridden
             if "feature_map_size" not in kw:
-                fms = (cfg.grid_size[0] // 2, cfg.grid_size[1] // 2, 1)
+                fms = _feature_map(cfg)
                 specs = kw.get(
                     "class_specs",
                     tuple(
@@ -210,6 +272,11 @@ def _with_derived(cfg: Config) -> Config:
         detection_range_diff=tuple(float(v) for v in range_diff),
         grid_size=tuple(int(v) for v in grid_size),
     )
+
+
+def _feature_map(cfg: Config) -> tuple[int, int, int]:
+    f = cfg.out_size_factor
+    return (cfg.grid_size[0] // f, cfg.grid_size[1] // f, 1)
 
 
 _TRAILING_COMMA = re.compile(r",\s*([}\]])")
@@ -273,22 +340,48 @@ def load_config(path: str | Path | dict, **overrides: Any) -> Config:
         late_blocked_train=bool(get("late_blocked_train", False)),
         fuse_in_stats=bool(get("fuse_in_stats", True)),
         split_head=bool(get("split_head", True)),
+        **_center_keys(raw),
     )
     cfg = _with_derived(cfg)
-    # The feature map is ALWAYS the voxel grid at half resolution: the RPN's
-    # overall stride is 2, so anchors must live on grid//2 or they desync
-    # from the head. The JSON field is ignored, as in the reference's
+    # The feature map is ALWAYS the voxel grid over the RPN's stride (2 for
+    # PointPillars, so anchors must live on grid//2 or they desync from the
+    # head). The JSON field is ignored, as in the reference's
     # AnchorAssigner, which hard-codes per-class maps.
-    fms = (cfg.grid_size[0] // 2, cfg.grid_size[1] // 2, 1)
+    fms = _feature_map(cfg)
     json_fms = raw.get("feature_map_size")
     if json_fms is not None and tuple(json_fms) != fms:
         warnings.warn(
             f"config feature_map_size {tuple(json_fms)} disagrees with the "
-            f"derived grid//2 = {fms}; the JSON field is ignored (the live "
-            "network can only produce grid//2 maps)",
+            f"derived grid//{cfg.out_size_factor} = {fms}; the JSON field is ignored (the live "
+            f"network can only produce grid//{cfg.out_size_factor} maps)",
             stacklevel=2,
         )
     specs = tuple(
         dataclasses.replace(s, feature_map_size=fms) for s in cfg.class_specs
     )
     return dataclasses.replace(cfg, feature_map_size=fms, class_specs=specs)
+
+
+def _center_keys(raw: dict) -> dict:
+    """The center model's keys that `raw` names (the rest keep their
+    defaults, the upstream file's values)."""
+    out: dict[str, Any] = {}
+    ints = ("pfn_filters", "rpn_layer_nums", "rpn_strides", "rpn_filters", "rpn_up_filters")
+    for key in ints:
+        if key in raw:
+            out[key] = tuple(int(v) for v in raw[key])
+    if "rpn_up_strides" in raw:
+        out["rpn_up_strides"] = tuple(float(v) for v in raw["rpn_up_strides"])
+    if "tasks" in raw:
+        out["tasks"] = tuple(tuple(str(n) for n in t) for t in raw["tasks"])
+    if "common_heads" in raw:
+        out["common_heads"] = tuple((str(k), int(v)) for k, v in dict(raw["common_heads"]).items())
+    if "post_center_limit_range" in raw:
+        out["post_center_limit_range"] = tuple(float(v) for v in raw["post_center_limit_range"])
+    for key, kind in (("head_conv", int), ("score_threshold", float), ("nms_pre_max_size", int),
+                      ("nms_post_max_size", int), ("nms_iou_threshold", float)):
+        if key in raw:
+            out[key] = kind(raw[key])
+    if raw.get("head") == "center" and not out.get("tasks"):
+        raise ValueError("a center config needs its task groups (`tasks`)")
+    return out

@@ -54,6 +54,19 @@
 // so its bits are the same and the keep masks agree exactly. K is at most
 // 1024 (one word of `removed` per lane).
 //
+// Rotated boxes (the center model's NMS, CenterPoint's `rotate_nms_pcdet`):
+// `det3d_nms_keep_rotated` launches a second `mask_tiles`, an overload over
+// rotated BEV boxes [cx, cy, dx, dy, angle] and their corners (computed by
+// the caller, ops/rotated_iou.py `rbbox_corners`), in the same tile layout,
+// and hands its mask to the same `sweep`. A pair of valid boxes i < j is
+// first tested by its circumscribed circles (ops/nms.py `circles_meet`); a
+// pair whose circles meet is clipped: the rotated IoU of ops/rotated_iou.py
+// (criterion -1) with the same 24 candidate vertices, the same order of
+// operations, the fixed-order sums and the stable angle sort, each operation
+// rounded on its own, so the keep sets equal the plain version's
+// (ops/nms.py `greedy_keep_rotated`). Row i's box is the first box of the
+// pair there too.
+//
 // Measured and dropped (NVIDIA H100 80GB HBM3, 700 W, 3 x 1000 boxes;
 // experiments/kernel_redesigns.py, times in PERF.md): the one-block-per-class
 // kernel that built the matrix with 512 threads in shared memory and swept
@@ -351,6 +364,245 @@ sweep(const uint32_t* __restrict__ mask, const uint8_t* __restrict__ valid, uint
   });
 }
 
+// --- rotated boxes -------------------------------------------------------------
+
+constexpr float kCircleSlack = 1e-5f;  // ops/nms.py CIRCLE_SLACK
+
+struct RBox {
+  float x[4], y[4];  // corners, ops/rotated_iou.py rbbox_corners order
+  float cx, cy;
+  float reach;       // half the diagonal: the circumscribed circle's radius
+  float area;        // dx * dy
+};
+
+__device__ __forceinline__ RBox load_rbox(const float* rboxes, const float* corners, int i) {
+  RBox b;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    b.x[k] = corners[8 * i + 2 * k];
+    b.y[k] = corners[8 * i + 2 * k + 1];
+  }
+  const float dx = rboxes[5 * i + 2], dy = rboxes[5 * i + 3];
+  b.cx = rboxes[5 * i];
+  b.cy = rboxes[5 * i + 1];
+  b.area = __fmul_rn(dx, dy);
+  b.reach = __fmul_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy))), 0.5f);
+  return b;
+}
+
+__device__ __forceinline__ bool circles_meet(const RBox& a, const RBox& b) {
+  const float dx = __fsub_rn(a.cx, b.cx), dy = __fsub_rn(a.cy, b.cy);
+  const float r = __fmul_rn(__fadd_rn(a.reach, b.reach), __fadd_rn(1.0f, kCircleSlack));
+  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) <= __fmul_rn(r, r);
+}
+
+// ops/rotated_iou.py _point_in_quad: the inclusive projection test with a relative epsilon
+__device__ __forceinline__ bool in_quad(float px, float py, const RBox& q) {
+  const float abx = __fsub_rn(q.x[1], q.x[0]), aby = __fsub_rn(q.y[1], q.y[0]);
+  const float adx = __fsub_rn(q.x[3], q.x[0]), ady = __fsub_rn(q.y[3], q.y[0]);
+  const float apx = __fsub_rn(px, q.x[0]), apy = __fsub_rn(py, q.y[0]);
+  const float abab = __fadd_rn(__fmul_rn(abx, abx), __fmul_rn(aby, aby));
+  const float abap = __fadd_rn(__fmul_rn(abx, apx), __fmul_rn(aby, apy));
+  const float adad = __fadd_rn(__fmul_rn(adx, adx), __fmul_rn(ady, ady));
+  const float adap = __fadd_rn(__fmul_rn(adx, apx), __fmul_rn(ady, apy));
+  const float tol = __fmul_rn(1e-6f, __fadd_rn(abab, adad));
+  return abap >= -tol && abap <= __fadd_rn(abab, tol) && adap >= -tol && adap <= __fadd_rn(adad, tol);
+}
+
+// (r - p) x (q - p) > 0, as _edge_intersections' gt_cross
+__device__ __forceinline__ bool gt_cross(float px, float py, float qx, float qy, float rx, float ry) {
+  return __fmul_rn(__fsub_rn(ry, py), __fsub_rn(qx, px)) > __fmul_rn(__fsub_rn(qy, py), __fsub_rn(rx, px));
+}
+
+// ops/rotated_iou.py rotated_intersection_area for one pair: a's corners,
+// b's corners, then the 16 edge crossings (edge i of a, edge j of b at
+// 8 + 4i + j); the centroid and the fan area as fixed-order sums
+__device__ __noinline__ float rotated_inter(const RBox& a, const RBox& b) {
+  float px[24], py[24];
+  uint32_t valid = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    px[k] = a.x[k];
+    py[k] = a.y[k];
+    px[4 + k] = b.x[k];
+    py[4 + k] = b.y[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (in_quad(a.x[k], a.y[k], b)) valid |= 1u << k;
+    if (in_quad(b.x[k], b.y[k], a)) valid |= 1u << (4 + k);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a0x = a.x[i], a0y = a.y[i], a1x = a.x[(i + 1) & 3], a1y = a.y[(i + 1) & 3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float b0x = b.x[j], b0y = b.y[j], b1x = b.x[(j + 1) & 3], b1y = b.y[(j + 1) & 3];
+      const bool acd = gt_cross(a0x, a0y, b0x, b0y, b1x, b1y);
+      const bool bcd = gt_cross(a1x, a1y, b0x, b0y, b1x, b1y);
+      const bool abc = gt_cross(a0x, a0y, a1x, a1y, b0x, b0y);
+      const bool abd = gt_cross(a0x, a0y, a1x, a1y, b1x, b1y);
+      const int v = 8 + 4 * i + j;
+      if ((acd != bcd) && (abc != abd)) valid |= 1u << v;
+      const float bax = __fsub_rn(a1x, a0x), bay = __fsub_rn(a1y, a0y);
+      const float dcx = __fsub_rn(b1x, b0x), dcy = __fsub_rn(b1y, b0y);
+      const float abba = __fsub_rn(__fmul_rn(a0x, a1y), __fmul_rn(a1x, a0y));
+      const float cddc = __fsub_rn(__fmul_rn(b0x, b1y), __fmul_rn(b1x, b0y));
+      float dh = __fsub_rn(__fmul_rn(bay, dcx), __fmul_rn(bax, dcy));
+      if (dh == 0.0f) dh = 1e-12f;
+      px[v] = __fdiv_rn(__fsub_rn(__fmul_rn(abba, dcx), __fmul_rn(bax, cddc)), dh);
+      py[v] = __fdiv_rn(__fsub_rn(__fmul_rn(abba, dcy), __fmul_rn(bay, cddc)), dh);
+    }
+  }
+  const int count = __popc(valid);
+  if (count < 3) return 0.0f;  // no triangle: the sum of 22 zeros
+  float sx = (valid & 1u) ? px[0] : 0.0f;
+  float sy = (valid & 1u) ? py[0] : 0.0f;
+  for (int k = 1; k < 24; ++k) {
+    const bool on = (valid >> k) & 1u;
+    sx = __fadd_rn(sx, on ? px[k] : 0.0f);
+    sy = __fadd_rn(sy, on ? py[k] : 0.0f);
+  }
+  const float denom = (float)count;
+  const float cx = __fdiv_rn(sx, denom), cy = __fdiv_rn(sy, denom);
+  // the valid vertices in index order, sorted stably by angle about the centroid
+  float key[24];
+  int order[24];
+  int n = 0;
+  for (int k = 0; k < 24; ++k) {
+    if (!((valid >> k) & 1u)) continue;
+    const float ang = atan2f(__fsub_rn(py[k], cy), __fsub_rn(px[k], cx));
+    int at = n++;
+    while (at > 0 && key[at - 1] > ang) {
+      key[at] = key[at - 1];
+      order[at] = order[at - 1];
+      --at;
+    }
+    key[at] = ang;
+    order[at] = k;
+  }
+  const float p0x = px[order[0]], p0y = py[order[0]];
+  float area = 0.0f;
+  for (int t = 0; t < 22; ++t) {
+    float tri = 0.0f;
+    if (t + 2 < count) {
+      const float p1x = px[order[t + 1]], p1y = py[order[t + 1]];
+      const float p2x = px[order[t + 2]], p2y = py[order[t + 2]];
+      tri = __fdiv_rn(fabsf(__fsub_rn(__fmul_rn(__fsub_rn(p0x, p2x), __fsub_rn(p1y, p2y)),
+                                      __fmul_rn(__fsub_rn(p0y, p2y), __fsub_rn(p1x, p2x)))),
+                      2.0f);
+    }
+    area = t == 0 ? tri : __fadd_rn(area, tri);
+  }
+  return area;
+}
+
+__device__ __forceinline__ bool rotated_suppresses(const RBox& a, const RBox& b, float thr) {
+  const float inter = rotated_inter(a, b);
+  float both = __fsub_rn(__fadd_rn(a.area, b.area), inter);
+  if (both == 0.0f) both = 1e-12f;
+  return __fdiv_rn(inter, both) > thr;
+}
+
+// One block's tile of the rotated mask, in mask_tile's layout: columns
+// staged in shared memory, thread (row, span) tests kSpan columns, each
+// valid pair right of the diagonal by its circles first
+__device__ __forceinline__ void mask_tile_rotated(const float* __restrict__ rboxes,   // (rows, K, 5)
+                                                  const float* __restrict__ corners,  // (rows, K, 4, 2)
+                                                  const uint8_t* __restrict__ valid,  // (rows, K)
+                                                  uint32_t* __restrict__ mask,        // (rows, K, kRowWords)
+                                                  int K, int tiles, float thr, int pair, int row_set) {
+  __shared__ RBox col_box[kTile];
+  __shared__ uint32_t col_valid[kTile / 32];
+  __shared__ uint32_t part[kTile / kSpan][kTile];
+
+  int tr = 0;
+  int tc = pair;
+  while (tc >= tiles - tr) {
+    tc -= tiles - tr;
+    ++tr;
+  }
+  tc += tr;
+  const int t = threadIdx.x;
+  const float* rb = rboxes + (size_t)row_set * K * 5;
+  const float* cn = corners + (size_t)row_set * K * 8;
+  const uint8_t* v = valid + (size_t)row_set * K;
+
+  if (t < kTile) {
+    const int j = tc * kTile + t;
+    bool live = false;
+    if (j < K) {
+      col_box[t] = load_rbox(rb, cn, j);
+      live = v[j] != 0;
+    }
+    const uint32_t ballot = __ballot_sync(0xffffffffu, live);
+    if ((t & 31) == 0) col_valid[t >> 5] = ballot;
+  }
+  __syncthreads();
+
+  const int row = t % kTile;
+  const int span = t / kTile;
+  const int i = tr * kTile + row;
+  const int j0 = tc * kTile + span * kSpan;
+  uint32_t bits = 0;
+  if (i < K && v[i] && j0 + kSpan - 1 > i) {
+    uint32_t live = (col_valid[span * kSpan / 32] >> (span * kSpan % 32)) & ((1u << kSpan) - 1u);
+    if (i >= j0) live &= ~((2u << (i - j0)) - 1u);  // only columns j > i
+    if (live) {
+      const RBox a = load_rbox(rb, cn, i);
+#pragma unroll 1
+      for (int c = 0; c < kSpan; ++c) {
+        if (!((live >> c) & 1u)) continue;
+        const RBox& b = col_box[span * kSpan + c];
+        if (circles_meet(a, b) && rotated_suppresses(a, b, thr)) bits |= 1u << c;
+      }
+    }
+  }
+  part[span][row] = bits;
+  __syncthreads();
+
+  if (t < kTile * (kTile / 32) && tr * kTile + row < K) {
+    const int w = t / kTile;
+    uint32_t word = 0;
+#pragma unroll
+    for (int s = 0; s < 32 / kSpan; ++s) word |= part[w * (32 / kSpan) + s][row] << (s * kSpan);
+    mask[((size_t)row_set * K + i) * kRowWords + 2 * tc + w] = word;
+  }
+}
+
+// the rotated overload: the trace names both kernels `mask_tiles(`
+__global__ void __launch_bounds__(kMaskThreads)
+mask_tiles(const float* __restrict__ rboxes, const float* __restrict__ corners, const uint8_t* __restrict__ valid,
+           uint32_t* __restrict__ mask, int K, int tiles, float thr) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  mask_tile_rotated(rboxes, corners, valid, mask, K, tiles, thr, blockIdx.x, blockIdx.y);
+}
+
+}  // namespace
+
+namespace {
+
+// the sweep over a mask of `rows` rows of K boxes, started early when `parts` has bit 2
+int launch_sweep(const void* mask, const void* valid, void* keep, int rows, int K, int tiles, int parts,
+                 cudaStream_t stream) {
+  const int chunks = (K + kChunk - 1) / kChunk;
+  const size_t smem = (size_t)chunks * kChunkWords * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(rows);
+  config.blockDim = dim3(32);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute early = {};  // start while the mask kernel runs; the sweep waits for it itself
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = &early;
+  config.numAttrs = (parts & 4) ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&config, sweep, static_cast<const uint32_t*>(mask),
+                                 static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), K, 2 * tiles);
+}
+
 }  // namespace
 
 // boxes (ncls, K, 4) f32 minmax in descending score order, valid (ncls, K)
@@ -374,23 +626,28 @@ extern "C" int det3d_nms_keep(const void* boxes, const void* valid, void* keep, 
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (parts & 2) {
-    const int chunks = (K + kChunk - 1) / kChunk;
-    const size_t smem = (size_t)chunks * kChunkWords * sizeof(uint32_t);
-    cudaError_t err = cudaFuncSetAttribute(sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (parts & 2) return launch_sweep(mask, valid, keep, ncls, K, tiles, parts, stream);
+  return 0;
+}
+
+// The rotated version: rboxes (rows, K, 5) f32 [cx, cy, dx, dy, angle] in
+// descending score order, corners (rows, K, 4, 2) f32 their corners
+// (ops/rotated_iou.py rbbox_corners), valid (rows, K) bool, keep, mask and
+// `parts` as det3d_nms_keep's.
+extern "C" int det3d_nms_keep_rotated(const void* rboxes, const void* corners, const void* valid, void* keep,
+                                      void* mask, int rows, int K, float iou_threshold, int parts,
+                                      void* stream_ptr) {
+  if (K < 1 || K > kMaxK || rows < 0 || rows > 65535) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int tiles = (K + kTile - 1) / kTile;
+  if (parts & 1) {
+    mask_tiles<<<dim3(tiles * (tiles + 1) / 2, rows), kMaskThreads, 0, stream>>>(
+        static_cast<const float*>(rboxes), static_cast<const float*>(corners), static_cast<const uint8_t*>(valid),
+        static_cast<uint32_t*>(mask), K, tiles, iou_threshold);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(ncls);
-    config.blockDim = dim3(32);
-    config.dynamicSmemBytes = smem;
-    config.stream = stream;
-    cudaLaunchAttribute early = {};  // start while the mask kernel runs; the sweep waits for it itself
-    early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    early.val.programmaticStreamSerializationAllowed = 1;
-    config.attrs = &early;
-    config.numAttrs = (parts & 4) ? 1 : 0;
-    return (int)cudaLaunchKernelEx(&config, sweep, static_cast<const uint32_t*>(mask),
-                                   static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), K, 2 * tiles);
   }
+  if (parts & 2) return launch_sweep(mask, valid, keep, rows, K, tiles, parts, stream);
   return 0;
 }

@@ -14,6 +14,13 @@ a CUDA tensor it launches `csrc/nms.cu` (the suppression mask of all
 classes over the whole card, then one sweep per class, two launches back to
 back for one call) or raises; its fake gives the keep mask's shape (the
 mask scratch stays inside the op).
+
+`nms_keep_rotated` is the same for rotated BEV boxes (rows, K, 5) [cx, cy,
+dx, dy, angle] under the rotated IoU of `ops/rotated_iou.py` (the center
+model's NMS): the op `det3d::nms_keep_rotated`, `nms_keep_rotated_plain`
+(ops/nms.greedy_keep_rotated) on the CPU, on the card the rotated
+`mask_tiles` of `csrc/nms.cu` over the boxes and their corners, then the
+same sweep: two launches for every row of the call.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import functools
 import torch
 
 from det3d_tpu_torch.kernels import build
-from det3d_tpu_torch.ops.nms import greedy_keep
+from det3d_tpu_torch.ops.nms import greedy_keep, greedy_keep_rotated
+from det3d_tpu_torch.ops.rotated_iou import rbbox_corners
 
 MAX_K = 1024  # csrc/nms.cu keeps one 32-bit word of `removed` per lane
 MASK_ROW_WORDS = MAX_K // 32  # words per row of the suppression mask
@@ -33,9 +41,9 @@ MASK_ROW_WORDS = MAX_K // 32  # words per row of the suppression mask
 counter = build.LaunchCounter()
 
 
-def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
-    if boxes.dim() not in (2, 3) or boxes.shape[-1] != 4:
-        raise ValueError(f"boxes must be (K, 4) or (ncls, K, 4), got {tuple(boxes.shape)}")
+def _check(boxes: torch.Tensor, valid: torch.Tensor, width: int = 4) -> None:
+    if boxes.dim() not in (2, 3) or boxes.shape[-1] != width:
+        raise ValueError(f"boxes must be (K, {width}) or (rows, K, {width}), got {tuple(boxes.shape)}")
     if valid.shape != boxes.shape[:-1]:
         raise ValueError(f"valid {tuple(valid.shape)} does not match boxes {tuple(boxes.shape)}")
     if boxes.dtype != torch.float32:
@@ -58,6 +66,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.det3d_nms_keep
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    rot = lib.det3d_nms_keep_rotated
+    rot.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    rot.restype = ctypes.c_int
     return lib
 
 
@@ -113,3 +124,62 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> 
     tensors, the plain version for CPU tensors (the op `det3d::nms_keep`)."""
     _check(boxes, valid)
     return _nms_op(boxes, valid, float(iou_threshold))
+
+
+# --- rotated boxes ---------------------------------------------------------------
+
+
+def nms_keep_rotated_plain(rboxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The plain PyTorch keep mask of rotated boxes, on any device."""
+    _check(rboxes, valid, 5)
+    return greedy_keep_rotated(rboxes, valid, iou_threshold)
+
+
+def launch_rotated(rboxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, mask: torch.Tensor,
+                   parts: int = 7, corners: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the rotated `csrc/nms.cu` on checked CUDA tensors, uncounted
+    (`parts` as `launch`); `corners` (rows, K, 4, 2), made here if not given."""
+    k = rboxes.shape[-2]
+    rows = rboxes.shape[0] if rboxes.dim() == 3 else 1
+    if corners is None:
+        corners = rbbox_corners(rboxes).contiguous()
+    keep = torch.empty(valid.shape, dtype=torch.bool, device=rboxes.device)
+    stream = torch.cuda.current_stream(rboxes.device).cuda_stream
+    with torch.cuda.device(rboxes.device):
+        err = _lib().det3d_nms_keep_rotated(
+            rboxes.data_ptr(), corners.data_ptr(), valid.data_ptr(), keep.data_ptr(), mask.data_ptr(), rows, k,
+            iou_threshold, parts, stream)
+    if err != 0:
+        raise RuntimeError(f"nms.cu (rotated) failed with CUDA error {err}")
+    return keep
+
+
+def nms_keep_rotated_cuda(rboxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Launch the rotated `csrc/nms.cu` on CUDA tensors: every row in one call."""
+    _check(rboxes, valid, 5)
+    if rboxes.device.type != "cuda":
+        raise ValueError(f"nms_keep_rotated_cuda needs CUDA tensors, got {rboxes.device}")
+    if not (rboxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("rboxes and valid must be contiguous")
+    k = rboxes.shape[-2]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"K={k} is outside the kernel's range [1, {MAX_K}]")
+    keep = launch_rotated(rboxes, valid, iou_threshold, mask_scratch(rboxes))
+    counter.launches += 1
+    return keep
+
+
+_rotated_op = torch.library.custom_op(
+    "det3d::nms_keep_rotated", nms_keep_rotated_plain, mutates_args=(), device_types="cpu",
+    schema="(Tensor rboxes, Tensor valid, float iou_threshold) -> Tensor",
+)
+_rotated_op.register_kernel("cuda")(nms_keep_rotated_cuda)
+_rotated_op.register_fake(lambda rboxes, valid, iou_threshold: torch.empty_like(valid))
+
+
+def nms_keep_rotated(rboxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy keep mask of pre-sorted rotated boxes: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors (the op
+    `det3d::nms_keep_rotated`)."""
+    _check(rboxes, valid, 5)
+    return _rotated_op(rboxes, valid, float(iou_threshold))

@@ -73,6 +73,7 @@ from det3d_tpu_torch.kernels.norm_cuda import parity_sum as _parity_sum
 from det3d_tpu_torch.kernels.scatter_cuda import scatter_to_bev, scatter_to_bev_s2d, scatter_to_bev_s2d_blocked
 from det3d_tpu_torch.parallel.mesh import all_reduce_sum
 from det3d_tpu_torch.parallel.spatial import gather_rows, halo_conv, spatial_instance_norm
+from det3d_tpu_torch.utils import timing
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -1070,10 +1071,12 @@ class PointPillars(nn.Module):
         if spatial is not None:
             self.check_spatial()
             x = self.rpn(self.slab_canvas(pillar_features, coors, spatial), spatial=spatial)
+            timing.mark("neck")
             return gather_rows(self.heads(x), spatial.mesh, spatial.bounds[1])
         layout = self.layout(voxels.shape[0], train)
-        x = self.canvas(pillar_features, coors, layout)
-        return self.heads(self.rpn(x, *layout, *self.neck(train)))
+        x = self.rpn(self.canvas(pillar_features, coors, layout), *layout, *self.neck(train))
+        timing.mark("neck")
+        return self.heads(x)
 
 
 @torch.no_grad()

@@ -12,11 +12,25 @@ Parity notes:
   * boxes arrive sorted by descending score (the caller's top-k);
   * the output keep mask is capped at `post_max_size` by rank
     (framework/inference.py:697-698).
+
+`greedy_keep_rotated` is the same greedy keep over rotated BEV boxes
+[cx, cy, dx, dy, angle] under `ops/rotated_iou.py`'s IoU (criterion -1),
+the NMS of the center model (CenterPoint's `rotate_nms_pcdet`, IoU over a
+threshold suppresses): only pairs whose circumscribed circles meet
+(`circles_meet`) are clipped, since boxes whose circles do not meet do not
+overlap; the CUDA kernel (`csrc/nms.cu`, the rotated `mask_tiles`) makes the
+same test and the same IoU, operation for operation, its two sums in a
+fixed order (`ordered_sum`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from det3d_tpu_torch.ops.rotated_iou import rotated_iou
+
+CIRCLE_SLACK = 1e-5   # relative room on the circles' reach: a pair on the edge is clipped, not skipped
+PAIR_CHUNK = 1 << 16  # pairs clipped at once by the plain rotated version
 
 
 def iou_pixel_convention(boxes: torch.Tensor) -> torch.Tensor:
@@ -55,6 +69,13 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) 
         & valid[..., :, None]
         & (idx[:, None] < idx[None, :])
     )
+    return frontier_keep(overlap, valid)
+
+
+def frontier_keep(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The greedy keep mask from the suppression matrix `overlap[..., i, j]`
+    (higher-scored i suppresses j; strict upper triangle, valid rows and
+    columns only), by frontier rounds."""
     overlap_f = overlap.to(torch.float32)
     kept = torch.zeros_like(valid)
     remaining = valid.clone()
@@ -73,3 +94,48 @@ def rank_cap(keep: torch.Tensor, post_max_size: int) -> torch.Tensor:
     rank = torch.cumsum(keep.to(torch.int32), dim=-1) - 1
     return keep & (rank < post_max_size)
 
+
+def ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim` as x[0] + x[1] + ... left to right, each addition
+    rounded on its own, on every device: the rotated IoU's sums as the
+    kernel makes them."""
+    x = x.movedim(dim, 0)
+    acc = x[0]
+    for k in range(1, x.shape[0]):
+        acc = acc + x[k]
+    return acc
+
+
+def circles_meet(rboxes: torch.Tensor) -> torch.Tensor:
+    """(..., K, 5) rotated boxes → (..., K, K) bool: the circles about their
+    centres through their corners meet (with CIRCLE_SLACK of room). Boxes
+    whose circles do not meet do not overlap."""
+    reach = torch.sqrt(rboxes[..., 2] * rboxes[..., 2] + rboxes[..., 3] * rboxes[..., 3]) * 0.5
+    dx = rboxes[..., :, None, 0] - rboxes[..., None, :, 0]
+    dy = rboxes[..., :, None, 1] - rboxes[..., None, :, 1]
+    r = (reach[..., :, None] + reach[..., None, :]) * (1.0 + CIRCLE_SLACK)
+    return dx * dx + dy * dy <= r * r
+
+
+def rotated_suppression(rboxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """(..., K, 5) rotated boxes in descending score order → (..., K, K)
+    bool: i < j, both valid, their circles meet and their rotated IoU
+    (row box first) exceeds the threshold."""
+    k = rboxes.shape[-2]
+    idx = torch.arange(k, device=rboxes.device)
+    cand = circles_meet(rboxes) & valid[..., None, :] & valid[..., :, None] & (idx[:, None] < idx[None, :])
+    out = torch.zeros_like(cand)
+    where = cand.nonzero(as_tuple=True)
+    lead, i, j = where[:-2], where[-2], where[-1]
+    for s in range(0, i.shape[0], PAIR_CHUNK):
+        sl = slice(s, s + PAIR_CHUNK)
+        a = rboxes[(*(t[sl] for t in lead), i[sl])][:, None, :]
+        b = rboxes[(*(t[sl] for t in lead), j[sl])][:, None, :]
+        out[(*(t[sl] for t in lead), i[sl], j[sl])] = rotated_iou(a, b, total=ordered_sum)[:, 0, 0] > iou_threshold
+    return out
+
+
+def greedy_keep_rotated(rboxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Exact greedy keep mask of (..., K, 5) pre-sorted rotated boxes →
+    (..., K) bool, without the rank cap."""
+    return frontier_keep(rotated_suppression(rboxes, valid, iou_threshold), valid)

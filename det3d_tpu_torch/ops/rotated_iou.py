@@ -13,6 +13,11 @@ evaluation thresholds fall on the same side:
   * valid vertices sorted (stably) by angle about their centroid, area by
     the fan triangulation with |.| (iou.py:170-218).
 
+The two sums (the centroid over the 24 candidates, the area over the 22
+fan triangles) are `total(x, dim)`, `torch.sum` unless the caller gives
+another: the rotated NMS (`ops/nms.py`) gives a fixed-order sum, so that
+its kernel (`kernels/csrc/nms.cu`) gets the same bits.
+
 Every function broadcasts over leading dimensions, so one call covers a
 stack of padded frames. `criterion` as the reference's: -1 IoU, 0
 inter/area1, 1 inter/area2, 2 the intersection area.
@@ -86,7 +91,7 @@ def _edge_intersections(ca, cb):
     return pts.reshape(shape + (2,)), valid.reshape(shape)
 
 
-def rotated_intersection_area(boxes: torch.Tensor, qboxes: torch.Tensor) -> torch.Tensor:
+def rotated_intersection_area(boxes: torch.Tensor, qboxes: torch.Tensor, total=torch.sum) -> torch.Tensor:
     """(..., N, 5) x (..., K, 5) → (..., N, K) intersection polygon areas."""
     ca = rbbox_corners(boxes)[..., :, None, :, :]   # (..., N, 1, 4, 2)
     cb = rbbox_corners(qboxes)[..., None, :, :, :]  # (..., 1, K, 4, 2)
@@ -103,7 +108,7 @@ def rotated_intersection_area(boxes: torch.Tensor, qboxes: torch.Tensor) -> torc
 
     count = valid.sum(dim=-1)
     denom = torch.clamp(count, min=1).to(pts.dtype)
-    center = torch.where(valid[..., None], pts, 0.0).sum(dim=-2) / denom[..., None]
+    center = total(torch.where(valid[..., None], pts, 0.0), -2) / denom[..., None]
 
     ang = torch.atan2(pts[..., 1] - center[..., None, 1], pts[..., 0] - center[..., None, 0])
     key = torch.where(valid, ang, torch.inf)
@@ -120,12 +125,12 @@ def rotated_intersection_area(boxes: torch.Tensor, qboxes: torch.Tensor) -> torc
         - (p0[..., 1] - p2[..., 1]) * (p1[..., 0] - p2[..., 0])
     ) / 2.0
     tri_valid = sorted_valid[..., 2:] & sorted_valid[..., 1:-1] & sorted_valid[..., 0:1]
-    return torch.where(tri_valid, tri, 0.0).sum(dim=-1)
+    return total(torch.where(tri_valid, tri, 0.0), -1)
 
 
-def rotated_iou(boxes: torch.Tensor, qboxes: torch.Tensor, criterion: int = -1) -> torch.Tensor:
+def rotated_iou(boxes: torch.Tensor, qboxes: torch.Tensor, criterion: int = -1, total=torch.sum) -> torch.Tensor:
     """(..., N, 5) x (..., K, 5) rotated overlap with the reference's criterion codes."""
-    inter = rotated_intersection_area(boxes, qboxes)
+    inter = rotated_intersection_area(boxes, qboxes, total)
     area1 = (boxes[..., 2] * boxes[..., 3])[..., :, None]
     area2 = (qboxes[..., 2] * qboxes[..., 3])[..., None, :]
     if criterion == -1:

@@ -26,13 +26,23 @@ whose buffers hold every device constant of the path, so that
 `deploy/export.py` exports it as it is and the live detector and the
 exported program run the same code.
 
+The center model (`cfg.head == "center"`, CenterPoint-PP:
+`models/centerpoint.py`, `postprocess.CenterPostProcessor`) takes the same
+module, entry points and stages (both post-processors decode a frame or a
+batch, `decode_frame` / `decode_frames`, for `finalize_stage` /
+`finalize_frames`): it has no anchors, so no anchor mask; its network's
+predictions are one dict a task, its decode takes every task of every frame
+at once and its NMS call is rotated, one row a task of every frame.
+
 Tracing (`utils.timing`, on while a profiler runs): `detect` is the root
 span of a frame, `pad_points` the span `pad`; `forward` and
 `forward_batch` place the stage marks `start`, `preprocess` (voxelize and
-the anchor mask), `network` and `postprocess` (decode, NMS, finalize),
-which a captured call's graph holds as event nodes; `CapturedInfer`
-counts `call.rows_staged` (the rows a call stages, B × `max_points`) and
-`call.rows_real` (the points in them).
+the anchor mask), `neck` (placed by the network between its RPN and its
+head), `network`, `decode` (decode, gate and top-k) and `postprocess` (NMS,
+finalize), which a captured call's graph holds as event nodes;
+`CapturedInfer` counts `call.rows_staged` (the rows a call stages, B ×
+`max_points`), `call.rows_real` (the points in them) and `nms.rows` (the
+rows of the call's NMS, B × classes or tasks).
 """
 
 from __future__ import annotations
@@ -45,11 +55,14 @@ from torch import nn
 
 from det3d_tpu_torch.anchors import AnchorSet, build_anchors
 from det3d_tpu_torch.config import Config
+from det3d_tpu_torch.models.centerpoint import CenterPointPP
+from det3d_tpu_torch.models.centerpoint import init_weights as init_center_weights
 from det3d_tpu_torch.models.pointpillars import PointPillars, init_weights
 from det3d_tpu_torch.ops.anchor_mask import compute_anchors_mask, compute_anchors_mask_separable
 from det3d_tpu_torch.ops.voxelize import VoxelizedFrame, VoxelizerSpec, grid_tensors, voxelize
 from det3d_tpu_torch.parallel.spatial import SpatialPlan
-from det3d_tpu_torch.postprocess import Detections, PostProcessor, PostProcessParams, frame_preds, to_annos
+from det3d_tpu_torch.postprocess import (CenterPostProcessor, Detections, PostProcessor, PostProcessParams,
+                                         to_annos)
 from det3d_tpu_torch.utils import timing
 from det3d_tpu_torch.utils.device import resolve_device
 from det3d_tpu_torch.utils.graphs import CapturedCall
@@ -70,18 +83,27 @@ class DetectorModule(nn.Module):
     `fcfs`: the voxelizer's slot order (`ops.voxelize.voxelize`), a
     constant of the module that an export bakes in."""
 
-    def __init__(self, cfg: Config, anchor_set: AnchorSet, params: PostProcessParams | None, device,
+    def __init__(self, cfg: Config, anchor_set: AnchorSet | None, params: PostProcessParams | None, device,
                  spatial=None, fcfs: bool = True):
         super().__init__()
         self.spatial = spatial
         self.fcfs = fcfs
+        self.center = cfg.center
         self.spec = VoxelizerSpec.from_config(cfg)
         self.grid_xy = (cfg.grid_size[0], cfg.grid_size[1])
+        for name, t in zip(("voxel_size", "grid_offset", "grid_size"), grid_tensors(self.spec, device)):
+            self.register_buffer(name, t, persistent=False)
+        if self.center:
+            if spatial is not None:
+                raise ValueError("the center model has no spatial path")
+            self.model = CenterPointPP(cfg).to(device).eval()
+            self.postprocess = CenterPostProcessor(cfg, device)
+            self.nms_rows = len(cfg.tasks)
+            return
+        self.nms_rows = len(cfg.class_specs)
         self.mask_shape = (anchor_set.num_channels, *cfg.feature_map_size[:2])
         self.model = PointPillars(cfg).to(device).eval()
         self.postprocess = PostProcessor(cfg, anchor_set, params, device)
-        for name, t in zip(("voxel_size", "grid_offset", "grid_size"), grid_tensors(self.spec, device)):
-            self.register_buffer(name, t, persistent=False)
         vectors = anchor_set.mask_index_vectors
         self.mask_channels = 0 if vectors is None else len(vectors)
         if vectors is None:
@@ -93,11 +115,12 @@ class DetectorModule(nn.Module):
                     self.register_buffer(f"mask_{c}_{j}", torch.as_tensor(v, dtype=torch.int64).to(device),
                                          persistent=False)
 
-    def preprocess(self, points: torch.Tensor, num_points) -> tuple[VoxelizedFrame, torch.Tensor]:
-        """Voxelize + anchor occupancy mask (nch, fx, fy)."""
+    def preprocess(self, points: torch.Tensor, num_points) -> tuple[VoxelizedFrame, torch.Tensor | None]:
+        """Voxelize + anchor occupancy mask (nch, fx, fy); the center model
+        has no anchors and no mask (None)."""
         frame = voxelize(points, num_points, self.spec, (self.voxel_size, self.grid_offset, self.grid_size),
                          fcfs=self.fcfs)
-        return frame, self.anchors_mask(frame.coors)
+        return frame, None if self.center else self.anchors_mask(frame.coors)
 
     def anchors_mask(self, coors: torch.Tensor) -> torch.Tensor:
         """Anchor occupancy mask from pillar coordinates, spatial
@@ -115,7 +138,9 @@ class DetectorModule(nn.Module):
         preds = self.model(frame.voxels[None], frame.num_points_per_voxel[None], frame.coors[None],
                            spatial=self.spatial)
         timing.mark("network")
-        return self.postprocess.decode_stage(frame_preds(preds, 0), anchors_mask)
+        out = self.postprocess.decode_frame(preds, anchors_mask)
+        timing.mark("decode")
+        return out
 
     def forward(self, points: torch.Tensor, num_points) -> tuple[torch.Tensor, ...]:
         timing.mark("start")
@@ -136,8 +161,8 @@ class DetectorModule(nn.Module):
         preds = self.model(*(torch.stack([getattr(f, k) for f, _ in frames])
                              for k in ("voxels", "num_points_per_voxel", "coors")))
         timing.mark("network")
-        candidates = [self.postprocess.decode_stage(frame_preds(preds, i), mask)
-                      for i, (_, mask) in enumerate(frames)]
+        candidates = self.postprocess.decode_frames(preds, [mask for _, mask in frames])
+        timing.mark("decode")
         out = tuple(self.postprocess.finalize_frames(candidates))
         timing.mark("postprocess")
         return out
@@ -156,7 +181,7 @@ class Detector:
                  postprocess_params: PostProcessParams | None = None, spatial=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.anchor_set: AnchorSet = build_anchors(cfg)
+        self.anchor_set: AnchorSet | None = None if cfg.center else build_anchors(cfg)
         plan = None if spatial is None else SpatialPlan.of(spatial, cfg.grid_size[0])
         self.module = DetectorModule(cfg, self.anchor_set, postprocess_params, self.device, plan, fcfs)
         if plan is not None:
@@ -168,8 +193,9 @@ class Detector:
 
     # -- weights -----------------------------------------------------------
     def init_weights(self, seed: int) -> "Detector":
-        """Seeded random weights (see models.pointpillars.init_weights)."""
-        init_weights(self.model, seed)
+        """Seeded random weights (see models.pointpillars.init_weights,
+        models.centerpoint.init_weights)."""
+        (init_center_weights if self.cfg.center else init_weights)(self.model, seed)
         return self
 
     def load_state_dict(self, state_dict: dict) -> "Detector":
@@ -219,7 +245,7 @@ class Detector:
         JAX's `make_spatial_infer` jit): every rank of its group calls it
         for the same frames."""
         return CapturedInfer(self.module.forward, self.device,
-                             meshes=[] if self.spatial is None else [self.spatial.mesh])
+                             meshes=[] if self.spatial is None else [self.spatial.mesh], nms_rows=self.module.nms_rows)
 
     def infer_batch_jit(self, points, num_points) -> Detections:
         """`infer_batch` as captured CUDA graphs, one per batch size (the JAX
@@ -228,7 +254,7 @@ class Detector:
         leading frame axis, in the graph's buffers."""
         b = int(points.shape[0])
         if b not in self._batch_jits:
-            self._batch_jits[b] = CapturedInfer(self.module.forward_batch, self.device)
+            self._batch_jits[b] = CapturedInfer(self.module.forward_batch, self.device, nms_rows=b * self.module.nms_rows)
         return self._batch_jits[b](points, num_points)
 
     # -- host conveniences -------------------------------------------------
@@ -256,10 +282,12 @@ class CapturedInfer:
     """A detector function of (points, counts) → Detections as a
     `CapturedCall` under `torch.no_grad()`, the counts as int32 buffers (0-d
     for one frame, (B,) for a batch); `meshes`: the groups it issues
-    collectives over."""
+    collectives over; `nms_rows`: the rows of its NMS call, counted a call
+    while recording."""
 
-    def __init__(self, fn, device, meshes=()):
+    def __init__(self, fn, device, meshes=(), nms_rows: int = 0):
         self.call = CapturedCall(torch.no_grad()(fn), device, meshes=meshes)
+        self.nms_rows = int(nms_rows)
 
     @property
     def captures(self) -> int:
@@ -270,4 +298,6 @@ class CapturedInfer:
         if timing.recording() and not (isinstance(num_points, torch.Tensor) and num_points.is_cuda):
             timing.count("call.rows_staged", np.prod(points.shape[:-1]))
             timing.count("call.rows_real", np.sum(np.asarray(num_points)))
+        if self.nms_rows and timing.recording():
+            timing.count("nms.rows", self.nms_rows)
         return Detections(*self.call(points, torch.as_tensor(num_points, dtype=torch.int32)))

@@ -15,6 +15,22 @@ framework/inference.py:26-138), with the same two stages:
 
 NMS hyper-parameters are the reference's hard-coded values
 (framework/inference.py:13-19).
+
+The center model (CenterPoint-PP, `cfg.head == "center"`) has its own
+post-processor, `CenterPostProcessor`, with the same two stages over its
+task groups (tianweiy/CenterPoint `CenterHead.predict` / `post_processing`):
+`decode_stage` takes, for every task of every frame at once, the
+max-class logit of every cell, places
+every cell's centre (cell + `reg`, times the output stride and the voxel
+size, from the range's corner) and height, gates by score (logit over
+logit(`score_threshold`)) and by `post_center_limit_range`, takes the top
+`nms_pre_max_size` and decodes those: exp(`dim`), atan2(sin, cos) of `rot`,
+`vel`; `finalize_frames` runs one rotated NMS call over every task of every
+frame (`kernels.nms_cuda.nms_keep_rotated`, BEV boxes [x, y, dim0, dim1,
+rot], IoU over `nms_iou_threshold` suppresses, class-agnostic within a
+task), the `nms_post_max_size` rank cap per task, and compacts each class's
+kept boxes into its own row: Detections (ncls, post_max, 9), a box
+[x, y, z, dim0, dim1, dim2, vx, vy, rot].
 """
 
 from __future__ import annotations
@@ -28,7 +44,7 @@ from torch import nn
 
 from det3d_tpu_torch.anchors import AnchorSet
 from det3d_tpu_torch.config import Config
-from det3d_tpu_torch.kernels.nms_cuda import nms_keep
+from det3d_tpu_torch.kernels.nms_cuda import nms_keep, nms_keep_rotated
 from det3d_tpu_torch.ops import geometry
 from det3d_tpu_torch.ops.nms import rank_cap
 from det3d_tpu_torch.utils import timing
@@ -52,7 +68,7 @@ class PostProcessParams(NamedTuple):
 class Detections(NamedTuple):
     """Fixed-shape per-frame detections, stacked over classes."""
 
-    boxes: torch.Tensor   # (num_classes, post_max, 7)
+    boxes: torch.Tensor   # (num_classes, post_max, 7); 9 for the center model (velocity before yaw)
     scores: torch.Tensor  # (num_classes, post_max)
     valid: torch.Tensor   # (num_classes, post_max) bool
 
@@ -280,6 +296,15 @@ class PostProcessor(nn.Module):
                                           self.center_limit, self.unit_corners))
         return out
 
+    def decode_frame(self, preds: dict, anchors_mask: torch.Tensor) -> list[Candidates]:
+        """The one frame of batch-1 predictions decoded (`finalize_stage`'s input)."""
+        return self.decode_stage(frame_preds(preds, 0), anchors_mask)
+
+    def decode_frames(self, preds: dict, masks: list[torch.Tensor]) -> list[list[Candidates]]:
+        """Each frame of batched predictions decoded with its anchor mask
+        (`finalize_frames`' input)."""
+        return [self.decode_stage(frame_preds(preds, i), m) for i, m in enumerate(masks)]
+
     def finalize_stage(self, candidates: list[Candidates]) -> Detections:
         """One frame's NMS for every class in one call, then rank cap, range
         filter and compaction (`finalize_frames` of that one frame)."""
@@ -325,9 +350,125 @@ class PostProcessor(nn.Module):
         return Detections(torch.stack(boxes_l), torch.stack(scores_l), torch.stack(valid_l))
 
 
+class CenterCandidates(NamedTuple):
+    """Every task's k decoded top-k cells of the center model, for B
+    frames and T tasks, each row in descending score order."""
+
+    boxes: torch.Tensor    # (B, T, k, 9) [x, y, z, dim0, dim1, dim2, vx, vy, rot]
+    scores: torch.Tensor   # (B, T, k) sigmoid of the max-class logit, -1.0 where not valid
+    labels: torch.Tensor   # (B, T, k) int64 class within the task
+    rboxes: torch.Tensor   # (B, T, k, 5) BEV boxes for NMS [x, y, dim0, dim1, rot]
+    valid: torch.Tensor    # (B, T, k) bool: passed the score gate and the centre range
+
+
+class CenterPostProcessor(nn.Module):
+    """`decode_stage(preds)` (the network's list of task dicts of (B, ch,
+    H, W) maps, see `models.centerpoint`) and `finalize_frames(candidates)`
+    of the center model, every task of every frame at once, on one device;
+    its constants are buffers that no state_dict carries. `nms_keep` is the
+    rotated keep-mask function (`kernels.nms_cuda.nms_keep_rotated` by
+    default)."""
+
+    def __init__(self, cfg: Config, device):
+        super().__init__()
+        self.fx, self.fy = (int(s) for s in cfg.feature_map_size[:2])   # W (x cells), H (y cells)
+        self.pre, self.post = int(cfg.nms_pre_max_size), int(cfg.nms_post_max_size)
+        self.iou = float(cfg.nms_iou_threshold)
+        self.factor = float(cfg.out_size_factor)
+        task_of, local_of = [], []
+        for t, names in enumerate(cfg.tasks):
+            task_of += [t] * len(names)
+            local_of += list(range(len(names)))
+        thr = float(cfg.score_threshold)
+        constants = {
+            "xs": torch.arange(self.fx, dtype=torch.float32),
+            "ys": torch.arange(self.fy, dtype=torch.float32),
+            "voxel": torch.tensor(cfg.voxel_size[:2], dtype=torch.float32),
+            "corner": torch.tensor(cfg.detection_range[:2], dtype=torch.float32),
+            "limit": torch.tensor(cfg.post_center_limit_range, dtype=torch.float32),
+            "logit_thr": torch.tensor(float(np.log(thr / (1.0 - thr))), dtype=torch.float32),
+            "task_of": torch.tensor(task_of, dtype=torch.int64),
+            "local_of": torch.tensor(local_of, dtype=torch.int64),
+        }
+        for name, t in constants.items():
+            self.register_buffer(name, t.to(device), persistent=False)
+        self.nms_keep = nms_keep_rotated
+
+    def decode_stage(self, preds: list[dict]) -> CenterCandidates:
+        """Every task of every frame: the max-class logit and label of each
+        cell, each cell's centre and height, the gate, the top k, and the
+        winners decoded."""
+        top = [p["hm"].float().max(dim=1) for p in preds]
+        logit = torch.stack([v for v, _ in top], 1)                                    # (B, T, H, W)
+        label = torch.stack([i for _, i in top], 1)
+
+        def field(name: str) -> torch.Tensor:                                          # (B, T, ch, H, W)
+            return torch.stack([p[name] for p in preds], 1).float()
+
+        reg = field("reg")
+        x = ((self.xs + reg[:, :, 0]) * self.factor) * self.voxel[0] + self.corner[0]
+        y = ((self.ys[:, None] + reg[:, :, 1]) * self.factor) * self.voxel[1] + self.corner[1]
+        z = field("height")[:, :, 0]
+        lim = self.limit
+        inside = (x >= lim[0]) & (y >= lim[1]) & (z >= lim[2]) & (x <= lim[3]) & (y <= lim[4]) & (z <= lim[5])
+        gated = torch.where(inside & (logit > self.logit_thr), logit, -math.inf).flatten(2)
+        best, idx = torch.topk(gated, min(self.pre, gated.shape[-1]))                 # (B, T, k)
+        valid = best > -math.inf
+
+        def take(t: torch.Tensor) -> torch.Tensor:
+            """(B, T, [ch,] H, W) at the winners → (B, T, [ch,] k)."""
+            if t.dim() == 4:
+                return torch.gather(t.flatten(2), 2, idx)
+            flat = t.flatten(3)
+            return torch.gather(flat, 3, idx[:, :, None, :].expand(-1, -1, flat.shape[2], -1))
+
+        dims = torch.exp(take(field("dim")))
+        rot = take(field("rot"))
+        yaw = torch.atan2(rot[:, :, 0], rot[:, :, 1])
+        vel = take(field("vel"))
+        boxes = torch.stack([take(x), take(y), take(z), dims[:, :, 0], dims[:, :, 1], dims[:, :, 2],
+                             vel[:, :, 0], vel[:, :, 1], yaw], dim=-1)
+        scores = torch.where(valid, torch.sigmoid(best), -1.0)
+        rboxes = torch.stack([boxes[..., 0], boxes[..., 1], boxes[..., 3], boxes[..., 4], yaw], dim=-1)
+        return CenterCandidates(boxes, scores, take(label), rboxes, valid)
+
+    def decode_frame(self, preds: list[dict], anchors_mask: None = None) -> CenterCandidates:
+        """Batch-1 predictions decoded, B = 1 kept (`finalize_stage`'s
+        input); the center model has no anchor mask."""
+        return self.decode_stage(preds)
+
+    def decode_frames(self, preds: list[dict], masks: list[None]) -> CenterCandidates:
+        """Every frame decoded at once (`finalize_frames`' input)."""
+        return self.decode_stage(preds)
+
+    def finalize_stage(self, candidates: CenterCandidates) -> Detections:
+        """One frame's candidates (B = 1) → its Detections."""
+        return Detections(*(t[0] for t in self.finalize_frames(candidates)))
+
+    def finalize_frames(self, c: CenterCandidates) -> Detections:
+        """One rotated NMS call over the (B·T, k) rows, the rank cap per
+        task, then each class's kept boxes in score order into its row →
+        Detections (B, ncls, post_max, ...)."""
+        b, t, k = c.valid.shape
+        keep = self.nms_keep(c.rboxes.reshape(b * t, k, 5).contiguous(), c.valid.reshape(b * t, k).contiguous(),
+                             self.iou)
+        keep = rank_cap(keep, self.post).reshape(b, t, k)
+        sel = keep[:, self.task_of] & (c.labels[:, self.task_of] == self.local_of[None, :, None])   # (B, ncls, k)
+        slot = torch.where(sel, torch.cumsum(sel.to(torch.int64), -1) - 1, self.post)
+        ncls, width = sel.shape[1], c.boxes.shape[-1]
+        out_boxes = c.boxes.new_zeros((b, ncls, self.post + 1, width))
+        out_scores = c.scores.new_zeros((b, ncls, self.post + 1))
+        out_valid = torch.zeros((b, ncls, self.post + 1), dtype=torch.bool, device=keep.device)
+        out_boxes.scatter_(2, slot[..., None].expand(-1, -1, -1, width), c.boxes[:, self.task_of])
+        out_scores.scatter_(2, slot, c.scores[:, self.task_of])
+        out_valid.scatter_(2, slot, sel)
+        return Detections(out_boxes[:, :, :self.post], out_scores[:, :, :self.post], out_valid[:, :, :self.post])
+
+
 def to_annos(cfg: Config, det: Detections) -> dict:
     """Fixed-shape detections → the reference's annos dict on the host
-    (framework/inference.py:129-137, get_start_result_anno:724-737). Spans
+    (framework/inference.py:129-137, get_start_result_anno:724-737); a
+    center model's annos add `velocity` (vx, vy a box). Spans
     (`utils.timing`): `annos.fetch`, the copies to the host, in which the
     host waits for the card to finish the detections; `annos.format`."""
     with timing.span("annos.fetch"):
@@ -339,17 +480,22 @@ def to_annos(cfg: Config, det: Detections) -> dict:
 
 
 def _annos(cfg: Config, boxes: np.ndarray, scores: np.ndarray, valid: np.ndarray) -> dict:
-    names, locs, dims, yaws, scs = [], [], [], [], []
-    for ci, spec in enumerate(cfg.class_specs):
+    names, locs, dims, yaws, scs, vels = [], [], [], [], [], []
+    class_names = cfg.class_names
+    width = max(10, *(len(n) for n in class_names))
+    moving = boxes.shape[-1] == 9
+    for ci, name in enumerate(class_names):
         m = valid[ci]
         n = int(m.sum())
         if n == 0:
             continue
-        names.append(np.full(n, spec.name, dtype="<U10"))
+        names.append(np.full(n, name, dtype=f"<U{width}"))
         locs.append(boxes[ci][m][:, :3])
         dims.append(boxes[ci][m][:, 3:6])
-        yaws.append(boxes[ci][m][:, 6])
+        yaws.append(boxes[ci][m][:, -1])
         scs.append(scores[ci][m])
+        if moving:
+            vels.append(boxes[ci][m][:, 6:8])
 
     anno = {
         "name": np.array([]),
@@ -362,10 +508,14 @@ def _annos(cfg: Config, boxes: np.ndarray, scores: np.ndarray, valid: np.ndarray
         "rotation_y": np.array([]),
         "score": np.array([]),
     }
+    if moving:
+        anno["velocity"] = np.zeros([0, 2])
     if names:
         anno["name"] = np.concatenate(names)
         anno["location"] = np.concatenate(locs)
         anno["dimensions"] = np.concatenate(dims)
         anno["rotation_y"] = np.concatenate(yaws)
         anno["score"] = np.concatenate(scs)
+        if moving:
+            anno["velocity"] = np.concatenate(vels)
     return anno

@@ -163,6 +163,9 @@ class Trainer:
 
     def __init__(self, cfg: Config, device=None, *, device_global_augment: bool = False, aug_seed: int = 0,
                  spatial=None, fence: bool = True):
+        if cfg.center:
+            raise ValueError("the center model (head 'center', CenterPoint-PP) is inference only: its heatmap "
+                             "targets and focal loss are not ported")
         self.cfg = cfg
         self.detector = Detector(cfg, device, spatial=spatial)
         self.device = self.detector.device

@@ -51,8 +51,9 @@ SMALL_DICT = {
 
 def _shared_fields(cfg) -> dict:
     """Every field of the port's Config but `pack_w`, whose default differs
-    on purpose (False in the port, True in the JAX package)."""
-    names = {f.name for f in dataclasses.fields(tconfig.Config)} - {"pack_w"}
+    on purpose (False in the port, True in the JAX package), and the center
+    model's keys, which the JAX package has not."""
+    names = {f.name for f in dataclasses.fields(tconfig.Config)} - {"pack_w", *tconfig.CENTER_FIELDS}
     return {n: getattr(cfg, n) for n in names}
 
 

@@ -45,7 +45,7 @@ def to_torch_cfg(cfg, layout: bool = False) -> tcfg.Config:
     the layout levers keep the port's defaults (the dense network) unless
     `layout` asks for the JAX config's."""
     specs = tuple(tcfg.ClassSpec(**dataclasses.asdict(s)) for s in cfg.class_specs)
-    names = {f.name for f in dataclasses.fields(tcfg.Config)} - {"class_specs"}
+    names = {f.name for f in dataclasses.fields(tcfg.Config)} - {"class_specs", *tcfg.CENTER_FIELDS}
     if not layout:
         names -= LAYOUT_FIELDS
     return tcfg.Config(**{n: getattr(cfg, n) for n in names}, class_specs=specs)

@@ -36,7 +36,8 @@ from test_torch_tmpdirs import tmp_path  # noqa: F401
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
-MARKS = ["start", "preprocess", "network", "postprocess"]
+MARKS = ["start", "preprocess", "neck", "network", "decode", "postprocess"]
+OLD_MARKS = ["start", "preprocess", "network", "postprocess"]   # the marks before `neck` and `decode` came
 CHILDREN = {"pad", "call.stage", "call.launch", "annos.fetch", "annos.format"}
 
 
@@ -124,7 +125,9 @@ def test_one_detect_is_one_root_with_its_children_and_marks(det, tmp_path):  # n
     assert ms[0] == 0.0 and all(a <= b for a, b in zip(ms, ms[1:]))
     assert ms[-1] <= (launch.end_ns - launch.start_ns) / 1e6
     n = int(det.pad_points(points)[1])
-    assert counters == {"call.replays": 1, "call.rows_staged": det.cfg.max_points, "call.rows_real": n}
+    assert counters == {"call.replays": 1, "call.rows_staged": det.cfg.max_points, "call.rows_real": n,
+                        "nms.rows": len(det.cfg.class_specs)}
+    assert [m for m, _ in replay.marks if m in OLD_MARKS] == OLD_MARKS
 
 
 @pytest.mark.parametrize("batch", [1, 4])
@@ -137,12 +140,38 @@ def test_rows_staged_and_real_are_what_was_fed(det, batch, tmp_path):  # noqa: F
             det.infer_batch_jit(points, counts)
     spans, counters, replays = recorded()
     assert counters == {"call.replays": 2, "call.rows_staged": 2 * batch * det.cfg.max_points,
-                        "call.rows_real": 2 * int(counts.sum())}
+                        "call.rows_real": 2 * int(counts.sum()), "nms.rows": 2 * batch * len(det.cfg.class_specs)}
     assert sorted(s.name for s in spans) == ["call.launch"] * 2 + ["call.stage"] * 2
     calls = sorted({s.call for s in spans})
     assert len(calls) == 2 and all(s.parent is None for s in spans)   # no detect: the call's own id
     assert sorted(r.call for r in replays) == calls
     assert all([m for m, _ in r.marks] == MARKS for r in replays)
+
+
+@pytest.mark.parametrize("batch", [0, 2])
+def test_a_center_replay_carries_its_marks_in_order(batch, tmp_path):  # noqa: F811
+    """The center model (CenterPoint-PP at every published width on a
+    64x64 grid): a captured frame's or batch's replay marks start,
+    preprocess, neck, network, decode, postprocess in order, and counts a
+    row of NMS a task of each frame."""
+    cfg = load_config("benchmark/configs/centerpoint_pp_nusc.json", compute_dtype="float32", max_voxels=256,
+                      max_points=4096, detection_range=[-6.4, -6.4, -5.0, 6.4, 6.4, 3.0])
+    det = Detector(cfg, CPU).init_weights(0)
+    rng = np.random.default_rng(batch)
+    points = [np.concatenate([rng.uniform(-6, 6, (3000, 2)), rng.uniform(-3, 1, (3000, 1)),
+                              rng.uniform(0, 255, (3000, 1)), rng.uniform(0, 0.45, (3000, 1))], 1).astype(np.float32)
+              for _ in range(max(batch, 1))]
+    with timing.trace(tmp_path):
+        if batch:
+            padded = [det.pad_points(p) for p in points]
+            det.infer_batch_jit(np.stack([p for p, _ in padded]), np.asarray([n for _, n in padded], np.int32))
+        else:
+            det.detect(points[0])
+    (replay,) = timing.replays()
+    assert [m for m, _ in replay.marks] == MARKS
+    ms = [t for _, t in replay.marks]
+    assert all(a <= b for a, b in zip(ms, ms[1:]))
+    assert timing.counters()["nms.rows"] == max(batch, 1) * len(cfg.tasks)
 
 
 def test_the_profiler_trace_holds_the_spans_as_ranges(det, tmp_path):  # noqa: F811
