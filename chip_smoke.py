@@ -254,7 +254,20 @@ Phases, each printed as it runs; any failure exits non-zero:
      rotated NMS (phase 5's tolerances), and each answer of `detect` (2
      frames) and of `infer_batch_jit` (4 frames) under the configuration's
      `center_gap` limit (`benchmark/families/centerpoint.py`).
-`chip_smoke.py --center` runs phases 21-22 alone (~2 min).
+ 23. the voxelizer (`kernels/voxelize_cuda.py`, `csrc/voxelize.cu`) at both
+     configurations' shapes (ntusl_20cm: 800 x 800, 16 000 x 15 x 4;
+     CenterPoint-PP: 512 x 512, 60 000 x 20 x 5), batch 1 and 4, on the
+     benchmark families' clouds: bit-equal to the plain version in both slot
+     orders; ms a call against its byte bound (the real points read, the
+     buffers written) and the plain version's ms (the library chain it
+     replaced); each of its six kernels' launches and ms a call, six
+     launches a captured replay (profiler); in the detector's captured frame
+     and batch its kernels by name and no `scan_innermost_dim_with_indices`;
+     in the PointPillars frame's replay, the kernels between `vox_fill` and
+     the network (the anchor mask, the stage between the marks `voxelize`
+     and `preprocess`) by name and device ms, and that stretch's span.
+`chip_smoke.py --center` runs phases 21-22 alone (~2 min),
+`chip_smoke.py --voxelize` phase 23.
 The last lines are the kernels table and phase 20's table (JSON), the
 card's name and power limit, and {"ok": true, "device": {...}}. Needs one CUDA card; imports
 nothing of the JAX package. `chip_smoke.py --deploy-child ARTIFACT FRAMES
@@ -3367,7 +3380,7 @@ def run_cell_id_order(cfg, card: str) -> dict:
     occur; fcfs=False: the `max_voxels` lowest cell ids); the voxelize
     stage's ms and device ms of both orders, in turns."""
     from det3d_tpu_torch.kernels import nms_cuda, scatter_cuda
-    from det3d_tpu_torch.ops.voxelize import voxelize
+    from det3d_tpu_torch.ops.voxelize import grid_tensors, voxelize
     from det3d_tpu_torch.pipeline import Detector
 
     frames = cell_id_frames(cfg)
@@ -3378,7 +3391,8 @@ def run_cell_id_order(cfg, card: str) -> dict:
     run = run_frames(det, [frames[0][1]] + [p for _, p in frames], counters)
     print_run(card, f"Detector(fcfs=False), {run['n']} frames", run)
     check(run["launches"] == {"scatter": run["n"], "nms": run["n"]}, f"fcfs=False launches {run['launches']}")
-    spec, grid = det.module.spec, (det.module.voxel_size, det.module.grid_offset, det.module.grid_size)
+    spec = det.module.spec
+    grid = grid_tensors(spec, torch.device("cuda"))
     every = spec._replace(max_voxels=cfg.max_points)  # a cap no frame reaches: every occupied cell
     for i, (kind, pts_np) in enumerate(frames):
         padded, n = det.pad_points(pts_np)
@@ -4012,6 +4026,192 @@ def run_center(card: str, seed: int = 2**31 + 21) -> dict:
     return out
 
 
+VOXELIZE_CONFIGS = {"ntusl_20cm": ("configs/ntusl_20cm.json", "pointpillars", (60_000, 130_000)),
+                    "centerpoint_pp_nusc": ("benchmark/configs/centerpoint_pp_nusc.json", "centerpoint",
+                                            (240_000, 360_000))}
+VOXELIZE_KERNELS = ("vox_reset", "vox_bin", "vox_count", "vox_number", "vox_append", "vox_fill")
+
+
+def voxelize_bytes(counts, c: int, spec) -> int:
+    """The voxelizer's bytes: the real points read once, the buffers
+    (voxels, coors, counts) written once."""
+    b = len(counts)
+    return int(sum(counts)) * c * 4 + b * spec.max_voxels * (spec.max_num_points * c + 4) * 4
+
+
+def device_kernels(fn, n: int) -> dict[str, tuple[int, float]]:
+    """{kernel name: (launches a call, device ms a call)} of `fn` by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = out.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    return {name: (k / n, ms / n) for name, (k, ms) in out.items()}
+
+
+def kernels_after(fn, first: str, eager, n: int = 10) -> dict:
+    """The kernels that follow the kernel whose name holds `first` in each
+    call of a captured `fn`, as many as one eager call of `eager` launches (the stage
+    `eager` runs next): their names against the eager call's, device ms a
+    call by name (profiler), their sum, and the span from `first`'s end to
+    the last one's end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(prof):
+        return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+
+    eager()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eager()
+        torch.cuda.synchronize()
+    stage = [e.name for e in kernels(prof)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = kernels(prof)
+    heads = [i for i, e in enumerate(events) if first in e.name]
+    by_name: dict[str, float] = {}
+    spans, total, same = [], 0.0, True
+    for i in heads:
+        run = events[i + 1:i + 1 + len(stage)]
+        same = same and [e.name for e in run] == stage
+        for e in run:
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + ms / len(heads)
+            total += ms / len(heads)
+        spans.append((run[-1].time_range.end - events[i].time_range.end) / 1e3)
+    return {"calls": len(heads), "kernels": len(stage), "names_as_eager": same,
+            "kernel_ms": round(total, 4), "span_ms": round(statistics.median(spans), 4) if spans else None,
+            "by_name": {k: round(v, 4) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}}
+
+
+def check_voxelize(card: str, seed: int = 2**31 + 23) -> dict:
+    """Phase 23: the voxelizer's kernels (`kernels/voxelize_cuda.py`) at
+    both configurations' shapes, batch 1 and INFER_BATCH, on the benchmark
+    families' clouds: bit-equal to the plain version in both slot orders;
+    ms a call (CUDA events behind a spin kernel) beside its byte bound and
+    the plain version's ms (today's library chain: two sorts, a flipped
+    cummin, gathers, frame by frame); each kernel's ms and launches a call,
+    and launches per replay of a captured call (profiler); then the
+    detector's captured frame (`infer_jit`) and batch (`infer_batch_jit`):
+    the op called once a capture, the voxelizer's kernels in the replay by
+    name, and no `scan_innermost_dim_with_indices` left in it."""
+    from benchmark.families import centerpoint, pointpillars
+    from benchmark.lib import traffic
+    from det3d_tpu_torch.config import load_config
+    from det3d_tpu_torch.kernels import voxelize_cuda
+    from det3d_tpu_torch.ops.voxelize import VoxelizedFrame, VoxelizerSpec, grid_tensors, voxelize
+    from det3d_tpu_torch.pipeline import Detector
+
+    families = {"pointpillars": pointpillars, "centerpoint": centerpoint}
+    result = {}
+    for name, (path, family, (lo, hi)) in VOXELIZE_CONFIGS.items():
+        cfg = load_config(path)
+        spec = VoxelizerSpec.from_config(cfg)
+        grid = grid_tensors(spec, torch.device("cuda"))
+        clouds = [families[family].point_cloud(int(k), traffic.rng(seed, 23, i))
+                  for i, k in enumerate(np.linspace(lo, hi, INFER_BATCH + 1))]
+        c = clouds[0].shape[1]
+        for b in (1, INFER_BATCH):
+            group = clouds[-b:]
+            pts = torch.zeros((b, cfg.max_points, c), dtype=torch.float32)
+            for i, p in enumerate(group):
+                pts[i, :len(p)] = torch.from_numpy(p[:cfg.max_points])
+            pts = pts.cuda()
+            counts_host = [min(len(p), cfg.max_points) for p in group]
+            counts = torch.tensor(counts_host, dtype=torch.int32, device="cuda")
+            row: dict = {}
+            for fcfs in (True, False):
+                got = voxelize_cuda.voxelize_batch(pts, counts, spec, fcfs)
+                for i in range(b):
+                    want = voxelize(pts[i], counts_host[i], spec, grid, fcfs=fcfs)
+                    for f in VoxelizedFrame._fields:
+                        g, w = getattr(got, f)[i], getattr(want, f)
+                        check(torch.equal(bits(g) if g.is_floating_point() else g,
+                                          bits(w) if w.is_floating_point() else w),
+                              f"23: {name} batch {b} fcfs={fcfs} frame {i}: {f} differs from the plain version")
+                row[f"pillars_fcfs_{fcfs}"] = got.voxel_num.tolist()
+
+                def plain():
+                    for i in range(b):
+                        voxelize(pts[i], counts[i], spec, grid, fcfs=fcfs)
+
+                key = "" if fcfs else "_cellid"
+                row["ms" + key] = cuda_ms(lambda: voxelize_cuda.voxelize_batch(pts, counts, spec, fcfs))
+                row["plain_ms" + key] = cuda_ms(plain, iters=10)
+                per = device_kernels(lambda: voxelize_cuda.voxelize_batch(pts, counts, spec, fcfs), 10)
+                row["kernels" + key] = {k: (round(v[0], 2), round(v[1], 5)) for k, v in per.items()
+                                        if any(p in k for p in VOXELIZE_KERNELS)}
+            row["bound_ms"] = voxelize_bytes(counts_host, c, spec) / HBM_BYTES_PER_S * 1e3
+            row["points"] = counts_host
+            # launches per replay of a captured call
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                voxelize_cuda.voxelize_batch(pts, counts, spec)
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                voxelize_cuda.voxelize_batch(pts, counts, spec)
+            replay = kernels_per_replay(graph.replay, {"vox": "vox_"})
+            row["launches_per_replay"] = replay
+            check(replay["all"] == replay["vox"] == len(VOXELIZE_KERNELS),
+                  f"23: {name} batch {b}: a replay launched {replay}")
+            del graph
+            print(f"[{card}] voxelize {name} batch {b}: bit-equal to the plain version in both orders; "
+                  + json.dumps({k: (round(v, 4) if isinstance(v, float) else v) for k, v in row.items()}), flush=True)
+            result[f"{name} b{b}"] = row
+        # the detector's captured frame and batch
+        det = Detector(cfg).init_weights(SEED)
+        frame = det.pad_points(clouds[-1])
+        padded = [det.pad_points(p) for p in clouds[-INFER_BATCH:]]
+        batch_pts = np.stack([p for p, _ in padded])
+        batch_n = np.asarray([k for _, k in padded], np.int32)
+        for what, fn in (("infer_jit", lambda: det.infer_jit(*frame)),
+                         ("infer_batch_jit", lambda: det.infer_batch_jit(batch_pts, batch_n))):
+            before = voxelize_cuda.counter.launches
+            fn()
+            torch.cuda.synchronize()
+            calls = voxelize_cuda.counter.launches - before  # the warm-up calls and the capture
+            per = device_kernels(fn, 5)
+            vox = {k: v[0] for k, v in per.items() if any(p in k for p in VOXELIZE_KERNELS)}
+            scans = sum(v[0] for k, v in per.items() if "scan_innermost_dim_with_indices" in k)
+            gathers = sum(v[0] for k, v in per.items() if "vectorized_gather_kernel" in k)
+            check(calls >= 1 and sum(vox.values()) == len(VOXELIZE_KERNELS) and scans == 0,
+                  f"23: {name} {what}: {calls} op calls in the capture, voxelizer kernels {vox}, {scans} index scans")
+            top = sorted(per.items(), key=lambda kv: -kv[1][1])[:8]
+            result[f"{name} {what}"] = {"op_calls_while_capturing": calls, "voxelize_kernels": vox,
+                                        "index_scans": scans, "gathers": gathers,
+                                        "kernels": int(sum(v[0] for v in per.values())),
+                                        "device_ms": round(sum(v[1] for v in per.values()), 4),
+                                        "top": [(k[:60], round(v[1], 4)) for k, v in top]}
+            print(f"[{card}] voxelize {name} {what}: {json.dumps(result[f'{name} {what}'])}", flush=True)
+        if not det.module.center:  # the anchor mask: the stage after the voxelizer in the frame's replay
+            pts1 = torch.from_numpy(frame[0]).cuda()
+            coors = det.module.voxelize_frame(pts1, frame[1]).coors
+            split = kernels_after(lambda: det.infer_jit(*frame), "vox_fill(", lambda: det.module.anchors_mask(coors))
+            check(split["calls"] > 0, f"23: {name}: no vox_fill in the frame's replays")
+            result[f"{name} anchor mask in the infer_jit replay"] = split
+            print(f"[{card}] voxelize {name}: the anchor mask in the frame's replay: {json.dumps(split)}", flush=True)
+        del det
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--deploy-child":
         return deploy_child(*sys.argv[2:])
@@ -4028,6 +4228,14 @@ def main() -> int:
         center = run_center(card)
         phase(None)
         print(json.dumps({"rotated_nms": rotated, "center": center}))
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--voxelize":
+        card = _PHASE["card"] = card_line()
+        phase("23. the voxelizer's kernels (both configurations, batch 1 and 4)")
+        vox = check_voxelize(card)
+        phase(None)
+        print(json.dumps({"voxelize": vox}))
+        print(card_line())
         return 0
 
     from det3d_tpu_torch.config import load_config
@@ -4336,6 +4544,8 @@ def main() -> int:
     rotated = check_rotated_nms(card)
     phase("22. the center model (CenterPoint-PP), captured, full width")
     center = run_center(card)
+    phase("23. the voxelizer's kernels (both configurations, batch 1 and 4)")
+    vox = check_voxelize(card)
 
     kernels = [
         {
@@ -4427,6 +4637,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"in_relu": in_relu}))
     print(json.dumps({"rotated_nms": rotated, "center": center}))
+    print(json.dumps({"voxelize": vox}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

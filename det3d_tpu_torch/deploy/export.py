@@ -5,13 +5,14 @@ Counterpart of the JAX package's deploy/export.py (reference:
 framework/trt_utils.py:6-47, train.py:348-424 `trt_export`): where the JAX
 package serializes the StableHLO of its fused pipeline, the port exports
 `pipeline.DetectorModule` (voxelize → network → decode → NMS → compaction)
-with `torch.export` at the static (max_points, C) shape. The BEV scatter,
-the RPN's InstanceNorm + ReLU pairs and NMS are the custom ops
-`det3d::scatter_to_bev`, `det3d::in_relu` and `det3d::nms_keep`, so the
-program holds them as nodes and the runtime launches the hand-written
-kernels; the weights and every device constant of the path (the grid,
-the anchor-mask vectors, the anchors, the post-processor's thresholds)
-travel inside it as parameters and buffers.
+with `torch.export` at the static (max_points, C) shape. The voxelizer,
+the BEV scatter, the RPN's InstanceNorm + ReLU pairs and NMS are the
+custom ops `det3d::voxelize`, `det3d::scatter_to_bev`, `det3d::in_relu`
+and `det3d::nms_keep`, so the program holds them as nodes and the runtime
+launches the hand-written kernels; the weights and every device constant
+of the path (the anchor-mask vectors, the anchors, the post-processor's
+thresholds) travel inside it as parameters and buffers, the grid and the
+voxelizer's caps as its node's arguments.
 
 The program is traced on the device it will run on (the card unless the
 caller names the CPU): a constant the trace creates, such as a fill value,

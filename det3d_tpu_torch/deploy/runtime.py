@@ -3,10 +3,10 @@
 Counterpart of the JAX package's deploy/runtime.py (reference:
 networks/pointpillars_trt.py:10-77, train.py:273-345 `trt_eval`). Loading
 needs the config (host-side padding and annos) and the kernel ops
-(`kernels.scatter_cuda`, `kernels.nms_cuda`, `kernels.norm_cuda` register
-`det3d::*`), not the model code: `ExportedDetector` imports neither
-`models` nor `pipeline`. The weights are loaded once and stay on the
-device.
+(`kernels.scatter_cuda`, `kernels.nms_cuda`, `kernels.norm_cuda`,
+`kernels.voxelize_cuda` register `det3d::*`), not the model code:
+`ExportedDetector` imports neither `models` nor `pipeline`. The weights
+are loaded once and stay on the device.
 
 On the card the runtime runs the program twice to warm it up (the
 kernels' build, cuDNN's first calls) and captures it as ONE CUDA graph
@@ -31,7 +31,7 @@ import torch
 
 from det3d_tpu_torch.config import Config, load_config
 from det3d_tpu_torch.deploy.export import CONFIG, PROGRAM
-from det3d_tpu_torch.kernels import nms_cuda, norm_cuda, scatter_cuda  # noqa: F401  (register the det3d ops)
+from det3d_tpu_torch.kernels import nms_cuda, norm_cuda, scatter_cuda, voxelize_cuda  # noqa: F401  (the det3d ops)
 from det3d_tpu_torch.postprocess import Detections, to_annos
 from det3d_tpu_torch.utils.device import resolve_device
 from det3d_tpu_torch.utils.graphs import CapturedCall

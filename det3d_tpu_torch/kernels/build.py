@@ -41,13 +41,15 @@ _COMMON_FLAGS = (
 # Per-library extra flags. NMS and the matcher must equal their plain
 # versions bit for bit (keep masks; IoUs compared with ==), so no
 # multiply-add contraction and IEEE division (no --use_fast_math); so must
-# the InstanceNorm's apply pass for equal statistics.
+# the InstanceNorm's apply pass for equal statistics, and the voxelizer's
+# cells, floored from (p - offset) / voxel_size as the plain version does.
 EXTRA_FLAGS = {
     "scatter": (),
     "nms": ("-fmad=false", "-prec-div=true"),
     "matcher": ("-fmad=false", "-prec-div=true"),
     "fence": (),
     "instance_norm": ("-fmad=false", "-prec-div=true"),
+    "voxelize": ("-fmad=false", "-prec-div=true"),
 }
 
 

@@ -3,7 +3,10 @@
 Counterpart of the JAX package's `ops/voxelize.voxelize` (reference:
 framework/voxel_generator.py:82-106), in both of its slot orders. The
 outputs — `voxels`, `coors`, `num_points_per_voxel`, `voxel_num` — are
-bit-identical to it. With `fcfs=True` (the default, the reference's order):
+bit-identical to it. This is the plain version of the op `det3d::voxelize`
+(`kernels/voxelize_cuda.py`), which the detector calls: the op runs it on
+CPU tensors, frame by frame, and its CUDA kernels equal it bit for bit.
+With `fcfs=True` (the default, the reference's order):
 
   1. every point gets a linear cell id; out-of-range and padding points get
      a sentinel that sorts last;

@@ -5,13 +5,14 @@ net(example) → Inference.infer_gpu, framework/dataset.py:199-231,
 networks/pointpillars8_shared.py:346-382, framework/inference.py:26-138):
 voxelization, the anchor mask, the network and post-processing run on the
 detector's device with no host round trip until `detect` formats the
-result. PyTorch runs eagerly, so the stages are plain method calls; the two
-CUDA kernels (the BEV scatter of the config's layout, NMS) each launch once
-per frame on the card, or once per batch in `infer_batch`. The compiled
-entry points, `infer_jit` and `infer_batch_jit`, capture the same module
-as one CUDA graph (one per batch size) and replay it, the JAX detector's
-`infer_jit` and `jax.jit(jax.vmap(infer))`; `detect` goes through
-`infer_jit`, as the JAX detector's does.
+result. PyTorch runs eagerly, so the stages are plain method calls; the
+voxelizer's kernels (`kernels/voxelize_cuda.py`), the BEV scatter of the
+config's layout and NMS each launch once per frame on the card, or once per
+batch in `infer_batch`. The compiled entry points, `infer_jit` and
+`infer_batch_jit`, capture the same module as one CUDA graph (one per batch
+size) and replay it, the JAX detector's `infer_jit` and
+`jax.jit(jax.vmap(infer))`; `detect` goes through `infer_jit`, as the JAX
+detector's does.
 
 With a spatial group (`Detector(cfg, spatial=mesh)`,
 `parallel/mesh.make_spatial_infer`) the network's scatter, RPN and head
@@ -22,7 +23,8 @@ replicated, so every rank holds the frame's `Detections`; `infer_jit`
 captures the frame with its collectives, as JAX jits it.
 
 The whole points → detections function is one module, `DetectorModule`,
-whose buffers hold every device constant of the path, so that
+whose buffers hold every device constant of the path (the voxel grid is
+its op's arguments), so that
 `deploy/export.py` exports it as it is and the live detector and the
 exported program run the same code.
 
@@ -36,9 +38,10 @@ at once and its NMS call is rotated, one row a task of every frame.
 
 Tracing (`utils.timing`, on while a profiler runs): `detect` is the root
 span of a frame, `pad_points` the span `pad`; `forward` and
-`forward_batch` place the stage marks `start`, `preprocess` (voxelize and
-the anchor mask), `neck` (placed by the network between its RPN and its
-head), `network`, `decode` (decode, gate and top-k) and `postprocess` (NMS,
+`forward_batch` place the stage marks `start`, `voxelize` (the op
+`det3d::voxelize`: the kernels on the card), `preprocess` (the anchor
+mask), `neck` (placed by the network between its RPN and its head),
+`network`, `decode` (decode, gate and top-k) and `postprocess` (NMS,
 finalize), which a captured call's graph holds as event nodes;
 `CapturedInfer` counts `call.rows_staged` (the rows a call stages, B ×
 `max_points`), `call.rows_real` (the points in them) and `nms.rows` (the
@@ -55,11 +58,12 @@ from torch import nn
 
 from det3d_tpu_torch.anchors import AnchorSet, build_anchors
 from det3d_tpu_torch.config import Config
+from det3d_tpu_torch.kernels.voxelize_cuda import voxelize_batch
 from det3d_tpu_torch.models.centerpoint import CenterPointPP
 from det3d_tpu_torch.models.centerpoint import init_weights as init_center_weights
 from det3d_tpu_torch.models.pointpillars import PointPillars, init_weights
 from det3d_tpu_torch.ops.anchor_mask import compute_anchors_mask, compute_anchors_mask_separable
-from det3d_tpu_torch.ops.voxelize import VoxelizedFrame, VoxelizerSpec, grid_tensors, voxelize
+from det3d_tpu_torch.ops.voxelize import VoxelizedFrame, VoxelizerSpec
 from det3d_tpu_torch.parallel.spatial import SpatialPlan
 from det3d_tpu_torch.postprocess import (CenterPostProcessor, Detections, PostProcessor, PostProcessParams,
                                          to_annos)
@@ -73,8 +77,8 @@ __all__ = ["Detector", "DetectorModule", "resolve_device"]
 
 class DetectorModule(nn.Module):
     """points → detections as one module: the network, the post-processor
-    and, as buffers that no state_dict carries, the voxel grid's constants
-    and the anchor mask's index vectors (or corner cells).
+    and, as buffers that no state_dict carries, the anchor mask's index
+    vectors (or corner cells).
 
     `forward(points (max_points, C), num_points)` is one frame →
     (boxes, scores, valid), the fields of `Detections`; `forward_batch` is B
@@ -91,8 +95,6 @@ class DetectorModule(nn.Module):
         self.center = cfg.center
         self.spec = VoxelizerSpec.from_config(cfg)
         self.grid_xy = (cfg.grid_size[0], cfg.grid_size[1])
-        for name, t in zip(("voxel_size", "grid_offset", "grid_size"), grid_tensors(self.spec, device)):
-            self.register_buffer(name, t, persistent=False)
         if self.center:
             if spatial is not None:
                 raise ValueError("the center model has no spatial path")
@@ -115,11 +117,22 @@ class DetectorModule(nn.Module):
                     self.register_buffer(f"mask_{c}_{j}", torch.as_tensor(v, dtype=torch.int64).to(device),
                                          persistent=False)
 
+    def voxelize(self, points: torch.Tensor, num_points) -> VoxelizedFrame:
+        """B frames (B, max_points, C) and their counts (B,) → the
+        `VoxelizedFrame` fields with a leading B, in one call of the op
+        `det3d::voxelize` (the kernels on the card)."""
+        return voxelize_batch(points, num_points, self.spec, fcfs=self.fcfs)
+
+    def voxelize_frame(self, points: torch.Tensor, num_points) -> VoxelizedFrame:
+        """One frame (max_points, C) → its `VoxelizedFrame` (the op at B = 1)."""
+        return VoxelizedFrame(*(t[0] for t in self.voxelize(points[None], num_points)))
+
     def preprocess(self, points: torch.Tensor, num_points) -> tuple[VoxelizedFrame, torch.Tensor | None]:
-        """Voxelize + anchor occupancy mask (nch, fx, fy); the center model
-        has no anchors and no mask (None)."""
-        frame = voxelize(points, num_points, self.spec, (self.voxel_size, self.grid_offset, self.grid_size),
-                         fcfs=self.fcfs)
+        """Voxelize (then the stage mark `voxelize`) + anchor occupancy mask
+        (nch, fx, fy) of one frame; the center model has no anchors and no
+        mask (None)."""
+        frame = self.voxelize_frame(points, num_points)
+        timing.mark("voxelize")
         return frame, None if self.center else self.anchors_mask(frame.coors)
 
     def anchors_mask(self, coors: torch.Tensor) -> torch.Tensor:
@@ -149,19 +162,21 @@ class DetectorModule(nn.Module):
         return out
 
     def forward_batch(self, points: torch.Tensor, num_points) -> tuple[torch.Tensor, ...]:
-        """points (B, max_points, C), num_points (B,): each frame voxelized
-        and masked, the network once at batch B, each frame decoded, one NMS
-        call over the (B·ncls, kmax, 4) standup boxes, then the rank cap and
-        compaction per frame → (B, ...) fields of `Detections`."""
+        """points (B, max_points, C), num_points (B,): the batch voxelized
+        in one call, each frame masked, the network once at batch B, each
+        frame decoded, one NMS call over the (B·ncls, kmax, 4) standup
+        boxes, then the rank cap and compaction per frame → (B, ...) fields
+        of `Detections`."""
         if self.spatial is not None:
             raise ValueError("a spatial detector partitions within one frame: no batch")
         timing.mark("start")
-        frames = [self.preprocess(points[i], num_points[i]) for i in range(points.shape[0])]
+        frames = self.voxelize(points, num_points)
+        timing.mark("voxelize")
+        masks = [None if self.center else self.anchors_mask(c) for c in frames.coors]
         timing.mark("preprocess")
-        preds = self.model(*(torch.stack([getattr(f, k) for f, _ in frames])
-                             for k in ("voxels", "num_points_per_voxel", "coors")))
+        preds = self.model(frames.voxels, frames.num_points_per_voxel, frames.coors)
         timing.mark("network")
-        candidates = self.postprocess.decode_frames(preds, [mask for _, mask in frames])
+        candidates = self.postprocess.decode_frames(preds, masks)
         timing.mark("decode")
         out = tuple(self.postprocess.finalize_frames(candidates))
         timing.mark("postprocess")

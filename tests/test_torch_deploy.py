@@ -140,9 +140,13 @@ def test_artifact_holds_the_kernel_ops(artifacts):
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     assert targets.count("det3d.scatter_to_bev.default") == 1
     assert targets.count("det3d.nms_keep.default") == 1
-    # the weights, the anchors and the grid travel inside it
+    assert targets.count("det3d.voxelize.default") == 1
+    # the weights and the anchors travel inside it, the grid as the voxelizer's arguments
     assert "model.rpn.block1.0.weight" in program.state_dict
-    assert {"voxel_size", "grid_offset", "grid_size", "postprocess.anchors_0"} <= set(program.constants)
+    assert "postprocess.anchors_0" in program.constants
+    vox = next(n for n in program.graph.nodes if str(n.target) == "det3d.voxelize.default")
+    cfg = artifacts["tcfg"]
+    assert list(vox.args[2:5]) == [list(cfg.voxel_size), list(cfg.detection_offset), list(cfg.grid_size)]
 
 
 def test_artifact_in_a_fresh_process_matches_live_and_jax(artifacts):

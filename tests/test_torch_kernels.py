@@ -321,7 +321,7 @@ class TestTrainKernelWrappers:
 
     def test_matcher_and_fence_build_flags(self):
         assert {"-fmad=false", "-prec-div=true"} <= set(build.EXTRA_FLAGS["matcher"])
-        assert set(build.EXTRA_FLAGS) == {"scatter", "nms", "matcher", "fence", "instance_norm"}
+        assert set(build.EXTRA_FLAGS) == {"scatter", "nms", "matcher", "fence", "instance_norm", "voxelize"}
         assert all((build.CSRC / f"{name}.cu").exists() for name in build.EXTRA_FLAGS)
 
 

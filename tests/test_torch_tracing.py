@@ -36,7 +36,7 @@ from test_torch_tmpdirs import tmp_path  # noqa: F401
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
-MARKS = ["start", "preprocess", "neck", "network", "decode", "postprocess"]
+MARKS = ["start", "voxelize", "preprocess", "neck", "network", "decode", "postprocess"]
 OLD_MARKS = ["start", "preprocess", "network", "postprocess"]   # the marks before `neck` and `decode` came
 CHILDREN = {"pad", "call.stage", "call.launch", "annos.fetch", "annos.format"}
 
@@ -152,7 +152,8 @@ def test_rows_staged_and_real_are_what_was_fed(det, batch, tmp_path):  # noqa: F
 def test_a_center_replay_carries_its_marks_in_order(batch, tmp_path):  # noqa: F811
     """The center model (CenterPoint-PP at every published width on a
     64x64 grid): a captured frame's or batch's replay marks start,
-    preprocess, neck, network, decode, postprocess in order, and counts a
+    voxelize, preprocess, neck, network, decode, postprocess in order (no
+    anchor mask: voxelize falls next to preprocess), and counts a
     row of NMS a task of each frame."""
     cfg = load_config("benchmark/configs/centerpoint_pp_nusc.json", compute_dtype="float32", max_voxels=256,
                       max_points=4096, detection_range=[-6.4, -6.4, -5.0, 6.4, 6.4, 3.0])
@@ -172,6 +173,23 @@ def test_a_center_replay_carries_its_marks_in_order(batch, tmp_path):  # noqa: F
     ms = [t for _, t in replay.marks]
     assert all(a <= b for a, b in zip(ms, ms[1:]))
     assert timing.counters()["nms.rows"] == max(batch, 1) * len(cfg.tasks)
+
+
+@pytest.mark.parametrize("entry", ["detect", "infer_batch_jit"])
+def test_voxelize_is_marked_between_start_and_preprocess(det, entry, tmp_path):  # noqa: F811
+    """The voxelizer's own mark: right after the op `det3d::voxelize`, before
+    the anchor mask, in a frame's replay and in a batch's."""
+    points = clouds(det.cfg, 2, seed=5)
+    with timing.trace(tmp_path):
+        if entry == "detect":
+            det.detect(points[0])
+        else:
+            padded = [det.pad_points(p) for p in points]
+            det.infer_batch_jit(np.stack([p for p, _ in padded]), np.asarray([n for _, n in padded], np.int32))
+    (replay,) = timing.replays()
+    assert [m for m, _ in replay.marks][:3] == ["start", "voxelize", "preprocess"]
+    ms = [t for _, t in replay.marks]
+    assert ms[0] <= ms[1] <= ms[2]
 
 
 def test_the_profiler_trace_holds_the_spans_as_ranges(det, tmp_path):  # noqa: F811
